@@ -1,0 +1,168 @@
+"""PyTorch port vs JAX package: the Llama trunk and the decode engine.
+
+JAX builds the model (init_params -> quantize_params -> int4 runtime
+cache) and hands it over through ``convert.from_reference_arrays``; the
+same prompts then run through both engines. In f32 both sides compute the
+same arithmetic up to f32 sum order, so greedy tokens must be identical.
+"""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from tpu_bitsandbytes.engine import engine as JE
+from tpu_bitsandbytes.engine.kvcache import KVCache as JKV
+from tpu_bitsandbytes.engine.sampler import SamplingParams as JSP
+from tpu_bitsandbytes.models import llama as JL
+from tpu_bitsandbytes_torch.convert import (config_from_reference,
+                                            from_reference_arrays)
+from tpu_bitsandbytes_torch.engine import engine as TE
+from tpu_bitsandbytes_torch.engine.kvcache import KVCache as TKV
+from tpu_bitsandbytes_torch.engine.sampler import SamplingParams as TSP
+from tpu_bitsandbytes_torch.models import llama as TL
+
+from test_torch_functional import config_fields, reference_arrays, t32
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _model(cfg, seed=0):
+    """JAX params with the int4 cache, and the port's copy of them."""
+    p = JL.init_params(jax.random.PRNGKey(seed), cfg)
+    q = JL.quantize_params(p, dtype=cfg.dtype, fuse_projections=True)
+    jp = JL.build_runtime_cache(q, "int4")
+    return jp, from_reference_arrays(reference_arrays(jp), "cpu")
+
+
+def _prompts(lengths, vocab, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, n).tolist() for n in lengths]
+
+
+def test_greedy_tokens_match_jax_engine():
+    cfg = dataclasses.replace(JL.LlamaConfig.tiny(), dtype=jnp.float32)
+    jp, tp = _model(cfg)
+    prompts = _prompts([5, 17, 30], cfg.vocab_size, seed=0)
+    je = JE.DecodeEngine(jp, cfg, max_batch=4, steps_per_sync=4)
+    ref = je.generate(prompts, JSP(max_new_tokens=12), pipeline_depth=1)
+    te = TE.DecodeEngine(tp, config_from_reference(config_fields(cfg)),
+                         max_batch=4, steps_per_sync=4, device="cpu")
+    got = te.generate(prompts, TSP(max_new_tokens=12))
+    assert got == ref
+    assert all(len(g) == 12 for g in got)
+    assert te.stats["finished"] == 3
+
+
+def test_bf16_decode_logits_match_jax_flash_branch(monkeypatch):
+    """bf16: JAX's opt-in flash-decode branch (interpret mode) against the
+    port's plain K2, through prefill and a staged chunk of decode steps
+    fed the same tokens. Tolerance 3e-2 of max|ref|: bf16 rounds at other
+    places in XLA's CPU fusions than in eager PyTorch."""
+    monkeypatch.setenv("TBNB_FLASH_DECODE", "1")
+    monkeypatch.setenv("TBNB_FUSED_INTERPRET", "1")
+    # a config of its own, so no decode step traced without the flash
+    # branch (same static config) is reused from the jit cache
+    cfg = dataclasses.replace(JL.LlamaConfig.tiny(), max_seq_len=96)
+    tcfg = config_from_reference(config_fields(cfg))
+    jp, tp = _model(cfg, seed=1)
+    prompts = _prompts([7, 12], cfg.vocab_size, seed=1)
+    jc = JKV.create(cfg.num_layers, 2, 96, cfg.num_kv_heads, cfg.hd,
+                    dtype=cfg.dtype)
+    tc = TKV.create(cfg.num_layers, 2, 96, cfg.num_kv_heads, cfg.hd,
+                    device="cpu")
+    toks = []
+    for slot, pr in enumerate(prompts):
+        padded = np.zeros((1, 16), np.int32)
+        padded[0, :len(pr)] = pr
+        jl, jc = JE.prefill_step(jp, jc, jnp.asarray(padded),
+                                 jnp.int32(slot), jnp.int32(len(pr)), cfg)
+        tl, tc = TE.prefill_step(tp, tc, torch.from_numpy(padded), slot,
+                                 len(pr), tcfg)
+        assert np.abs(t32(tl) - np.asarray(jl)).max() <= 3e-2 * np.abs(
+            np.asarray(jl)).max()
+        toks.append(int(np.argmax(np.asarray(jl))))
+    jc = jc.begin_stage(4, window=False)
+    tc = tc.begin_stage(4)
+    # decode_step's own jit donates the cache, whose stage shares the
+    # lengths buffer (len0); the same step, jitted without donation
+    j_step = jax.jit(JE._decode_step_impl,
+                     static_argnames=("config", "attn_span"))
+    active = np.ones((2,), bool)
+    for _ in range(4):
+        t_in = np.asarray(toks, np.int32)
+        jl, jc = j_step(jp, jc, jnp.asarray(t_in), jnp.asarray(active),
+                        config=cfg, attn_span=96)
+        tl, tc = TE.decode_step(tp, tc, torch.from_numpy(t_in),
+                                torch.from_numpy(active), tcfg, attn_span=96)
+        ref = np.asarray(jl)
+        assert np.abs(t32(tl) - ref).max() <= 3e-2 * np.abs(ref).max()
+        toks = list(np.argmax(ref, axis=-1))
+    jc, tc = jc.flush_stage(), tc.flush_stage()
+    np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
+
+
+def test_forward_logits_match_f32():
+    cfg = dataclasses.replace(JL.LlamaConfig.tiny(), dtype=jnp.float32)
+    jp, tp = _model(cfg, seed=2)
+    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 9))
+    ref = np.asarray(JL.forward(jp, jnp.asarray(tok), cfg))
+    got = t32(TL.forward(tp, torch.from_numpy(tok),
+                         config_from_reference(config_fields(cfg))))
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("name", ["tiny_mistral", "tiny_mixtral",
+                                  "tiny_gemma", "tiny_phi2"])
+def test_unported_families_raise(name):
+    with pytest.raises(NotImplementedError):
+        config_from_reference(config_fields(getattr(JL.LlamaConfig, name)()))
+
+
+def test_port_never_imports_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the JAX
+    package (``tpu_bitsandbytes`` not followed by ``_torch``)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax\b|tpu_bitsandbytes(?!_torch))",
+                     re.M)
+    files = sorted((REPO / "tpu_bitsandbytes_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_to_device_moves_every_tensor():
+    """llama.to_device reaches the tensors inside QLinear4 leaves and their
+    nested double-quant state, and keeps every other field."""
+    cfg = TL.LlamaConfig.tiny()
+    gen = torch.Generator().manual_seed(0)
+    params = TL.build_runtime_cache(TL.quantize_params(
+        TL.init_params(cfg, generator=gen, device="cpu"),
+        compress_statistics=True, fuse_projections=True), "int4")
+    moved = TL.to_device(params, "meta")
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            yield tree
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        elif dataclasses.is_dataclass(tree):
+            for f in dataclasses.fields(tree):
+                yield from leaves(getattr(tree, f.name))
+
+    src, dst = list(leaves(params)), list(leaves(moved))
+    assert len(src) == len(dst) > 4 * cfg.num_layers
+    assert all(t.is_meta for t in dst)
+    assert [t.shape for t in src] == [t.shape for t in dst]
+    qkv = moved["layers"][0]["qkv_proj"]
+    assert qkv.shape == params["layers"][0]["qkv_proj"].shape
+    assert qkv.absmax_state.absmax.is_meta

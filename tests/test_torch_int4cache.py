@@ -1,0 +1,136 @@
+"""PyTorch port vs JAX package: the int4 runtime cache and its matmul (K1).
+
+JAX's ``int4_matmul`` runs its Pallas kernel in interpret mode on the CPU,
+as tests/test_int4_cache.py runs it; the port runs K1's plain version.
+
+Tolerances: int4 codes are bit-identical and scales agree to f32 rounding
+(<= 1e-6). In f32 the block dots are exact integers in both packages and
+only the f32 sum order differs: <= 1e-5 of max|ref|. In bf16 the outputs
+are those f32 sums rounded once: <= 1 bf16 ulp elementwise.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from tpu_bitsandbytes.models.layers import QLinear4 as JQLinear4
+from tpu_bitsandbytes.ops import int4cache as J
+from tpu_bitsandbytes_torch.convert import from_reference_arrays
+from tpu_bitsandbytes_torch.models.layers import QLinear4
+from tpu_bitsandbytes_torch.ops import int4cache as T
+
+from test_torch_functional import qlinear_arrays, rel_err, t32, to_np
+
+
+def _w(n, k, seed):
+    return (np.random.default_rng(seed).standard_normal((n, k)) * 0.05
+            ).astype(np.float32)
+
+
+def _both(w):
+    jq, js = J.quantize_int4(jnp.asarray(w))
+    tq, ts = T.quantize_int4(torch.from_numpy(w))
+    return jq, js, tq, ts
+
+
+@pytest.mark.parametrize("n,k", [(128, 256), (100, 200), (2100, 128)])
+def test_quantize_int4_matches(n, k):
+    """(2100, 128): N >= JAX's tile, so JAX pads N; compare the real rows."""
+    jq, js, tq, ts = _both(_w(n, k, seed=n + k))
+    np.testing.assert_array_equal(T.unpack_int4(tq).numpy(), to_np(jq)[:n])
+    assert rel_err(ts.numpy(), np.asarray(js)[:, :n]) <= 1e-6
+    assert rel_err(t32(T.dequant_int4(tq, ts)),
+                   np.asarray(J.dequant_int4(jq, js))[:n]) <= 1e-6
+
+
+def _ulp_bf16(ref):
+    mag = np.maximum(np.abs(ref), np.float32(2.0 ** -126))
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 80])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4_matmul_matches(m, dtype):
+    """M <= 64 runs the A8 kernel path in both packages, M = 80 the
+    dequant path; K = 200 exercises the K padding."""
+    n, k = 256, 200
+    jq, js, tq, ts = _both(_w(n, k, seed=1))
+    x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
+    jd = getattr(jnp, dtype)
+    td = getattr(torch, dtype)
+    ref = np.asarray(J.int4_matmul(jnp.asarray(x, jd), jq, js,
+                                   out_dtype=jd), np.float32)
+    got = t32(T.int4_matmul(torch.from_numpy(x).to(td), tq, ts,
+                            out_dtype=td))
+    assert got.shape == ref.shape == (m, n)
+    if dtype == "float32":
+        assert rel_err(got, ref) <= 1e-5
+    else:
+        assert (np.abs(got - ref) <= _ulp_bf16(ref)).all()
+
+
+def test_small_m_dequant_branch():
+    """N = 100 is below JAX's tile and not a multiple of 128: JAX takes the
+    dequant branch even at M = 4, with no A8 quantization, and so must the
+    port (the A8 path would differ by ~1%)."""
+    n, k, m = 100, 256, 4
+    assert not T.takes_kernel(m, n, k, T.INT4_BLOCK)
+    jq, js, tq, ts = _both(_w(n, k, seed=2))
+    x = np.random.default_rng(3).standard_normal((m, k)).astype(np.float32)
+    ref = np.asarray(J.int4_matmul(jnp.asarray(x), jq, js,
+                                   out_dtype=jnp.float32))
+    got = t32(T.int4_matmul(torch.from_numpy(x), tq, ts,
+                            out_dtype=torch.float32))
+    assert rel_err(got, ref) <= 1e-5
+    xq_like = ref - np.asarray(x) @ np.asarray(J.dequant_int4(jq, js)).T
+    assert np.abs(xq_like).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (8, 12288, 4096), (8, 4096, 4096), (8, 22016, 4096), (8, 4096, 11008),
+    (8, 32000, 4096), (64, 22016, 4096), (65, 4096, 4096), (1, 100, 256),
+    (1, 1000, 256), (1, 2047, 640), (8, 2053, 4096), (3, 384, 384),
+    (4, 256, 192)])
+def test_branch_choice_matches_jax(m, n, k):
+    """The port's branch rule against JAX's own: the N padding of its
+    quantize_int4 followed by the tile search of int4_matmul."""
+    kp = J._round_up(k, J.INT4_BLOCK)
+    t = J._preferred_tile(kp)
+    n_pad = J._round_up(n, t) if n >= t else n
+    jax_kernel = (m <= J._MAX_M and kp % 128 == 0
+                  and J._select_n_tile(n_pad, kp) is not None)
+    assert T.takes_kernel(m, n, kp, J.INT4_BLOCK) == jax_kernel
+
+
+def test_qlinear_runtime_cache_matches():
+    """NF4 -> int4 requantization in QLinear4.with_runtime_cache: the same
+    NF4 bytes give the same int4 codes in both packages, and a converted
+    JAX QLinear4 (N padding stripped) computes what JAX computes."""
+    w = _w(320, 384, seed=4)
+    jq = JQLinear4.quantize(jnp.asarray(w), dtype=jnp.float32
+                            ).with_runtime_cache("int4")
+    tq = QLinear4.quantize(torch.from_numpy(w), dtype=torch.float32
+                           ).with_runtime_cache("int4")
+    np.testing.assert_array_equal(
+        T.unpack_int4(tq.w_cache).numpy(), to_np(jq.w_cache)[:320])
+    conv = from_reference_arrays(qlinear_arrays(jq), "cpu")
+    np.testing.assert_array_equal(conv.w_cache.numpy(), tq.w_cache.numpy())
+    x = np.random.default_rng(5).standard_normal((2, 3, 384)).astype(
+        np.float32)
+    ref = np.asarray(jq(jnp.asarray(x)))
+    assert rel_err(t32(conv(torch.from_numpy(x))), ref) <= 1e-5
+    assert rel_err(t32(tq(torch.from_numpy(x))), ref) <= 1e-5
+
+
+def test_no_cache_raises():
+    q = QLinear4.quantize(torch.from_numpy(_w(128, 128, seed=6)))
+    with pytest.raises(NotImplementedError, match="K4"):
+        q(torch.zeros((1, 128)))
+
+
+def test_cpu_calls_take_the_plain_version():
+    jq, js, tq, ts = _both(_w(128, 256, seed=7))
+    before = T.int4_mm.launches, T.int4_mm_plain.cuda_calls
+    T.int4_matmul(torch.ones((2, 256)), tq, ts)
+    assert (T.int4_mm.launches, T.int4_mm_plain.cuda_calls) == before

@@ -1,0 +1,115 @@
+"""Move parameters and configs from the JAX package into the port.
+
+The port cannot import JAX, so the JAX side hands its parameter tree over as
+numpy arrays (bfloat16 arrays keep their ml_dtypes dtype), with each
+``QLinear4`` as a dict of its fields::
+
+    {"packed", "absmax", "absmax_q", "absmax_state", "w_cache",
+     "cache_scale", "shape", "blocksize", "quant_type", "dtype", "bias"}
+
+where ``w_cache`` holds the int4 cache's codes as int8, ``absmax_state`` is
+``None`` or a dict ``{"absmax", "shape", "blocksize", "dtype"}``, and
+``dtype`` is a dtype name such as ``"bfloat16"``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .functional import QuantState, pack_nibbles
+from .models.layers import QLinear4
+from .models.llama import LlamaConfig
+
+__all__ = ["from_reference_arrays", "config_from_reference", "torch_dtype"]
+
+_QLINEAR_KEYS = {"packed", "w_cache", "shape"}
+
+# defaults of the JAX LlamaConfig fields the port does not implement
+_UNSUPPORTED = {
+    "sliding_window": None, "hidden_act": "silu", "rms_weight_offset": 0.0,
+    "scale_embeddings": False, "post_norms": False,
+    "attn_logit_softcap": None, "final_logit_softcap": None,
+    "query_pre_attn_scalar": None, "sliding_window_pattern": None,
+    "sliding_window_layers": None, "num_experts": 0, "norm_type": "rms",
+    "parallel_blocks": False, "gated_mlp": True, "rope_partial_factor": 1.0,
+}
+_IGNORED = ("experts_per_token", "moe_intermediate_size", "moe_norm_topk",
+            "moe_shared_expert_size")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float16": torch.float16,
+            "float32": torch.float32}[str(name)]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _opt(a, device):
+    return None if a is None else _tensor(a, device)
+
+
+def _qlinear(d: Dict[str, Any], device) -> QLinear4:
+    n, k = (int(s) for s in d["shape"])
+    dtype = torch_dtype(d["dtype"])
+    st = d.get("absmax_state")
+    state = None if st is None else QuantState(
+        absmax=_tensor(st["absmax"], device), shape=tuple(st["shape"]),
+        blocksize=int(st["blocksize"]), quant_type="int8",
+        dtype=torch_dtype(st["dtype"]))
+    w_cache = cache_scale = None
+    if d.get("w_cache") is not None:
+        # drop the JAX cache's N padding; codes -> two nibbles per byte
+        codes = torch.from_numpy(np.asarray(d["w_cache"], np.int8)[:n].copy())
+        w_cache = pack_nibbles(codes & 0x0F).to(device)
+        cache_scale = _tensor(np.asarray(d["cache_scale"])[:, :n], device)
+    return QLinear4(
+        packed=_opt(d.get("packed"), device), absmax=_opt(d.get("absmax"),
+                                                          device),
+        shape=(n, k), blocksize=int(d["blocksize"]),
+        quant_type=str(d["quant_type"]), dtype=dtype,
+        bias=_opt(d.get("bias"), device),
+        absmax_q=_opt(d.get("absmax_q"), device), absmax_state=state,
+        w_cache=w_cache, cache_scale=cache_scale)
+
+
+def from_reference_arrays(tree, device):
+    """The port's parameter tree, on ``device``, from the JAX package's
+    tree handed over as numpy (see the module docstring)."""
+    if isinstance(tree, dict):
+        if _QLINEAR_KEYS <= tree.keys():
+            return _qlinear(tree, device)
+        return {k: from_reference_arrays(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_reference_arrays(v, device) for v in tree]
+    if tree is None:
+        return None
+    return _tensor(tree, device)
+
+
+def config_from_reference(fields: Dict[str, Any]) -> LlamaConfig:
+    """A :class:`LlamaConfig` from the JAX ``LlamaConfig``'s fields
+    (``dataclasses.asdict``, with ``dtype`` as a name). Raises
+    NotImplementedError for what only the JAX package implements: MoE,
+    LayerNorm, post-norms, parallel blocks, sliding windows, softcaps,
+    non-SiLU activations, scaled embeddings and partial rotary."""
+    fields = dict(fields)
+    used = [k for k, default in _UNSUPPORTED.items()
+            if fields.pop(k, default) != default]
+    if used:
+        raise NotImplementedError(
+            f"LlamaConfig features not ported: {', '.join(used)}")
+    for k in _IGNORED:
+        fields.pop(k, None)
+    fields["dtype"] = torch_dtype(fields["dtype"])
+    if fields.get("rope_scaling") is not None:
+        fields["rope_scaling"] = tuple(fields["rope_scaling"])
+    return LlamaConfig(**fields)

@@ -1,0 +1,302 @@
+"""Transformer building blocks with quantized weights, in PyTorch.
+
+Model parameters are plain dicts of tensors plus :class:`QLinear4` leaves,
+as in the JAX package, and every public function keeps the JAX package's
+layouts: activations ``[B, S, H, D]``, KV codes head-major
+``[B, H_kv, T, D]``, int4-cache scales ``[nb, N]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..functional import (QuantState, _pad_k, dequantize_4bit,
+                          dequantize_blockwise, quantize_4bit,
+                          quantize_blockwise)
+from ..ops.int4cache import int4_matmul, quantize_int4
+
+FLASH_PREFILL_THRESHOLD = 1024
+
+
+@dataclasses.dataclass
+class QLinear4:
+    """4-bit quantized linear weight.
+
+    ``packed`` [N, K_pad/2] uint8 NF4/FP4 nibble pairs and ``absmax``
+    [N, nb] (or ``absmax_q`` int8 with the nested ``absmax_state`` when the
+    statistics are double-quantized). ``w_cache``/``cache_scale`` hold the
+    int4 runtime cache (packed [N, K_pad/2] two's-complement nibbles, f32
+    [K_pad/128, N]) that decode streams through kernel K1.
+    """
+
+    packed: Optional[torch.Tensor]
+    absmax: Optional[torch.Tensor]
+    shape: Tuple[int, int]
+    blocksize: int = 64
+    quant_type: str = "nf4"
+    dtype: torch.dtype = torch.bfloat16
+    bias: Optional[torch.Tensor] = None
+    absmax_q: Optional[torch.Tensor] = None
+    absmax_state: Optional[QuantState] = None
+    w_cache: Optional[torch.Tensor] = None
+    cache_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor, blocksize: int = 64,
+                 quant_type: str = "nf4", dtype=torch.bfloat16,
+                 bias: Optional[torch.Tensor] = None,
+                 compress_statistics: bool = False) -> "QLinear4":
+        """Quantize a float weight [N, K]. With ``compress_statistics`` the
+        absmax is double-quantized one row per int8 block, so the
+        compressed scales shard like the rows."""
+        n, k = w.shape
+        packed_flat, state = quantize_4bit(w, blocksize=blocksize,
+                                           quant_type=quant_type)
+        kp = _pad_k(k, blocksize)
+        nb = kp // blocksize
+        packed = packed_flat.reshape(n, kp // 2)
+        if compress_statistics:
+            absmax_q, st2 = quantize_blockwise(state.absmax.reshape(n, nb),
+                                               blocksize=nb)
+            return cls(packed=packed, absmax=None, shape=(n, k),
+                       blocksize=blocksize, quant_type=quant_type,
+                       dtype=dtype, bias=bias, absmax_q=absmax_q,
+                       absmax_state=st2)
+        return cls(packed=packed, absmax=state.absmax.reshape(n, nb),
+                   shape=(n, k), blocksize=blocksize, quant_type=quant_type,
+                   dtype=dtype, bias=bias)
+
+    def materialize_absmax(self) -> torch.Tensor:
+        if self.absmax is not None:
+            return self.absmax
+        n, nb = self.absmax_q.shape
+        flat = dequantize_blockwise(self.absmax_q.reshape(-1),
+                                    self.absmax_state)
+        return flat.reshape(n, nb)
+
+    def quant_state(self) -> QuantState:
+        return QuantState(absmax=self.materialize_absmax().reshape(-1),
+                          shape=tuple(self.shape), blocksize=self.blocksize,
+                          quant_type=self.quant_type, dtype=self.dtype)
+
+    def with_runtime_cache(self, fmt: str = "int4",
+                           drop_packed: bool = False) -> "QLinear4":
+        """Attach the int4 runtime cache: the NF4 weight, dequantized in
+        f32, requantized to symmetric int4 per (row, 128-block).
+        ``drop_packed`` frees the NF4 codes and absmax."""
+        if fmt != "int4":
+            raise NotImplementedError(
+                f"runtime cache {fmt!r}: only 'int4' is ported (the int8 and "
+                "bf16 caches are still to come)")
+        state = dataclasses.replace(self.quant_state(), dtype=torch.float32)
+        w = dequantize_4bit(self.packed.reshape(-1), state)
+        cache, scale = quantize_int4(w)
+        keep = not drop_packed
+        return dataclasses.replace(
+            self, w_cache=cache, cache_scale=scale,
+            packed=self.packed if keep else None,
+            absmax=self.absmax if keep else None,
+            absmax_q=self.absmax_q if keep else None,
+            absmax_state=self.absmax_state if keep else None)
+
+    def hbm_bytes(self) -> int:
+        """Device-memory bytes one forward pass reads for the weight."""
+        if self.w_cache is not None:
+            return self.w_cache.numel() + self.cache_scale.numel() * 4
+        b = self.packed.numel()
+        if self.absmax is not None:
+            b += self.absmax.numel() * 4
+        elif self.absmax_q is not None:
+            b += self.absmax_q.numel() + self.absmax_state.absmax.numel() * 4
+        if self.bias is not None:
+            b += self.bias.numel() * self.bias.element_size()
+        return b
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w_cache is None:
+            raise NotImplementedError(
+                "QLinear4 without a runtime cache needs the packed-NF4 "
+                "kernels K4 (ops/w4a8.py) or K5 (ops/matmul4bit.py), which "
+                "are not ported yet: call with_runtime_cache('int4')")
+        lead = x.shape[:-1]
+        out = int4_matmul(x.reshape(-1, x.shape[-1]), self.w_cache,
+                          self.cache_scale, bias=self.bias,
+                          out_dtype=self.dtype, n_out=self.shape[0])
+        return out.reshape(*lead, self.shape[0])
+
+
+def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
+    """Apply a weight leaf: a :class:`QLinear4`, a dict with 'w' (and an
+    optional 'b'), or a raw [N, K] tensor."""
+    if isinstance(w, QLinear4):
+        return w(x)
+    if isinstance(w, dict):
+        out = x @ w["w"].t().to(x.dtype)
+        if w.get("b") is not None:
+            out = out + w["b"].to(out.dtype)
+        return out
+    return x @ w.t().to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
+    """RMSNorm; the normalized activation is cast back to x's dtype before
+    the weight multiply (HF Llama's order)."""
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
+
+
+def rope_table(head_dim: int, max_seq: int, theta: float = 10000.0,
+               scaling=None, *, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE cos/sin tables [max_seq, head_dim/2] f32. ``scaling``:
+    ("linear", factor) or Llama-3.1's ("llama3", factor, low_freq_factor,
+    high_freq_factor, orig_max_pos)."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    if scaling is not None:
+        if scaling[0] == "linear":
+            inv_freq = inv_freq / scaling[1]
+        elif scaling[0] == "llama3":
+            _, factor, low_f, high_f, orig_max = scaling
+            low_wavelen = orig_max / low_f
+            high_wavelen = orig_max / high_f
+            wavelen = 2 * np.pi / inv_freq
+            scaled = inv_freq / factor
+            smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
+            mid = (1 - smooth) * scaled + smooth * inv_freq
+            inv_freq = np.where(wavelen < high_wavelen, inv_freq,
+                                np.where(wavelen > low_wavelen, scaled, mid))
+        else:
+            raise ValueError(f"unknown rope scaling: {scaling!r}")
+    freqs = np.outer(np.arange(max_seq), inv_freq)
+    return (torch.tensor(np.cos(freqs), dtype=torch.float32, device=device),
+            torch.tensor(np.sin(freqs), dtype=torch.float32, device=device))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [..., S, H, D]; cos/sin [..., S, D/2] gathered at x's positions."""
+    d2 = cos.shape[-1]
+    x1, x2 = x[..., :d2], x[..., d2:2 * d2]
+    c = cos[..., :, None, :].to(x.dtype)
+    s = sin[..., :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
+                 window: Optional[int] = None, kpos_start: int = 0,
+                 device=None) -> torch.Tensor:
+    """Causal (optionally sliding-window) keep-mask: [1,1,1,S,T] for an
+    aligned prefill (``causal_offset`` None), else [B,1,1,S,T] with
+    ``causal_offset`` [B, S] the queries' absolute positions and key index
+    0 at absolute position ``kpos_start``."""
+    if causal_offset is None:
+        if kpos_start != 0:
+            raise ValueError("kpos_start needs causal_offset")
+        qpos = torch.arange(s, device=device)[:, None]
+        kpos = torch.arange(t, device=device)[None, :]
+        keep = kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        return keep[None, None, None]
+    kpos = kpos_start + torch.arange(t, device=causal_offset.device)
+    off = causal_offset[:, :, None]
+    keep = kpos[None, None, :] <= off
+    if window is not None:
+        keep &= kpos[None, None, :] > off - window
+    return keep[:, None, None]
+
+
+def gqa_attention(q, k, v, *, causal_offset=None, scale=None
+                  ) -> torch.Tensor:
+    """Dense grouped-query attention, computed in f32.
+
+    q [B, S, H, D]; k/v [B, T, H_kv, D] token-major. ``causal_offset``
+    [B, S]: the queries' absolute positions (None: aligned causal prefill,
+    S == T). Aligned prefills of 1024 tokens or more need kernel K3, which
+    is not ported.
+    """
+    b, s, h, d = q.shape
+    t, h_kv = k.shape[1], k.shape[2]
+    if causal_offset is None and s == t and s >= FLASH_PREFILL_THRESHOLD:
+        raise NotImplementedError(
+            f"prefill of {s} tokens needs the flash-prefill kernel K3 "
+            "(ops/flash_prefill.py), which is not ported yet")
+    rep = h // h_kv
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    qg = q.reshape(b, s, h_kv, rep, d).to(torch.float32)
+    logits = torch.einsum("bshrd,bthd->bhrst", qg, k.to(torch.float32)) * scale
+    mask = _causal_mask(s, t, causal_offset, device=q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
+                           causal_offset=None, scale=None, window=None,
+                           softcap=None, kpos_start: int = 0, staged=None):
+    """GQA directly over int8 head-major KV codes, computed in f32.
+
+    q [B, S, H, D]; k_q/v_q int8 [B, H_kv, T, D]; k_scale/v_scale f32
+    [B, H_kv, T] absmax scales. ``k_scale`` folds into the logits after
+    QK^T and ``v_scale`` into the probabilities before PV, so no dequantized
+    K/V is materialized. ``staged``: ``(st_k, st_ks, st_v, st_vs, step)``,
+    the decode chunk's staged block (``KVCache.read_stage``), joined as a
+    second key block: the main block is cut at the chunk start
+    (``kpos <= off - step - 1``), staged key j counts when ``j <= step``,
+    and one softmax covers both. Requires S == 1.
+    """
+    b, s, h, d = q.shape
+    h_kv, t = k_q.shape[1], k_q.shape[2]
+    rep = h // h_kv
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    f32 = torch.float32
+    qg = q.reshape(b, s, h_kv, rep, d).to(f32)
+    logits = torch.einsum("bshrd,bhtd->bhrst", qg, k_q.to(f32))
+    logits = logits * (k_scale * (scale / 127.0))[:, :, None, None, :]
+    neg = torch.full((), -1e30, dtype=f32, device=q.device)
+    if staged is not None:
+        if s != 1:
+            raise ValueError("staged attention is decode-only (S == 1)")
+        st_k, st_ks, st_v, st_vs, step = staged
+        c = st_k.shape[2]
+        lg_st = torch.einsum("bshrd,bhtd->bhrst", qg, st_k.to(f32))
+        lg_st = lg_st * (st_ks * (scale / 127.0))[:, :, None, None, :]
+        if softcap is not None:
+            logits = torch.tanh(logits / softcap) * softcap
+            lg_st = torch.tanh(lg_st / softcap) * softcap
+        kpos = kpos_start + torch.arange(t, device=q.device)[None, None, :]
+        off = causal_offset[:, :, None]
+        keep_main = kpos <= off - step - 1
+        jst = torch.arange(c, device=q.device)[None, None, :]
+        keep_st = (jst <= step).expand(b, 1, c)
+        if window is not None:
+            keep_main = keep_main & (kpos > off - window)
+            keep_st = keep_st & (jst > step - window)
+        logits = torch.where(keep_main[:, None, None], logits, neg)
+        lg_st = torch.where(keep_st[:, None, None], lg_st, neg)
+        m = torch.maximum(logits.amax(dim=-1, keepdim=True),
+                          lg_st.amax(dim=-1, keepdim=True))
+        pm = torch.exp(logits - m)
+        pst = torch.exp(lg_st - m)
+        denom = (pm.sum(dim=-1, keepdim=True)
+                 + pst.sum(dim=-1, keepdim=True))
+        vs = (v_scale / 127.0)[:, :, None, None, :]
+        stvs = (st_vs / 127.0)[:, :, None, None, :]
+        out = (torch.einsum("bhrst,bhtd->bshrd", pm * vs, v_q.to(f32))
+               + torch.einsum("bhrst,bhtd->bshrd", pst * stvs, st_v.to(f32)))
+        out = out / denom.permute(0, 3, 1, 2, 4)
+        return out.reshape(b, s, h, d).to(q.dtype)
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    mask = _causal_mask(s, t, causal_offset, window, kpos_start, q.device)
+    logits = torch.where(mask, logits, neg)
+    probs = torch.softmax(logits, dim=-1)
+    pv = probs * (v_scale / 127.0)[:, :, None, None, :]
+    out = torch.einsum("bhrst,bhtd->bshrd", pv, v_q.to(f32))
+    return out.reshape(b, s, h, d).to(q.dtype)

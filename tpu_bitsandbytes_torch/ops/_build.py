@@ -1,0 +1,116 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled, on first use and all sources at once
+(one nvcc process each, started together), into
+``build/kernels/lib<name>_<hash>.so`` beside the package; the hash covers
+the sources, the shared headers and the flags, so an edit rebuilds and an
+unchanged tree reuses its libraries. The libraries export plain C launch
+functions that return ``cudaGetLastError()`` after the launch; callers pass
+the code to :func:`check`.
+
+No PyTorch headers are compiled in: a source that includes
+``torch/extension.h`` takes minutes to build, a plain C interface seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found (CUDA_HOME unset and no "
+                           "nvcc on PATH): cannot build the CUDA kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _digest(src: Path) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [src] + sorted(_CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(src: Path) -> Path:
+    return _BUILD / f"lib{src.stem}_{_digest(src)}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas=-v``: registers, shared memory, spills) for
+    the current build of kernel source ``name``, or "" if not built here."""
+    src = _CSRC / f"{name}.cu"
+    log = _lib_path(src).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build (if needed) and load every kernel library. Raises if any
+    source fails to compile."""
+    with _lock:
+        if _libs:
+            return _libs
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src in sources():
+            out = _lib_path(src)
+            if out.exists():
+                continue
+            tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+            log = open(out.with_suffix(".log"), "w")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+                 str(src)],
+                stdout=log, stderr=subprocess.STDOUT)
+            jobs.append((src, out, tmp, log, proc))
+        failed = []
+        for src, out, tmp, log, proc in jobs:
+            rc = proc.wait()
+            log.close()
+            if rc != 0:
+                failed.append(f"{src.name} (nvcc exit {rc}):\n"
+                              + out.with_suffix(".log").read_text())
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failed))
+        for src in sources():
+            _libs[src.stem] = ctypes.CDLL(str(_lib_path(src)))
+        return _libs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``."""
+    return load_all()[name]
+
+
+def loaded() -> Dict[str, bool]:
+    """Which kernel libraries are loaded in this process (builds nothing)."""
+    return {src.stem: src.stem in _libs for src in sources()}
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a nonzero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
