@@ -4,24 +4,37 @@
 
 Phases (any failure raises: traceback, nonzero exit):
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA
-     versions; TF32 off for matmuls and cuDNN.
+     versions; TF32 off for matmuls and cuDNN, bf16 GEMMs reduce in f32.
   2. kernels: builds every kernel from ``tpu_bitsandbytes_torch/csrc`` and
      holds each against its plain PyTorch version on the card, at the
-     Llama-2-7B decode shapes and at odd ones; times kernel, plain version
-     and the least time the card could take (bytes over HBM bandwidth, or
-     int8 operations over the int8 peak, whichever is larger).
-  3. full width against the CPU: a Llama-2-7B-width model cut to 2 layers,
-     built once from a numpy seed, runs prefill and 8 staged decode steps on
-     the card (kernels) and on the CPU (plain versions), both bf16.
-  4. the slice: Llama-2-7B at its 32 layers, random NF4 weights from a
-     seed, served by ``DecodeEngine.generate`` (int4 runtime cache, B=8,
-     32-step chunks) for 8 requests of 16-200 prompt tokens and 64 greedy
-     new tokens each. Counts kernel launches per decode step.
+     shapes the served paths give it (Llama-2-7B for K1/K2, Llama-2-13B
+     for K3/K4/K5) and at odd ones; times kernel, plain version, the one
+     PyTorch call that computes the same function where there is one
+     (SDPA for K3), and the least time the card could take (bytes over HBM
+     bandwidth, or operations over the peak for their type, whichever is
+     larger).
+  3. full width against the CPU: a Llama-2-7B-width model with the int4
+     cache, and (3b) a Llama-2-13B-width model off its packed NF4 bytes,
+     each cut to 2 layers and built once from a numpy seed, run prefill
+     and 8 staged decode steps on the card (kernels) and on the CPU (plain
+     versions), both bf16. 3b runs the card twice: fed the CPU's
+     activation at every K4 call, and on its own A8 codes, held to the
+     CPU's own bf16-vs-f32 gap.
+  4. Llama-2-7B at its 32 layers, random NF4 weights from a seed, served by
+     ``DecodeEngine.generate`` (int4 runtime cache, B=8, 32-step chunks)
+     for 8 requests of 16-200 prompt tokens and 64 greedy new tokens each.
+     Counts kernel launches per decode step.
+  5. the slice: Llama-2-13B at its 40 layers, random NF4 weights from a
+     seed, served off the packed bytes (``runtime_cache=None``, B=8,
+     ``max_seq`` 2048, 32-step chunks) for 8 prompts of 24-1800 tokens with
+     48 greedy new tokens each: K4 for decode and the 32/64 buckets, K5 for
+     128/256, K3 and the plain GEMM for 1024/2048. Counts launches.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -34,7 +47,12 @@ import torch
 
 K1_TOL = 1e-5   # exact int32 block dots; only the f32 sum order differs
 K2_TOL = 1e-3   # one flipped p code where an exp rounds differently
-E2E_TOL = 3e-2  # bf16 logits, card vs CPU, as a share of max|ref|
+K3_TOL = 1e-2   # bf16 p from exps that round differently on the card
+K4_TOL = 1e-5   # exact int32 block dots; only the f32 sum order differs
+# f32: exact products, another sum order; bf16: the f32 result rounds to
+# bf16, whose ulp at max|ref| is 3.9e-3
+K5_TOL = {"f32": 1e-5, "bf16": 1e-2}
+E2E_TOL = 3e-2  # bf16 logits and activations, card vs CPU, of max|ref|
 
 
 def emit(obj):
@@ -42,10 +60,11 @@ def emit(obj):
 
 
 def card_rates(name: str):
-    """(HBM bytes/s, dense int8 ops/s) of the H100 variant ``name``."""
+    """(HBM bytes/s, dense int8 ops/s, dense bf16 FLOP/s) of the H100
+    variant ``name``."""
     if "PCIe" in name:
-        return 2.0e12, 1513e12
-    return 3.35e12, 1979e12
+        return 2.0e12, 1513e12, 756e12
+    return 3.35e12, 1979e12, 989e12
 
 
 def time_ms(calls, iters: int) -> float:
@@ -241,6 +260,241 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
         "bound_ms": 32 * bound, "bound_by": "bytes", "library_ms": None}
 
 
+# (name, N, K, launches per decode step) at Llama-2-13B, fused projections
+K4_DECODE = [("qkv", 15360, 5120, 40), ("o", 5120, 5120, 40),
+             ("gateup", 27648, 5120, 40), ("down", 5120, 13824, 40),
+             ("lm_head", 32000, 5120, 1)]
+# (M, N, K, blocksize): other decode widths, prefill buckets, blocksize 128
+K4_EXTRA = [(1, 5120, 5120, 128), (64, 27648, 5120, 64),
+            (8, 15360, 5120, 128), (32, 5120, 13824, 64),
+            (3, 256, 512, 16)]
+
+
+def packed_inputs(n, k, bs, gen, dev, copies=1):
+    """Random packed NF4 codes [N, K/2] and absmax [N, K/bs], ``copies``
+    times."""
+    return [(torch.randint(0, 256, (n, k // 2), generator=gen, device=dev,
+                           dtype=torch.uint8),
+             torch.rand((n, k // bs), generator=gen, device=dev) * 0.03
+             + 0.005) for _ in range(copies)]
+
+
+def packed_bytes(n, k, bs):
+    return n * k // 2 + 4 * n * (k // bs)
+
+
+def phase_kernels_k4(K4, gen, dev, bw, int8_peak):
+    def inputs(m, k):
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int16).to(torch.int8)
+        return xq, torch.rand((m,), generator=gen, device=dev) * 0.05 + 1e-3
+
+    worst = [0.0, 0.0]
+    for m, n, k, bs in K4_EXTRA + [(8, n, k, 64) for _, n, k, _ in K4_DECODE]:
+        xq, s_x = inputs(m, k)
+        ((w, am),) = packed_inputs(n, k, bs, gen, dev)
+        got = K4.w4a8_mm(xq, w, am, s_x)
+        ref = K4.w4a8_mm_plain(xq, w, am, s_x)
+        torch.cuda.synchronize()
+        a, r = err(got, ref)
+        if not (r <= K4_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"K4 M={m} N={n} K={k} bs={bs}: rel err {r}")
+        worst = [max(worst[0], a), max(worst[1], r)]
+    rows = []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, n, k, per_step in K4_DECODE:
+        copies = max(2, math.ceil(200e6 / packed_bytes(n, k, 64)))
+        xq, s_x = inputs(8, k)
+        ws = packed_inputs(n, k, 64, gen, dev, copies)
+        kern = time_ms([lambda w=w, am=am: K4.w4a8_mm(xq, w, am, s_x)
+                        for w, am in ws], iters=max(40, 2 * copies))
+        plain = time_ms([lambda: K4.w4a8_mm_plain(xq, *ws[0], s_x)], iters=3)
+        nbytes = packed_bytes(n, k, 64) + 8 * k + 4 * 8 + 4 * 8 * n
+        ops = 2 * 8 * n * k
+        bound = max(nbytes / bw, ops / int8_peak) * 1e3
+        rows.append({"shape": f"{name} M=8 N={n} K={k}", "kernel_ms": kern,
+                     "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": "bytes" if nbytes / bw >= ops / int8_peak
+                     else "operations", "per_step": per_step})
+        total["ms"] += per_step * kern
+        total["plain_ms"] += per_step * plain
+        total["bound_ms"] += per_step * bound
+        del ws
+    emit({"phase": "kernels", "kernel": "K4_w4a8_matmul", "shapes": rows})
+    return {
+        "name": "K4_w4a8_matmul", "route": "cuda",
+        "source": "tpu_bitsandbytes_torch/csrc/w4a8_matmul.cu",
+        "replaces": "tpu_bitsandbytes/ops/w4a8.py:92",
+        "shape": "one decode step at Llama-2-13B, M=8, blocksize 64: 40 x "
+                 "(qkv 15360x5120, o 5120x5120, gateup 27648x5120, down "
+                 "5120x13824) + lm_head 32000x5120",
+        "max_abs_err": worst[0], "max_rel_err": worst[1],
+        "ms": total["ms"], "kernel_ms": total["ms"],
+        "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}
+
+
+def k5_bound(m, n, k, bs, bw, bf16_peak):
+    nbytes = packed_bytes(n, k, bs) + 2 * m * k + 4 * m * n
+    ops = 2 * m * n * k
+    return (max(nbytes / bw, ops / bf16_peak) * 1e3,
+            "bytes" if nbytes / bw >= ops / bf16_peak else "operations")
+
+
+def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
+    shapes13 = [(n, k) for _, n, k, _ in K4_DECODE]
+    cases = ([(m, n, k, "nf4", "bf16") for m in (65, 128, 256)
+              for n, k in shapes13]
+             + [(128, 1000, 4032, qt, mode) for qt in ("nf4", "fp4")
+                for mode in ("bf16", "f32")]
+             + [(65, 5120, 5120, "nf4", "f32"), (256, 15360, 5120, "fp4",
+                                                 "bf16")])
+    worst = {"bf16": [0.0, 0.0], "f32": [0.0, 0.0]}
+
+    def x_of(m, k, mode):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        return x.to(torch.bfloat16 if mode == "bf16" else torch.float32)
+
+    for m, n, k, qt, mode in cases:
+        ((w, am),) = packed_inputs(n, k, 64, gen, dev)
+        x = x_of(m, k, mode)
+        book = TF.codebook(qt, dev)
+        got = K5.matmul4bit_mm(x, w, am, book, mode)
+        ref = K5.matmul4bit_plain(x, w, am, book, mode)
+        torch.cuda.synchronize()
+        a, r = err(got, ref)
+        if not (r <= K5_TOL[mode] and torch.isfinite(got).all()):
+            raise AssertionError(f"K5 M={m} N={n} K={k} {qt} {mode}: rel "
+                                 f"err {r}")
+        worst[mode] = [max(worst[mode][0], a), max(worst[mode][1], r)]
+    # double-quantized absmax through the wrapper (K = 4000: K padding)
+    w = torch.randn((1000, 4000), generator=gen, device=dev) * 0.05
+    packed, st = TF.quantize_4bit(w, blocksize=64, compress_statistics=True)
+    x = torch.randn((100, 4000), generator=gen, device=dev).to(torch.bfloat16)
+    got = K5.fused_matmul_4bit(x, packed, st, mxu_dtype=torch.bfloat16)
+    am = TF.dequantize_blockwise(st.absmax, st.state2).reshape(1000, -1)
+    ref = K5.matmul4bit_plain(torch.nn.functional.pad(x, (0, 32)),
+                              packed.reshape(1000, -1), am,
+                              TF.codebook("nf4", dev), "bf16")
+    torch.cuda.synchronize()
+    a, r = err(got, ref.to(torch.bfloat16))
+    if not r <= K5_TOL["bf16"]:
+        raise AssertionError(f"K5 double-quant wrapper: rel err {r}")
+    rows = []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for m in (128, 256):   # the two K5 prefill buckets of the served path
+        for name, n, k, per_prefill in K4_DECODE:
+            copies = max(2, math.ceil(200e6 / packed_bytes(n, k, 64)))
+            ws = packed_inputs(n, k, 64, gen, dev, copies)
+            x = x_of(m, k, "bf16")
+            book = TF.codebook("nf4", dev)
+            kern = time_ms([lambda w=w, am=am: K5.matmul4bit_mm(
+                x, w, am, book, "bf16") for w, am in ws],
+                iters=max(20, 2 * copies))
+            plain = time_ms([lambda: K5.matmul4bit_plain(x, *ws[0], book,
+                                                         "bf16")], iters=3)
+            bound, by = k5_bound(m, n, k, 64, bw, bf16_peak)
+            rows.append({"shape": f"{name} M={m} N={n} K={k} bf16",
+                         "kernel_ms": kern, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": by,
+                         "per_prefill": per_prefill})
+            total["ms"] += per_prefill * kern
+            total["plain_ms"] += per_prefill * plain
+            total["bound_ms"] += per_prefill * bound
+            del ws
+    x = x_of(65, 5120, "f32")
+    ((w, am),) = packed_inputs(5120, 5120, 64, gen, dev)
+    f32_ms = time_ms([lambda: K5.matmul4bit_mm(x, w, am, book, "f32")], 20)
+    emit({"phase": "kernels", "kernel": "K5_matmul4bit", "shapes": rows,
+          "f32_mode_o_M65_ms": f32_ms,
+          "worst_rel_err": {k: v[1] for k, v in worst.items()}})
+    return {
+        "name": "K5_matmul4bit", "route": "cuda",
+        "source": "tpu_bitsandbytes_torch/csrc/matmul4bit.cu",
+        "replaces": "tpu_bitsandbytes/ops/matmul4bit.py:72",
+        "shape": "the two prefills of the 128 and 256 buckets at "
+                 "Llama-2-13B, bf16, blocksize 64: 2 x (40 x (qkv, o, "
+                 "gateup, down) + lm_head)",
+        "max_abs_err": max(v[0] for v in worst.values()),
+        "max_rel_err": max(v[1] for v in worst.values()),
+        "ms": total["ms"], "kernel_ms": total["ms"],
+        "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in rows) else "mixed",
+        "library_ms": None}
+
+
+def k3_bound(b, s, h, h_kv, d, s_real, window, bw, bf16_peak, K3):
+    pairs = K3.kept_pairs(s, s_real, window)
+    ops = 4 * b * h * d * pairs
+    nbytes = 2 * b * s * d * (2 * h + 2 * h_kv)
+    return (max(nbytes / bw, ops / bf16_peak) * 1e3,
+            "bytes" if nbytes / bw >= ops / bf16_peak else "operations")
+
+
+def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
+    cases = [  # (B, S, H, H_kv, D, s_real, options)
+        (1, 1024, 40, 40, 128, 1024, {}),
+        (4, 2048, 40, 40, 128, 2048, {}),
+        (2, 2048, 32, 8, 128, 1900, {}),
+        (2, 1100, 16, 4, 64, 1000, {}),
+        (1, 2048, 32, 8, 128, 2048, {"window": 300}),
+        (1, 1024, 16, 16, 128, 1024, {"softcap": 50.0}),
+    ]
+
+    def qkv(b, s, h, h_kv, d):
+        return [(torch.randn(shape, generator=gen, device=dev) * 0.5).to(
+            torch.bfloat16) for shape in ((b, s, h, d), (b, s, h_kv, d),
+                                          (b, s, h_kv, d))]
+
+    worst = [0.0, 0.0]
+    for b, s, h, h_kv, d, s_real, opts in cases:
+        q, k, v = qkv(b, s, h, h_kv, d)
+        scale = 1.0 / d ** 0.5
+        got = K3.flash_prefill_attention(q, k, v, s_real=s_real, scale=scale,
+                                         **opts)
+        ref = K3.flash_prefill_plain(q, k, v, s_real=s_real, scale=scale,
+                                     block_k=K3.BLOCK, **opts)
+        torch.cuda.synchronize()
+        a, r = err(got[:, :s_real], ref[:, :s_real])
+        if not (r <= K3_TOL and torch.isfinite(got[:, :s_real]).all()):
+            raise AssertionError(f"K3 B={b} S={s} H={h}/{h_kv} D={d} "
+                                 f"s_real={s_real} {opts}: rel err {r}")
+        worst = [max(worst[0], a), max(worst[1], r)]
+    rows = []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for b, s in ((1, 1024), (4, 2048)):   # the served path's two buckets
+        q, k, v = qkv(b, s, 40, 40, 128)
+        scale = 1.0 / 128 ** 0.5
+        kern = time_ms([lambda: K3.flash_prefill_attention(
+            q, k, v, s_real=s, scale=scale)], iters=10)
+        plain = time_ms([lambda: K3.flash_prefill_plain(
+            q, k, v, s_real=s, scale=scale, block_k=K3.BLOCK)], iters=2)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)], iters=10)
+        bound, by = k3_bound(b, s, 40, 40, 128, s, None, bw, bf16_peak, K3)
+        rows.append({"shape": f"B={b} S={s} H=40 D=128", "kernel_ms": kern,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                     "bound_by": by, "per_prefill": 40,
+                     "tflops": 4 * b * 40 * 128 * K3.kept_pairs(s, s) / kern
+                     / 1e9})
+        for key, val in (("ms", kern), ("plain_ms", plain),
+                         ("library_ms", lib), ("bound_ms", bound)):
+            total[key] += 40 * val
+    emit({"phase": "kernels", "kernel": "K3_flash_prefill", "shapes": rows})
+    return {
+        "name": "K3_flash_prefill", "route": "cuda",
+        "source": "tpu_bitsandbytes_torch/csrc/flash_prefill.cu",
+        "replaces": "tpu_bitsandbytes/ops/flash_prefill.py:64",
+        "shape": "the prefills of the 1024 (B=1) and 2048 (B=4) buckets at "
+                 "Llama-2-13B, bf16: 40 layers x (H=40, D=128)",
+        "max_abs_err": worst[0], "max_rel_err": worst[1],
+        "ms": total["ms"], "kernel_ms": total["ms"],
+        "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+        "bound_by": "operations", "library_ms": total["library_ms"]}
+
+
 # ---------------------------------------------------------------------------
 # model builders
 # ---------------------------------------------------------------------------
@@ -279,25 +533,26 @@ def random_params(cfg, rand_bytes, rand_unit, rand_normal, device):
 # phase 3: full width, card against CPU
 # ---------------------------------------------------------------------------
 
-def run_prefill_decode(params, cfg, device, prompts, forced):
+def run_prefill_decode(params, cfg, device, prompts, forced, max_seq=256):
     """Prefill each prompt into its slot, then a staged chunk of decode
     steps fed ``forced`` tokens (or greedy ones when None). Returns the
     prefill logits, the decode-step logits and the tokens fed."""
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.engine.kvcache import KVCache
     n_steps = 8
-    cache = KVCache.create(cfg.num_layers, len(prompts), 256,
+    cache = KVCache.create(cfg.num_layers, len(prompts), max_seq,
                            cfg.num_kv_heads, cfg.hd, device=device)
     pre = []
     for slot, pr in enumerate(prompts):
-        padded = torch.zeros((1, E._bucket(len(pr), 256)), dtype=torch.int32)
+        padded = torch.zeros((1, E._bucket(len(pr), max_seq)),
+                             dtype=torch.int32)
         padded[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
         logits, cache = E.prefill_step(params, cache, padded.to(device), slot,
                                        len(pr), cfg)
         pre.append(logits.cpu())
     toks = torch.stack(pre).argmax(-1).to(torch.int32)
     active = torch.ones((len(prompts),), dtype=torch.bool, device=device)
-    span = E._span_bucket(max(map(len, prompts)) + n_steps, 256)
+    span = E._span_bucket(max(map(len, prompts)) + n_steps, max_seq)
     cache.begin_stage(n_steps)
     steps, fed = [], []
     for i in range(n_steps):
@@ -311,13 +566,9 @@ def run_prefill_decode(params, cfg, device, prompts, forced):
     return torch.stack(pre), torch.stack(steps), fed
 
 
-def phase_full_width(dev):
-    from tpu_bitsandbytes_torch.models.llama import (LlamaConfig,
-                                                     build_runtime_cache,
-                                                     to_device)
-    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_layers=2)
-    rng = np.random.default_rng(1234)
-    params = random_params(
+def seeded_params(cfg, rng, dev):
+    """``random_params`` drawn from the numpy generator ``rng``."""
+    return random_params(
         cfg,
         lambda s: torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)
                                    ).to(dev),
@@ -325,40 +576,272 @@ def phase_full_width(dev):
         lambda s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
                                    ).to(dev),
         dev)
-    params = build_runtime_cache(params, "int4", drop_packed=True)
+
+
+def slot_gaps(got_pre, ref_pre, got_steps, ref_steps):
+    """Each slot's worst |got - ref| over its prefill logits and over its
+    decode steps, as a share of max|ref| of the same logits."""
+    def rel(got, ref):
+        return (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+    return {"prefill": rel(got_pre, ref_pre).tolist(),
+            "decode": rel(got_steps, ref_steps).amax(0).tolist()}
+
+
+def compare_card_cpu(what, got_pre, ref_pre, got_steps, ref_steps, tol=None):
+    """Card logits within ``tol`` of the CPU's (``{"prefill": [per slot],
+    "decode": [per slot]}``, default E2E_TOL), each as a share of the
+    slot's own max|ref|, and no greedy token apart where the CPU's top-2
+    margin exceeds the tolerance. Returns :func:`slot_gaps`."""
+    n = ref_pre.shape[0]
+    tol = tol or {"prefill": [E2E_TOL] * n, "decode": [E2E_TOL] * n}
+    worst = slot_gaps(got_pre, ref_pre, got_steps, ref_steps)
+    mismatched = 0
+    entries = [("prefill", got_pre, ref_pre)] + [
+        ("decode", g, r) for g, r in zip(got_steps, ref_steps)]
+    for kind, got, ref in entries:
+        for i in range(n):
+            scale = ref[i].abs().max().item()
+            r = (got[i] - ref[i]).abs().max().item() / scale
+            if not (r <= tol[kind][i] and torch.isfinite(got[i]).all()):
+                raise AssertionError(f"{what}: {kind} slot {i} card vs CPU "
+                                     f"rel err {r} > {tol[kind][i]} "
+                                     f"({worst})")
+            top2 = ref[i].topk(2).values
+            if (top2[0] - top2[1] > tol[kind][i] * scale
+                    and got[i].argmax() != ref[i].argmax()):
+                mismatched += 1
+    if mismatched:
+        raise AssertionError(f"{what}: {mismatched} greedy tokens differ "
+                             "where the CPU's top-2 margin is clear")
+    return worst
+
+
+def as_f32(tree):
+    """A params tree with its float tensors, and its ``QLinear4``s' compute
+    dtype, in f32."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    if isinstance(tree, QLinear4):
+        return dataclasses.replace(tree, dtype=torch.float32)
+    if isinstance(tree, dict):
+        return {k: as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f32(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
+def phase_full_width(dev):
+    from tpu_bitsandbytes_torch.models.llama import (LlamaConfig,
+                                                     build_runtime_cache,
+                                                     to_device)
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_layers=2)
+    rng = np.random.default_rng(1234)
+    params = build_runtime_cache(seeded_params(cfg, rng, dev), "int4",
+                                 drop_packed=True)
     cpu_params = to_device(params, "cpu")
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (9, 33, 64, 100)]
     t0 = time.perf_counter()
     ref_pre, ref_steps, fed = run_prefill_decode(cpu_params, cfg, "cpu",
                                                  prompts, None)
+    # the CPU's own bf16-vs-f32 gap, beside phase 3b's
+    f32_pre, f32_steps, _ = run_prefill_decode(
+        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
+        "cpu", prompts, fed)
     cpu_s = time.perf_counter() - t0
     got_pre, got_steps, _ = run_prefill_decode(params, cfg, dev, prompts,
                                                fed)
-    worst = 0.0
-    mismatched = 0
-    for got, ref in [(got_pre, ref_pre)] + list(zip(got_steps, ref_steps)):
-        scale = ref.abs().max().item()
-        r = (got - ref).abs().max().item() / scale
-        if not (r <= E2E_TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"full width: card vs CPU rel err {r}")
-        worst = max(worst, r)
-        top2 = ref.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > E2E_TOL * scale
-        same = got.argmax(-1) == ref.argmax(-1)
-        mismatched += int((clear & ~same).sum())
-    if mismatched:
-        raise AssertionError(f"full width: {mismatched} greedy tokens differ "
-                             "where the CPU's top-2 margin is clear")
+    worst = compare_card_cpu("full width", got_pre, ref_pre, got_steps,
+                             ref_steps)
     emit({"phase": "full_width", "layers": 2, "hidden": cfg.hidden_size,
-          "logit_rel_err": worst, "tol": E2E_TOL, "cpu_s": cpu_s})
+          "logit_rel_err_by_slot": worst, "tol": E2E_TOL,
+          "cpu_bf16_vs_f32_by_slot": slot_gaps(ref_pre, f32_pre, ref_steps,
+                                               f32_steps),
+          "cpu_s": cpu_s})
+
+
+def normal_nf4_params(cfg, rng, dev):
+    """Llama params from normal(0, 0.02) weights drawn from the numpy
+    generator ``rng`` and quantized to NF4 (blocksize 64) on ``dev``, in the
+    fused qkv/gateup layout; unit norms."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    h = cfg.hidden_size
+
+    def normal(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32) * 0.02).to(dev)
+
+    def qlinear(n, k):
+        return QLinear4.quantize(normal((n, k)), blocksize=64,
+                                 dtype=cfg.dtype)
+
+    def ones():
+        return torch.ones((h,), dtype=cfg.dtype, device=dev)
+
+    n_qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.hd
+    layers = [{"qkv_proj": qlinear(n_qkv, h),
+               "o_proj": qlinear(h, cfg.num_heads * cfg.hd),
+               "gateup_proj": qlinear(2 * cfg.intermediate_size, h),
+               "down_proj": qlinear(h, cfg.intermediate_size),
+               "input_norm": ones(), "post_attn_norm": ones()}
+              for _ in range(cfg.num_layers)]
+    return {"embed": normal((cfg.vocab_size, h)).to(cfg.dtype),
+            "layers": layers, "final_norm": ones(),
+            "lm_head": qlinear(cfg.vocab_size, h)}
+
+
+@contextlib.contextmanager
+def k4_inputs(record=None, feed=None):
+    """Taps the K4 wrapper as ``QLinear4`` calls it. ``record``: a list
+    that collects each call's activation, on the CPU. ``feed``: a run's
+    record, handed to the wrapper call by call in place of this run's
+    activation (so both runs quantize the same values to the same A8
+    codes); yields a list with, per call, the weight's shape, how far this
+    run's activation was from the fed one (share of max|fed|) and how many
+    of its A8 codes differ."""
+    from tpu_bitsandbytes_torch.models import layers
+    from tpu_bitsandbytes_torch.ops.w4a8 import quantize_a8
+    orig = layers.w4a8_matmul_4bit
+    notes = []
+
+    def tap(x, packed_flat, st, **kw):
+        if record is not None:
+            record.append(x.cpu())
+        if feed is not None:
+            ref = feed[len(notes)].to(x.device)
+            kp = packed_flat.numel() // st.shape[0] * 2
+            codes = (quantize_a8(x, kp)[0] != quantize_a8(ref, kp)[0])
+            notes.append({"shape": st.shape, "m": x.shape[0],
+                          "rel_err": ((x.float() - ref.float()).abs().max()
+                                      / ref.float().abs().max()).item(),
+                          "codes_differ": int(codes.sum()),
+                          "codes": codes.numel()})
+            x = ref
+        return orig(x, packed_flat, st, **kw)
+
+    layers.w4a8_matmul_4bit = tap
+    try:
+        yield notes
+    finally:
+        layers.w4a8_matmul_4bit = orig
+
+
+def phase_full_width_packed(dev, counters):
+    """3b: Llama-2-13B width, 2 layers, no runtime cache: prompts of 40
+    (bucket 64: K4), 100 (bucket 128: K5 at M=128) and 1,000 tokens
+    (bucket 1024: the plain GEMM and K3), then 8 decode steps (K4, K2).
+
+    The weights are normal(0, 0.02) quantized to NF4: uniformly random
+    codes average +0.0235 of absmax (the NF4 codebook is not symmetric), a
+    common mode that grows with K and leaves some decode steps of this
+    2-layer cut ill-conditioned.
+
+    K4 quantizes its activations to int8 per row (A8), so where card and
+    CPU differ by one bf16 ulp at a row's largest element, every code of
+    the row is rescaled. The card is therefore held twice against the CPU:
+    fed the CPU's activation at every K4 call (every K4 input, each as the
+    card computed it from the layers before, and all logits at E2E_TOL),
+    and on its own codes, within the CPU's own bf16-vs-f32 gap on the same
+    steps (at least E2E_TOL): no further from the CPU than bf16 is from
+    f32."""
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig, to_device
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
+    rng = np.random.default_rng(2468)
+    params = normal_nf4_params(cfg, rng, dev)
+    cpu_params = to_device(params, "cpu")
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (40, 100, 1000)]
+    t0 = time.perf_counter()
+    cpu_x = []
+    with k4_inputs(record=cpu_x):
+        ref_pre, ref_steps, fed = run_prefill_decode(
+            cpu_params, cfg, "cpu", prompts, None, max_seq=2048)
+    f32_pre, f32_steps, _ = run_prefill_decode(
+        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
+        "cpu", prompts, fed, max_seq=2048)
+    cpu_s = time.perf_counter() - t0
+    bf16_gap = slot_gaps(ref_pre, f32_pre, ref_steps, f32_steps)
+
+    before = {k: f.launches for k, f in counters.items()}
+    with k4_inputs(feed=cpu_x) as notes:
+        got_pre, got_steps, _ = run_prefill_decode(params, cfg, dev, prompts,
+                                                   fed, max_seq=2048)
+    launches = {k: f.launches - before[k] for k, f in counters.items()}
+    for k in ("K3_flash_prefill", "K4_w4a8_matmul", "K5_matmul4bit",
+              "K2_flash_decode"):
+        if not launches[k]:
+            raise AssertionError(f"full width packed: {k} never launched "
+                                 f"({launches})")
+    if len(notes) != len(cpu_x):
+        raise AssertionError(f"full width packed: {len(notes)} K4 calls on "
+                             f"the card, {len(cpu_x)} on the CPU")
+    by_shape = {}
+    for note in notes:
+        key = "x".join(map(str, note["shape"]))
+        row = by_shape.setdefault(key, {"calls": 0, "rel_err": 0.0,
+                                        "codes_differ": 0, "codes": 0})
+        row["calls"] += 1
+        row["rel_err"] = max(row["rel_err"], note["rel_err"])
+        row["codes_differ"] += note["codes_differ"]
+        row["codes"] += note["codes"]
+        if not note["rel_err"] <= E2E_TOL:
+            raise AssertionError(f"full width packed: K4 input {key} M="
+                                 f"{note['m']} card vs CPU rel err "
+                                 f"{note['rel_err']} > {E2E_TOL}")
+    fed_gap = compare_card_cpu("full width packed, fed the CPU's K4 inputs",
+                               got_pre, ref_pre, got_steps, ref_steps)
+
+    own_pre, own_steps, _ = run_prefill_decode(params, cfg, dev, prompts, fed,
+                                               max_seq=2048)
+    own_tol = {kind: [max(E2E_TOL, g) for g in gaps]
+               for kind, gaps in bf16_gap.items()}
+    own_gap = compare_card_cpu("full width packed, own A8 codes", own_pre,
+                               ref_pre, own_steps, ref_steps, tol=own_tol)
+    emit({"phase": "full_width_packed", "layers": 2,
+          "hidden": cfg.hidden_size, "prompt_lens": [len(p) for p in prompts],
+          "tol": E2E_TOL, "fed_logit_rel_err_by_slot": fed_gap,
+          "k4_inputs_by_shape": by_shape,
+          "own_codes_logit_rel_err_by_slot": own_gap,
+          "cpu_bf16_vs_f32_by_slot": bf16_gap, "own_codes_tol": own_tol,
+          "cpu_s": cpu_s, "launches": launches})
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
-def phase_serve(dev, K1, K2):
+def reset(counters, plains):
+    for f in counters.values():
+        f.launches = 0
+    for f in plains:
+        f.cuda_calls = 0
+
+
+def step_breakdown(run_chunk, chunk, what):
+    """Host clock around an unprofiled chunk of ``chunk`` decode steps,
+    then the device's kernel time in a profiled one."""
+    run_chunk()
+    t0 = time.perf_counter()
+    run_chunk()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_chunk()
+    ops = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+                 reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    emit({"phase": "step_breakdown", "model": what, "steps": chunk,
+          "host_ms_per_step": wall_ms / chunk,
+          "device_busy_ms_per_step": busy_ms / chunk,
+          "device_idle_share": 1.0 - busy_ms / wall_ms,
+          "top_device_ops": [
+              {"op": e.key[:60], "ms_per_step":
+               e.self_device_time_total / 1e3 / chunk,
+               "calls_per_step": e.count / chunk} for e in ops[:10]]})
+
+
+def phase_serve(dev, counters, plains):
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
                                                        SamplingParams)
@@ -383,18 +866,12 @@ def phase_serve(dev, K1, K2):
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in rng.integers(16, 201, 8)]
 
-    counters = (K1.int4_mm, K2.flash_decode_attention)
-    plains = (K1.int4_mm_plain, K2.flash_decode_plain)
-    for f in counters:
-        f.launches = 0
-    for f in plains:
-        f.cuda_calls = 0
+    reset(counters, plains)
     t0 = time.perf_counter()
     outs = engine.generate(prompts, SamplingParams(max_new_tokens=64))
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = {"K1_int4_matmul": K1.int4_mm.launches,
-                "K2_flash_decode": K2.flash_decode_attention.launches}
+    launches = {k: f.launches for k, f in counters.items()}
     plain_cuda = sum(f.cuda_calls for f in plains)
     hist = engine.metrics.history
     decode_steps = len(hist) * engine.steps_per_sync
@@ -413,22 +890,19 @@ def phase_serve(dev, K1, K2):
                              "decode steps")
 
     # one more decode step, counted alone: the per-step launch budget
-    for f in counters:
-        f.launches = 0
+    reset(counters, ())
     toks = torch.tensor([o[-1] for o in outs], dtype=torch.int32, device=dev)
     active = torch.ones((8,), dtype=torch.bool, device=dev)
     logits, _ = E.decode_step(engine.params, engine.cache, toks, active, cfg,
                               attn_span=384)
     torch.cuda.synchronize()
-    per_step = (K1.int4_mm.launches, K2.flash_decode_attention.launches)
-    if per_step != (4 * 32 + 1, 32):
+    per_step = {k: f.launches for k, f in counters.items()}
+    if (per_step["K1_int4_matmul"], per_step["K2_flash_decode"]) != (129, 32):
         raise AssertionError(f"launches per decode step {per_step}, "
-                             "expected (129, 32)")
+                             "expected K1 129 and K2 32")
     if not (logits.shape == (8, cfg.vocab_size)
             and torch.isfinite(logits).all()):
         raise AssertionError("decode-step logits not finite")
-    # where a decode step's time goes: host clock around an unprofiled
-    # chunk, then the device's kernel time in a profiled one
     samp = SamplingArrays.build({}, 8, device=dev)
     chunk = 8
 
@@ -437,24 +911,7 @@ def phase_serve(dev, K1, K2):
                        cfg, n_steps=chunk, all_greedy=True, attn_span=384)
         torch.cuda.synchronize()
 
-    run_chunk()
-    t0 = time.perf_counter()
-    run_chunk()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run_chunk()
-    ops = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
-                 reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    emit({"phase": "step_breakdown", "steps": chunk,
-          "host_ms_per_step": wall_ms / chunk,
-          "device_busy_ms_per_step": busy_ms / chunk,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "top_device_ops": [
-              {"op": e.key[:60], "ms_per_step":
-               e.self_device_time_total / 1e3 / chunk,
-               "calls_per_step": e.count / chunk} for e in ops[:10]]})
+    step_breakdown(run_chunk, chunk, "llama2_7b")
     emit({"phase": "serve", "model": "llama2_7b", "layers": cfg.num_layers,
           "batch": 8, "steps_per_sync": 32,
           "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
@@ -464,9 +921,125 @@ def phase_serve(dev, K1, K2):
           "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
           "max_memory_allocated_gib":
               torch.cuda.max_memory_allocated() / 2 ** 30,
-          "launches": launches,
-          "launches_per_decode_step": {"K1_int4_matmul": per_step[0],
-                                       "K2_flash_decode": per_step[1]},
+          "launches": launches, "launches_per_decode_step": per_step,
+          "plain_calls_on_cuda": plain_cuda})
+    return launches
+
+
+PACKED_PROMPTS = [24, 60, 100, 200, 700, 1100, 1500, 1800]
+
+
+def phase_serve_packed(dev, counters, plains):
+    """5: Llama-2-13B, 40 layers, off the packed NF4 bytes."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
+                                                       SamplingParams)
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama2_13b()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    t0 = time.perf_counter()
+    params = random_params(
+        cfg,
+        lambda s: torch.randint(0, 256, s, generator=gen, device=dev,
+                                dtype=torch.uint8),
+        lambda s: torch.rand(s, generator=gen, device=dev),
+        lambda s: torch.randn(s, generator=gen, device=dev), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = E.DecodeEngine(params, cfg, max_batch=8, max_seq=2048,
+                            steps_per_sync=32, runtime_cache=None, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in PACKED_PROMPTS]
+
+    # each admission group's prefill, timed between synchronizations
+    groups = []
+    orig = {"prefill_step": E.prefill_step, "prefill_batch": E.prefill_batch}
+
+    def timed(fn):
+        def run(params, cache, tokens, *args):
+            before = {k: f.launches for k, f in counters.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(params, cache, tokens, *args)
+            torch.cuda.synchronize()
+            groups.append({
+                "rows": tokens.shape[0], "bucket": tokens.shape[1],
+                "ms": (time.perf_counter() - t) * 1e3,
+                "launches": {k: f.launches - before[k]
+                             for k, f in counters.items()
+                             if f.launches - before[k]}})
+            return out
+        return run
+
+    reset(counters, plains)
+    for name, fn in orig.items():
+        setattr(E, name, timed(fn))
+    try:
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, SamplingParams(max_new_tokens=48))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    finally:
+        for name, fn in orig.items():
+            setattr(E, name, fn)
+    launches = {k: f.launches for k, f in counters.items()}
+    plain_cuda = sum(f.cuda_calls for f in plains)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = engine.metrics.history
+    decode_steps = len(hist) * engine.steps_per_sync
+    chunk_s = sum(m.wall_s for m in hist)
+    if plain_cuda:
+        raise AssertionError(f"{plain_cuda} plain-version calls on CUDA "
+                             "tensors in the packed path")
+    if not all(len(o) == 48 and all(0 <= t < cfg.vocab_size for t in o)
+               for o in outs):
+        raise AssertionError("generate: wrong token counts or ids")
+    if not (launches["K3_flash_prefill"] and launches["K5_matmul4bit"]
+            and launches["K4_w4a8_matmul"]) or launches["K1_int4_matmul"]:
+        raise AssertionError(f"packed path launches {launches}")
+    if sorted(g["bucket"] for g in groups) != [32, 64, 128, 256, 1024, 2048]:
+        raise AssertionError(f"admission groups {groups}")
+
+    # one more decode step, counted alone: the per-step launch budget
+    reset(counters, ())
+    toks = torch.tensor([o[-1] for o in outs], dtype=torch.int32, device=dev)
+    active = torch.ones((8,), dtype=torch.bool, device=dev)
+    span = E._span_bucket(int(engine.cache.lengths.max()) + 32, 2048)
+    logits, _ = E.decode_step(engine.params, engine.cache, toks, active, cfg,
+                              attn_span=span)
+    torch.cuda.synchronize()
+    per_step = {k: f.launches for k, f in counters.items()}
+    want = {"K1_int4_matmul": 0, "K2_flash_decode": 40,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": 4 * 40 + 1,
+            "K5_matmul4bit": 0}
+    if per_step != want:
+        raise AssertionError(f"launches per decode step {per_step}, "
+                             f"expected {want}")
+    if not (logits.shape == (8, cfg.vocab_size)
+            and torch.isfinite(logits).all()):
+        raise AssertionError("decode-step logits not finite")
+    samp = SamplingArrays.build({}, 8, device=dev)
+    chunk = 8
+
+    def run_chunk():
+        E.decode_chunk(engine.params, engine.cache, toks, active, gen, samp,
+                       cfg, n_steps=chunk, all_greedy=True, attn_span=span)
+        torch.cuda.synchronize()
+
+    step_breakdown(run_chunk, chunk, "llama2_13b_packed")
+    emit({"phase": "serve", "model": "llama2_13b", "runtime_cache": None,
+          "layers": cfg.num_layers, "batch": 8, "max_seq": 2048,
+          "steps_per_sync": 32, "prompt_lens": PACKED_PROMPTS,
+          "new_tokens": 48, "build_s": build_s, "generate_s": gen_s,
+          "prefill_groups": sorted(groups, key=lambda g: g["bucket"]),
+          "decode_steps": decode_steps,
+          "decode_step_ms": chunk_s / decode_steps * 1e3,
+          "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
+          "max_memory_allocated_gib": peak_gib,
+          "launches": launches, "launches_per_decode_step": per_step,
           "plain_calls_on_cuda": plain_cuda})
     return launches
 
@@ -475,9 +1048,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from tpu_bitsandbytes_torch import functional as TF
     from tpu_bitsandbytes_torch.ops import _build
     from tpu_bitsandbytes_torch.ops import flash_decode as K2
+    from tpu_bitsandbytes_torch.ops import flash_prefill as K3
     from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import matmul4bit as K5
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
 
     # 1. header
     smi = subprocess.run(
@@ -490,7 +1067,10 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bw, int8_peak = card_rates(name)
+    # bf16 GEMMs (the plain prefill product above M = 256) reduce in f32,
+    # as XLA's bf16 dot does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    bw, int8_peak, bf16_peak = card_rates(name)
     dev = torch.device("cuda", 0)
 
     # 2. kernels
@@ -503,20 +1083,41 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [phase_kernels_k1(K1, gen, dev, bw, int8_peak),
-               phase_kernels_k2(K2, gen, dev, bw, int8_peak)]
+               phase_kernels_k2(K2, gen, dev, bw, int8_peak),
+               phase_kernels_k3(K3, gen, dev, bw, bf16_peak),
+               phase_kernels_k4(K4, gen, dev, bw, int8_peak),
+               phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak)]
     torch.cuda.empty_cache()
+    counters = {"K1_int4_matmul": K1.int4_mm,
+                "K2_flash_decode": K2.flash_decode_attention,
+                "K3_flash_prefill": K3.flash_prefill_attention,
+                "K4_w4a8_matmul": K4.w4a8_mm,
+                "K5_matmul4bit": K5.matmul4bit_mm}
+    plains = (K1.int4_mm_plain, K2.flash_decode_plain,
+              K3.flash_prefill_plain, K4.w4a8_mm_plain,
+              K5.matmul4bit_plain)
 
     # 3. full width against the CPU
     phase_full_width(dev)
     torch.cuda.empty_cache()
+    phase_full_width_packed(dev, counters)
+    torch.cuda.empty_cache()
 
-    # 4. the slice
-    launches = phase_serve(dev, K1, K2)
+    # 4. Llama-2-7B through the int4 cache
+    by_path = {"llama2_7b_int4": phase_serve(dev, counters, plains)}
+    torch.cuda.empty_cache()
+
+    # 5. the slice: Llama-2-13B off the packed bytes
+    by_path["llama2_13b_packed"] = phase_serve_packed(dev, counters, plains)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} never launched on a path")
     emit({"kernels": kernels})
+    # one card: the run uses device 0 alone
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

@@ -9,10 +9,14 @@ from the repository root:
 use.) Inputs come from numpy seeds; the same tensors run the plain version
 on the CPU and the kernel on the card.
 
-Tolerances, as shares of max|ref|: K1 1e-5 (the int32 block dots are exact,
-only the f32 sum order differs); K2 1e-3 (an exp that rounds differently on
-the card can flip one p code); bf16 model logits 3e-2 (bf16 rounds at other
-places in the card's kernels than in the CPU's).
+Tolerances, as shares of max|ref|: K1 and K4 1e-5 (the int32 block dots
+are exact, only the f32 sum order differs); K2 1e-3 (an exp that rounds
+differently on the card can flip one p code); K5 1e-5 in f32 (exact
+products, f32 sums in another order) and 1e-2 in bf16 (the same bf16
+operands, but the f32 result rounds to bf16, an ulp of 3.9e-3 at max|ref|);
+K3 1e-2 against its plain version at the kernel's 64-key tile (bf16 p from
+exps that round differently on the card); bf16 model logits 3e-2 (bf16
+rounds at other places in the card's kernels than in the CPU's).
 """
 
 import dataclasses
@@ -25,8 +29,12 @@ from tpu_bitsandbytes_torch.engine import engine as E
 from tpu_bitsandbytes_torch.engine.kvcache import KVCache
 from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
 from tpu_bitsandbytes_torch.models import llama
+from tpu_bitsandbytes_torch import functional as TF
 from tpu_bitsandbytes_torch.ops import flash_decode as K2
+from tpu_bitsandbytes_torch.ops import flash_prefill as K3
 from tpu_bitsandbytes_torch.ops import int4cache as K1
+from tpu_bitsandbytes_torch.ops import matmul4bit as K5
+from tpu_bitsandbytes_torch.ops import w4a8 as K4
 
 pytestmark = pytest.mark.cuda
 
@@ -35,6 +43,8 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", 0)
 
 
@@ -250,6 +260,213 @@ def test_bf16_decode_logits_card_match_cpu(cuda):
     prompts = _prompts([7, 12], cfg.vocab_size)
     ref, fed, _ = _prefill_decode(params, cfg, "cpu", prompts)
     got, _, launches = _prefill_decode(params, cfg, cuda, prompts, fed)
+    assert launches == [(4 * cfg.num_layers + 1, cfg.num_layers)] * 4
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert rel_err(g, r) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# K4: packed NF4 x A8 matmul
+# ---------------------------------------------------------------------------
+
+def _packed(rng, n, kp, bs):
+    """Random packed codes [N, K_pad/2] and absmax [N, K_pad/bs]."""
+    return (torch.from_numpy(rng.integers(0, 256, (n, kp // 2), dtype=np.uint8)),
+            torch.from_numpy(rng.uniform(5e-3, 3.5e-2, (n, kp // bs))
+                             .astype(np.float32)))
+
+
+@pytest.mark.parametrize("m,n,kp,bs", [
+    (8, 15360, 5120, 64), (1, 5120, 5120, 128), (64, 1024, 13824, 64),
+    (3, 256, 512, 16), (5, 384, 768, 4), (2, 128, 4096, 2048)])
+def test_w4a8_mm_matches_plain(cuda, m, n, kp, bs):
+    """Decode widths of Llama-2-13B, prefill-bucket M = 64, and block sizes
+    below 32 (per-group scaling) and above 1024 (whole-warp blocks)."""
+    rng = np.random.default_rng(m * n + bs)
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, kp), dtype=np.int8))
+    w, am = _packed(rng, n, kp, bs)
+    sx = torch.from_numpy(rng.uniform(1e-3, 5e-2, (m,)).astype(np.float32))
+    args = [t.to(cuda) for t in (xq, w, am, sx)]
+    ref = K4.w4a8_mm_plain(*args)
+    before = K4.w4a8_mm.launches
+    got = K4.w4a8_mm(*args)
+    torch.cuda.synchronize()
+    assert K4.w4a8_mm.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_w4a8_matmul_card_matches_cpu(cuda, m):
+    """The wrapper's A8 row quantization and the double-quantized absmax
+    give the CPU's numbers on the card."""
+    rng = np.random.default_rng(m)
+    w = torch.from_numpy((rng.standard_normal((512, 1000)) * 0.05)
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((m, 1000)).astype(np.float32))
+    packed, st = TF.quantize_4bit(w, blocksize=64, compress_statistics=True)
+    st.dtype = torch.float32
+    ref = K4.w4a8_matmul_4bit(x, packed, st)
+    st_c = dataclasses.replace(
+        st, absmax=st.absmax.to(cuda),
+        state2=dataclasses.replace(st.state2,
+                                   absmax=st.state2.absmax.to(cuda)))
+    got = K4.w4a8_matmul_4bit(x.to(cuda), packed.to(cuda), st_c)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= 1e-5
+
+
+def test_w4a8_mm_rejects_bad_operands(cuda):
+    xq = torch.zeros((2, 256), dtype=torch.int8, device=cuda)
+    w = torch.zeros((128, 128), dtype=torch.uint8, device=cuda)
+    am = torch.ones((128, 4), device=cuda)
+    sx = torch.ones((2,), device=cuda)
+    with pytest.raises(TypeError):
+        K4.w4a8_mm(xq.float(), w, am, sx)
+    with pytest.raises(ValueError):
+        K4.w4a8_mm(xq, w[:, :64], am, sx)
+    with pytest.raises(ValueError):
+        K4.w4a8_mm(xq, torch.zeros((128, 256), dtype=torch.uint8,
+                                   device=cuda)[:, ::2], am, sx)
+    with pytest.raises(ValueError, match="block of 4"):   # blocksize 6
+        K4.w4a8_mm(xq[:, :192].contiguous(), w[:, :96].contiguous(),
+                   torch.ones((128, 32), device=cuda), sx)
+
+
+# ---------------------------------------------------------------------------
+# K5: fused 4-bit dequant-matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+@pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
+@pytest.mark.parametrize("m,n,kp,bs", [
+    (65, 5120, 5120, 64), (128, 1000, 4032, 64), (256, 384, 512, 128),
+    (100, 131, 200, 2), (70, 200, 96, 4)])
+def test_matmul4bit_mm_matches_plain(cuda, mode, quant_type, m, n, kp, bs):
+    """Prefill-bucket M, odd N, K padded off the 32-wide slice (K_pad 200:
+    the element-wise load path) and blocks below 16 (per-element absmax)."""
+    rng = np.random.default_rng(m + n + kp)
+    x = torch.from_numpy(rng.standard_normal((m, kp)).astype(np.float32))
+    x = x.to(torch.bfloat16 if mode == "bf16" else torch.float32)
+    w, am = _packed(rng, n, kp, bs)
+    args = [t.to(cuda) for t in (x, w, am, TF.codebook(quant_type, "cpu"))]
+    ref = K5.matmul4bit_plain(*args, mode)
+    before = K5.matmul4bit_mm.launches
+    got = K5.matmul4bit_mm(*args, mode)
+    torch.cuda.synchronize()
+    assert K5.matmul4bit_mm.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert rel_err(got, ref) <= (1e-2 if mode == "bf16" else 1e-5)
+
+
+def test_matmul4bit_mm_rejects_bad_operands(cuda):
+    x = torch.zeros((4, 128), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((64, 64), dtype=torch.uint8, device=cuda)
+    am = torch.ones((64, 2), device=cuda)
+    book = torch.zeros((16,), device=cuda)
+    with pytest.raises(TypeError):
+        K5.matmul4bit_mm(x, w, am, book, "f32")
+    with pytest.raises(ValueError):
+        K5.matmul4bit_mm(x, w[:, :32], am, book, "bf16")
+    with pytest.raises(ValueError):
+        K5.matmul4bit_mm(x, w, am, book, "fp8")
+
+
+# ---------------------------------------------------------------------------
+# K3: flash prefill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,h_kv,d,s_real,opts,dtype", [
+    (1, 1024, 8, 8, 128, 1024, {}, torch.bfloat16),
+    (2, 1100, 8, 2, 64, 1000, {}, torch.bfloat16),
+    (1, 1024, 4, 1, 128, 1024, {"window": 300, "softcap": 50.0},
+     torch.bfloat16),
+    (1, 1024, 4, 4, 64, 1024, {}, torch.float16)])
+def test_flash_prefill_matches_plain(cuda, b, s, h, h_kv, d, s_real, opts,
+                                     dtype):
+    rng = np.random.default_rng(s + h + d)
+    q, k, v = (torch.from_numpy((rng.standard_normal(shape) * 0.5)
+                                .astype(np.float32)).to(dtype).to(cuda)
+               for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d)))
+    scale = 1.0 / d ** 0.5
+    ref = K3.flash_prefill_plain(q, k, v, s_real=s_real, scale=scale,
+                                 block_k=K3.BLOCK, **opts)
+    before = K3.flash_prefill_attention.launches
+    got = K3.flash_prefill_attention(q, k, v, s_real=s_real, scale=scale,
+                                     **opts)
+    torch.cuda.synchronize()
+    assert K3.flash_prefill_attention.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got[:, :s_real]).all()
+    # query rows past s_real are padding the caller drops
+    assert rel_err(got[:, :s_real], ref[:, :s_real]) <= 1e-2
+
+
+def test_flash_prefill_rejects_bad_operands(cuda):
+    q = torch.zeros((1, 128, 4, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        K3.flash_prefill_attention(q.float(), q.float(), q.float(),
+                                   s_real=128, scale=1.0)
+    with pytest.raises(NotImplementedError):
+        q96 = torch.zeros((1, 128, 4, 96), dtype=torch.bfloat16, device=cuda)
+        K3.flash_prefill_attention(q96, q96, q96, s_real=128, scale=1.0)
+    with pytest.raises(ValueError):
+        K3.flash_prefill_attention(q, q[:, :64], q, s_real=128, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the packed-NF4 path (no runtime cache) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def test_packed_path_card_matches_cpu(cuda):
+    """bf16, no runtime cache, hidden 256 (every branch reachable): a
+    5-token prompt (K4), a 70-token one (K5) and a 1,100-token one (bucket
+    2048: the dequant product and K3), then 4 decode steps, each with 4 K4
+    launches per layer plus the head and one K2 per layer."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2, num_heads=2,
+                            num_kv_heads=1, max_seq_len=2048)
+    gen = torch.Generator().manual_seed(3)
+    params = llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (5, 70, 1100)]
+
+    def run(dev, fed=None):
+        p = llama.to_device(params, dev)
+        cache = KVCache.create(cfg.num_layers, 3, 2048, cfg.num_kv_heads,
+                               cfg.hd, device=dev)
+        logits = []
+        for slot, pr in enumerate(prompts):
+            toks = torch.zeros((1, E._bucket(len(pr), 2048)),
+                               dtype=torch.int32)
+            toks[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
+            lg, cache = E.prefill_step(p, cache, toks.to(dev), slot, len(pr),
+                                       cfg)
+            logits.append(lg)
+        toks = torch.stack(logits).argmax(-1).to(torch.int32).cpu()
+        active = torch.ones((3,), dtype=torch.bool, device=dev)
+        cache.begin_stage(4)
+        fed_out, launches = [], []
+        for i in range(4):
+            t_in = toks if fed is None else fed[i]
+            fed_out.append(t_in)
+            k4, k2 = K4.w4a8_mm.launches, K2.flash_decode_attention.launches
+            lg, cache = E.decode_step(p, cache, t_in.to(dev), active, cfg,
+                                      attn_span=1280)
+            launches.append((K4.w4a8_mm.launches - k4,
+                             K2.flash_decode_attention.launches - k2))
+            logits.append(lg)
+            toks = lg.argmax(-1).to(torch.int32).cpu()
+        cache.flush_stage()
+        return [lg.float().cpu() for lg in logits], fed_out, launches
+
+    ref, fed, _ = run("cpu")
+    k3, k5 = K3.flash_prefill_attention.launches, K5.matmul4bit_mm.launches
+    got, _, launches = run(cuda, fed)
+    assert K3.flash_prefill_attention.launches > k3
+    assert K5.matmul4bit_mm.launches > k5
     assert launches == [(4 * cfg.num_layers + 1, cfg.num_layers)] * 4
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()

@@ -166,3 +166,81 @@ def test_to_device_moves_every_tensor():
     qkv = moved["layers"][0]["qkv_proj"]
     assert qkv.shape == params["layers"][0]["qkv_proj"].shape
     assert qkv.absmax_state.absmax.is_meta
+
+
+# a config on which every no-cache branch is reachable: K4 needs
+# K_pad/2 % 128 == 0 (hidden 256), prompts of 1024+ tokens need max_seq 2048
+def _packed_cfg(dtype):
+    return JL.LlamaConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=2,
+                          num_kv_heads=1, max_seq_len=2048, dtype=dtype)
+
+
+def _packed_model(cfg, seed):
+    """JAX params served off the packed NF4 bytes (no runtime cache), and
+    the port's copy of them."""
+    p = JL.init_params(jax.random.PRNGKey(seed), cfg)
+    jp = JL.quantize_params(p, dtype=cfg.dtype, fuse_projections=True)
+    return jp, from_reference_arrays(reference_arrays(jp), "cpu")
+
+
+def test_no_cache_greedy_tokens_match_jax_engine(monkeypatch):
+    """f32, no runtime cache: prompts of 5, 70 and 1,100 tokens reach K4
+    (decode and the 16-token bucket), K5 (bucket 128), the dequant product
+    and the flash route (bucket 2048) in both engines, JAX's kernels in
+    interpret mode. K4 and K5 compute the same f32 arithmetic in both up to
+    sum order, so greedy tokens are identical."""
+    monkeypatch.setenv("TBNB_W4A8_INTERPRET", "1")
+    monkeypatch.setenv("TBNB_FUSED_INTERPRET", "1")
+    cfg = _packed_cfg(jnp.float32)
+    jp, tp = _packed_model(cfg, seed=3)
+    assert tp["layers"][0]["qkv_proj"].w_cache is None
+    prompts = _prompts([5, 70, 1100], cfg.vocab_size, seed=3)
+    je = JE.DecodeEngine(jp, cfg, max_batch=4, steps_per_sync=4)
+    ref = je.generate(prompts, JSP(max_new_tokens=8), pipeline_depth=1)
+    te = TE.DecodeEngine(tp, config_from_reference(config_fields(cfg)),
+                         max_batch=4, steps_per_sync=4, device="cpu")
+    from tpu_bitsandbytes_torch.ops import matmul4bit, w4a8
+    calls = {"K4": 0, "K5": 0}
+    k4, k5 = w4a8.w4a8_mm, matmul4bit.matmul4bit_mm
+
+    def count(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(w4a8, "w4a8_mm", count("K4", k4))
+    monkeypatch.setattr(matmul4bit, "matmul4bit_mm", count("K5", k5))
+    got = te.generate(prompts, TSP(max_new_tokens=8))
+    assert got == ref
+    assert all(len(g) == 8 for g in got)
+    assert calls["K4"] > 0 and calls["K5"] > 0
+
+
+def test_no_cache_bf16_long_prefill_logits_match_jax():
+    """bf16, no cache, one 1,100-token prompt (bucket 2048: the dequant
+    product and K3's plain version at the 512 tile; JAX on the CPU takes
+    its f32 scan). Tolerance 3e-2 of max|ref|: bf16 rounds at other places
+    in XLA's CPU fusions than in eager PyTorch, as in the other bf16 tests."""
+    cfg = _packed_cfg(jnp.bfloat16)
+    tcfg = config_from_reference(config_fields(cfg))
+    jp, tp = _packed_model(cfg, seed=4)
+    prompt = _prompts([1100], cfg.vocab_size, seed=4)[0]
+    padded = np.zeros((1, 2048), np.int32)
+    padded[0, :len(prompt)] = prompt
+    jc = JKV.create(cfg.num_layers, 1, 2048, cfg.num_kv_heads, cfg.hd,
+                    dtype=cfg.dtype)
+    tc = TKV.create(cfg.num_layers, 1, 2048, cfg.num_kv_heads, cfg.hd,
+                    device="cpu")
+    jl, _ = JE.prefill_step(jp, jc, jnp.asarray(padded), jnp.int32(0),
+                            jnp.int32(len(prompt)), cfg)
+    tl, _ = TE.prefill_step(tp, tc, torch.from_numpy(padded), 0, len(prompt),
+                            tcfg)
+    ref = np.asarray(jl)
+    assert np.abs(t32(tl) - ref).max() <= 3e-2 * np.abs(ref).max()
+
+
+def test_llama2_13b_config_matches_jax():
+    fields = config_fields(JL.LlamaConfig.llama2_13b())
+    assert config_from_reference(fields) == TL.LlamaConfig.llama2_13b()

@@ -1,0 +1,99 @@
+"""PyTorch port vs JAX package: causal prefill attention at S >= 1024.
+
+Half precision: the port's plain version of kernel K3 at the TPU kernel's
+512-key tile against JAX's ``flash_prefill_attention`` (its Pallas kernel in
+interpret mode on the CPU), both bf16, within 1e-2 of max|ref| and cosine >
+0.999, the bound of the JAX package's own kernel test: bf16 products and
+f32 sums in both, but p is rounded to bf16 after exps that the two
+libraries round differently. f32: the port's route off the kernel
+(``tiled_attention`` at JAX's 512 blocks) against JAX's scan in
+``gqa_attention_flash`` within 1e-5 (the same f32 arithmetic up to sum
+order).
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from tpu_bitsandbytes.models import layers as JLay
+from tpu_bitsandbytes.ops import flash_prefill as JFP
+from tpu_bitsandbytes_torch.models import layers as TLay
+from tpu_bitsandbytes_torch.ops import flash_prefill as TFP
+
+from test_torch_functional import rel_err, t32
+
+
+def _qkv(b, s, h, h_kv, d, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * 0.5).astype(np.float32)
+            for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d))]
+
+
+def _cos(a, b):
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.mark.parametrize("h,h_kv,s_real,opts", [
+    (2, 2, 1024, {}),
+    (4, 1, 1000, {}),
+    (4, 1, 1024, {"window": 300}),
+    (2, 2, 1024, {"softcap": 50.0}),
+])
+def test_plain_matches_jax_kernel(h, h_kv, s_real, opts):
+    q, k, v = _qkv(1, 1024, h, h_kv, 128, seed=h * 7 + s_real)
+    scale = 1.0 / np.sqrt(128)
+    ref = JFP.flash_prefill_attention(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), s_real=s_real,
+        scale=scale, **opts)
+    got = TFP.flash_prefill_plain(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)),
+        s_real=s_real, scale=scale, block_k=512, **opts)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    # query rows at or past s_real are padding the caller drops
+    ref = np.asarray(ref, np.float32)[:, :s_real]
+    got = t32(got)[:, :s_real]
+    assert rel_err(got, ref) <= 1e-2
+    assert _cos(got, ref) > 0.999
+
+
+@pytest.mark.parametrize("opts", [{}, {"window": 300, "softcap": 50.0}])
+def test_f32_scan_matches_jax(opts):
+    q, k, v = _qkv(2, 1100, 4, 2, 64, seed=5)
+    ref = JLay.gqa_attention_flash(*(jnp.asarray(t) for t in (q, k, v)),
+                                   **opts)
+    got = TLay.gqa_attention_flash(*(torch.from_numpy(t) for t in (q, k, v)),
+                                   **opts)
+    assert rel_err(t32(got), np.asarray(ref)) <= 1e-5
+
+
+def test_gqa_attention_dispatch_at_1024(monkeypatch):
+    """Aligned prefills of 1024 tokens or more leave the dense einsum:
+    bf16 goes to K3's wrapper (its plain version at the kernel's tile on
+    the CPU), f32 to ``tiled_attention``, not through K3's wrapper; below
+    1024 the dense path runs. All agree with the dense f32 attention
+    within bf16 rounding."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 1024, 2, 1, 64, seed=9))
+    calls = []
+    plain = TFP.flash_prefill_plain
+    monkeypatch.setattr(TFP, "flash_prefill_plain",
+                        lambda *a, **kw: calls.append(kw["block_k"])
+                        or plain(*a, **kw))
+    got = TLay.gqa_attention(*(t.to(torch.bfloat16) for t in (q, k, v)))
+    assert calls == [TFP.BLOCK]
+    f32 = TLay.gqa_attention(q, k, v)
+    short = TLay.gqa_attention(q[:, :1000], k[:, :1000], v[:, :1000])
+    assert calls == [TFP.BLOCK]
+    assert rel_err(t32(got), t32(f32)) <= 1e-2
+    assert rel_err(t32(short), t32(f32)[:, :1000]) <= 1e-5
+
+
+def test_kept_pairs_counts_the_masks():
+    for s, s_real, window in [(64, 64, None), (64, 50, None), (64, 64, 10),
+                              (100, 37, 5)]:
+        qpos, kpos = np.arange(s)[:, None], np.arange(s)[None, :]
+        keep = (kpos <= qpos) & (kpos < s_real)
+        if window is not None:
+            keep &= kpos > qpos - window
+        assert TFP.kept_pairs(s, s_real, window) == int(keep.sum())

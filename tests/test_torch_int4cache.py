@@ -17,6 +17,7 @@ import torch
 from tpu_bitsandbytes.models.layers import QLinear4 as JQLinear4
 from tpu_bitsandbytes.ops import int4cache as J
 from tpu_bitsandbytes_torch.convert import from_reference_arrays
+from tpu_bitsandbytes_torch.functional import matmul_4bit
 from tpu_bitsandbytes_torch.models.layers import QLinear4
 from tpu_bitsandbytes_torch.ops import int4cache as T
 
@@ -124,9 +125,17 @@ def test_qlinear_runtime_cache_matches():
 
 
 def test_no_cache_raises():
-    q = QLinear4.quantize(torch.from_numpy(_w(128, 128, seed=6)))
-    with pytest.raises(NotImplementedError, match="K4"):
-        q(torch.zeros((1, 128)))
+    """Without a runtime cache a QLinear4 runs off its packed bytes (here
+    K = 128 is off the K4 rule, so ``matmul_4bit``); what still raises is a
+    cache format that is not ported."""
+    q = QLinear4.quantize(torch.from_numpy(_w(128, 128, seed=6)),
+                          dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (3, 128)).astype(np.float32))
+    ref = matmul_4bit(x, q.packed.reshape(-1), q.quant_state())
+    assert torch.equal(q(x), ref)
+    with pytest.raises(NotImplementedError, match="int8"):
+        q.with_runtime_cache("int8")
 
 
 def test_cpu_calls_take_the_plain_version():

@@ -9,7 +9,9 @@ numpy arrays (bfloat16 arrays keep their ml_dtypes dtype), with each
 
 where ``w_cache`` holds the int4 cache's codes as int8, ``absmax_state`` is
 ``None`` or a dict ``{"absmax", "shape", "blocksize", "dtype"}``, and
-``dtype`` is a dtype name such as ``"bfloat16"``.
+``dtype`` is a dtype name such as ``"bfloat16"``. Keys whose value would be
+None may be left out (a layer served off its packed bytes has no
+``w_cache``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from .models.llama import LlamaConfig
 
 __all__ = ["from_reference_arrays", "config_from_reference", "torch_dtype"]
 
-_QLINEAR_KEYS = {"packed", "w_cache", "shape"}
+# a QLinear4 with or without its runtime cache or packed codes
+_QLINEAR_KEYS = {"shape", "blocksize", "quant_type"}
 
 # defaults of the JAX LlamaConfig fields the port does not implement
 _UNSUPPORTED = {

@@ -1,14 +1,15 @@
-"""NF4/FP4 storage primitives in PyTorch.
+"""NF4/FP4 storage primitives and the 4-bit matmul in PyTorch.
 
-The subset of the JAX package's ``functional.py`` that NF4 decode serving
-needs: the codebooks, :class:`QuantState`, nibble packing, row-wise
-blockwise 4-bit quantization and the blockwise int8 quantizer used for
-double-quantized absmax. Packed bytes and absmax follow the JAX package bit
+The subset of the JAX package's ``functional.py`` that NF4 serving needs:
+the codebooks, :class:`QuantState`, nibble packing, row-wise blockwise
+4-bit quantization, the blockwise int8 quantizer used for double-quantized
+absmax, and :func:`matmul_4bit`. Packed bytes and absmax follow the JAX package bit
 for bit (same codebooks, same nearest-code tie-breaking, same padding rule),
 so NF4 checkpoints move between the two packages unchanged.
 
-Every function keeps its input's device; nothing here launches a hand
-kernel (these run once, when weights are built).
+Every function keeps its input's device. Only :func:`matmul_4bit` reaches
+a hand kernel (K5, through ``ops/matmul4bit.py``); the rest run once, when
+weights are built.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ __all__ = [
     "NF4_VALUES", "FP4_VALUES", "QuantState", "codebook",
     "pack_nibbles", "unpack_nibbles",
     "quantize_4bit", "dequantize_4bit",
-    "quantize_blockwise", "dequantize_blockwise",
+    "quantize_blockwise", "dequantize_blockwise", "matmul_4bit",
 ]
 
 # 16 quantiles of N(0, 1) normalized to [-1, 1]; must stay bit-identical to
@@ -227,3 +228,44 @@ def dequantize_blockwise(A: torch.Tensor, quant_state: QuantState
     blocked = padded.reshape(-1, st.blocksize)
     deq = blocked * div_exact(st.absmax.to(torch.float32)[:, None], 127.0)
     return deq.reshape(-1)[:numel].reshape(st.shape).to(st.dtype)
+
+
+# M up to which the JAX package runs its fused kernel; above it, dequantize
+# and one product
+_FUSED_M_CROSSOVER = 256
+
+
+def matmul_4bit(A: torch.Tensor, B: torch.Tensor, quant_state: QuantState,
+                bias: Optional[torch.Tensor] = None,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``A @ dequant(B).T`` with B the packed flat uint8 of a 4-bit weight.
+
+    The JAX package's dispatch: a 2-D state with an even blocksize at
+    M <= 256 runs the fused dequant-matmul (kernel K5), in bf16 for half-precision
+    ``compute_dtype`` and exact f32 otherwise; anything else dequantizes
+    the weight to the state's dtype and multiplies. A is 1-D, 2-D, or of
+    higher rank (flattened to rows and back). Returns ``compute_dtype``
+    (default A's dtype).
+    """
+    from .ops.matmul4bit import fused_matmul_4bit  # it imports this module
+    if compute_dtype is None:
+        compute_dtype = A.dtype
+    orig_shape = A.shape
+    A2 = A.reshape(-1, A.shape[-1])
+    bs = quant_state.blocksize
+    if (len(quant_state.shape) == 2 and bs >= 2 and bs % 2 == 0
+            and A2.shape[0] <= _FUSED_M_CROSSOVER):
+        mxu = (torch.bfloat16 if compute_dtype in (torch.bfloat16,
+                                                   torch.float16)
+               else torch.float32)
+        out = fused_matmul_4bit(A2, B, quant_state, mxu_dtype=mxu)
+    else:
+        weight = dequantize_4bit(B, quant_state)
+        out = A2.to(weight.dtype) @ weight.t()
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    if A.dim() > 2:
+        out = out.reshape(*orig_shape[:-1], out.shape[-1])
+    elif A.dim() == 1:
+        out = out.reshape(out.shape[-1])
+    return out.to(compute_dtype)

@@ -15,11 +15,14 @@ import numpy as np
 import torch
 
 from ..functional import (QuantState, _pad_k, dequantize_4bit,
-                          dequantize_blockwise, quantize_4bit,
+                          dequantize_blockwise, matmul_4bit, quantize_4bit,
                           quantize_blockwise)
+from ..ops.flash_prefill import flash_prefill_attention, tiled_attention
 from ..ops.int4cache import int4_matmul, quantize_int4
+from ..ops.w4a8 import takes_w4a8, w4a8_matmul_4bit
 
 FLASH_PREFILL_THRESHOLD = 1024
+_SCAN_BLOCK = 512   # query and key block of the f32 flash route
 
 
 @dataclasses.dataclass
@@ -30,7 +33,9 @@ class QLinear4:
     [N, nb] (or ``absmax_q`` int8 with the nested ``absmax_state`` when the
     statistics are double-quantized). ``w_cache``/``cache_scale`` hold the
     int4 runtime cache (packed [N, K_pad/2] two's-complement nibbles, f32
-    [K_pad/128, N]) that decode streams through kernel K1.
+    [K_pad/128, N]) that decode streams through kernel K1. Without a cache
+    the layer runs off the packed bytes: kernel K4 where the JAX package
+    takes its W4A8 kernel, else :func:`matmul_4bit` (K5 up to M = 256).
     """
 
     packed: Optional[torch.Tensor]
@@ -117,16 +122,21 @@ class QLinear4:
         return b
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.w_cache is None:
-            raise NotImplementedError(
-                "QLinear4 without a runtime cache needs the packed-NF4 "
-                "kernels K4 (ops/w4a8.py) or K5 (ops/matmul4bit.py), which "
-                "are not ported yet: call with_runtime_cache('int4')")
         lead = x.shape[:-1]
-        out = int4_matmul(x.reshape(-1, x.shape[-1]), self.w_cache,
-                          self.cache_scale, bias=self.bias,
-                          out_dtype=self.dtype, n_out=self.shape[0])
-        return out.reshape(*lead, self.shape[0])
+        x2 = x.reshape(-1, x.shape[-1])
+        n = self.shape[0]
+        if self.w_cache is not None:
+            out = int4_matmul(x2, self.w_cache, self.cache_scale,
+                              bias=self.bias, out_dtype=self.dtype, n_out=n)
+        elif takes_w4a8(x2.shape[0], n, _pad_k(self.shape[1], self.blocksize),
+                        self.blocksize, self.quant_type):
+            out = w4a8_matmul_4bit(x2, self.packed.reshape(-1),
+                                   self.quant_state(), bias=self.bias,
+                                   out_dtype=self.dtype)
+        else:
+            out = matmul_4bit(x2, self.packed.reshape(-1), self.quant_state(),
+                              bias=self.bias, compute_dtype=self.dtype)
+        return out.reshape(*lead, n)
 
 
 def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
@@ -209,21 +219,42 @@ def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
     return keep[:, None, None]
 
 
+def gqa_attention_flash(q, k, v, *, scale=None, window=None, softcap=None):
+    """Causal GQA for aligned prefill (S == T) in O(S) memory.
+
+    Half-precision q runs :func:`flash_prefill_attention` (kernel K3).
+    f32 q runs the JAX package's own non-kernel route: the same online
+    softmax in f32 torch ops over its 512 x 512 blocks
+    (:func:`tiled_attention`).
+    """
+    s, d = q.shape[1], q.shape[3]
+    if s != k.shape[1]:
+        raise ValueError("flash path is for aligned causal prefill (S == T)")
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    if q.dtype in (torch.bfloat16, torch.float16):
+        return flash_prefill_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), s_real=s,
+                                       scale=float(scale), window=window,
+                                       softcap=softcap)
+    return tiled_attention(q, k, v, s_real=s, scale=float(scale),
+                           window=window, softcap=softcap,
+                           block_k=_SCAN_BLOCK)
+
+
 def gqa_attention(q, k, v, *, causal_offset=None, scale=None
                   ) -> torch.Tensor:
     """Dense grouped-query attention, computed in f32.
 
     q [B, S, H, D]; k/v [B, T, H_kv, D] token-major. ``causal_offset``
     [B, S]: the queries' absolute positions (None: aligned causal prefill,
-    S == T). Aligned prefills of 1024 tokens or more need kernel K3, which
-    is not ported.
+    S == T). Aligned prefills of 1024 tokens or more go to
+    :func:`gqa_attention_flash`, as in the JAX package.
     """
     b, s, h, d = q.shape
     t, h_kv = k.shape[1], k.shape[2]
     if causal_offset is None and s == t and s >= FLASH_PREFILL_THRESHOLD:
-        raise NotImplementedError(
-            f"prefill of {s} tokens needs the flash-prefill kernel K3 "
-            "(ops/flash_prefill.py), which is not ported yet")
+        return gqa_attention_flash(q, k, v, scale=scale)
     rep = h // h_kv
     if scale is None:
         scale = 1.0 / np.sqrt(d)

@@ -57,6 +57,11 @@ class LlamaConfig:
     def llama2_7b() -> "LlamaConfig":
         return LlamaConfig()
 
+    @staticmethod
+    def llama2_13b() -> "LlamaConfig":
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_layers=40, num_heads=40, num_kv_heads=40)
+
 
 def _norm(x, weight, config: LlamaConfig):
     return rms_norm(x, weight, config.rms_eps)

@@ -1,0 +1,141 @@
+"""Fused NF4/FP4 dequant-matmul for M up to 256 (kernel K5).
+
+What the JAX package's fused Pallas matmul computes: each 4-bit code
+dequantizes to ``codebook[code] * absmax[n, k // blocksize]`` in f32; in
+bf16 mode that weight is rounded to bf16 and x goes to bf16, in f32 mode
+both stay f32; the products accumulate in f32 and the result is cast to the
+state's dtype. The dequantized weight never reaches device memory.
+
+The TPU kernel broadcasts absmax across its lanes with a 0/1 matmul (a
+lane-layout workaround); the port multiplies by absmax directly, which is
+what that matmul computes. Forward only: the backward pass comes with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..functional import QuantState, _pad_k, codebook, dequantize_blockwise
+from . import _build
+
+__all__ = ["fused_matmul_4bit", "matmul4bit_mm", "matmul4bit_plain"]
+
+MODES = ("bf16", "f32")
+
+
+@functools.lru_cache(maxsize=None)
+def _book(quant_type: str, device: torch.device) -> torch.Tensor:
+    return codebook(quant_type, device)
+
+
+def matmul4bit_plain(x: torch.Tensor, packed: torch.Tensor,
+                     absmax: torch.Tensor, book: torch.Tensor,
+                     mode: str) -> torch.Tensor:
+    """Plain PyTorch version of K5: ``x_even @ vlo.T + x_odd @ vhi.T`` in
+    f32 over the dequantized even/odd planes (rounded to bf16 in bf16
+    mode, with x in bf16). Returns f32 [M, N]. Counts its calls on CUDA
+    tensors in ``matmul4bit_plain.cuda_calls``."""
+    if x.is_cuda:
+        matmul4bit_plain.cuda_calls += 1
+    n, nb = absmax.shape
+    bs2 = packed.shape[1] // nb
+    scale = absmax.to(torch.float32).repeat_interleave(bs2, dim=1)
+    vlo = book[(packed & 0x0F).long()] * scale
+    vhi = book[(packed >> 4).long()] * scale
+    xf = x
+    if mode == "bf16":
+        vlo, vhi = vlo.to(torch.bfloat16), vhi.to(torch.bfloat16)
+        xf = x.to(torch.bfloat16)
+    f32 = torch.float32
+    return (xf[:, 0::2].to(f32) @ vlo.to(f32).t()
+            + xf[:, 1::2].to(f32) @ vhi.to(f32).t())
+
+
+matmul4bit_plain.cuda_calls = 0
+
+
+def _launcher():
+    fn = _build.library("matmul4bit").tbnb_matmul4bit
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
+                  absmax: torch.Tensor, book: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """K5: x [M, K_pad] (bf16 in "bf16" mode, f32 in "f32" mode), packed
+    uint8 [N, K_pad/2] (element 2j in the low nibble), absmax f32 [N, nb],
+    book f32 [16] -> f32 [M, N]. CUDA tensors launch the kernel (counted in
+    ``matmul4bit_mm.launches``); CPU tensors take :func:`matmul4bit_plain`."""
+    if mode not in MODES:
+        raise ValueError(f"matmul4bit_mm: mode must be one of {MODES}")
+    if not x.is_cuda:
+        return matmul4bit_plain(x, packed, absmax, book, mode)
+    m, kp = x.shape
+    n, nb = absmax.shape
+    bs = kp // max(nb, 1)
+    want = torch.bfloat16 if mode == "bf16" else torch.float32
+    if not (x.dtype == want and packed.dtype == torch.uint8
+            and absmax.dtype == torch.float32 and book.dtype == torch.float32):
+        raise TypeError(f"matmul4bit_mm: expected {want} x in {mode} mode, "
+                        "uint8 packed, f32 absmax and codebook")
+    if (packed.shape != (n, kp // 2) or nb * bs != kp or bs < 2 or bs % 2
+            or book.shape != (16,)):
+        raise ValueError(f"matmul4bit_mm: bad shapes x {tuple(x.shape)} "
+                         f"packed {tuple(packed.shape)} absmax "
+                         f"{tuple(absmax.shape)}")
+    if not all(t.is_cuda and t.device == x.device and t.is_contiguous()
+               for t in (x, packed, absmax, book)):
+        raise ValueError("matmul4bit_mm: all operands must be contiguous "
+                         "tensors on one CUDA device")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = _launcher()(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+                      book.data_ptr(), out.data_ptr(), m, n, kp, bs,
+                      1 if mode == "bf16" else 0,
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "matmul4bit")
+    matmul4bit_mm.launches += 1
+    return out
+
+
+matmul4bit_mm.launches = 0
+
+
+def fused_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,
+                      quant_state: QuantState, *,
+                      mxu_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x [M, K] @ dequant(W [N, K]).T`` with W packed 4-bit (flat uint8).
+
+    ``mxu_dtype`` bf16 rounds the dequantized weight and x to bf16; f32
+    keeps both exact. Double-quantized absmax is dequantized here. Returns
+    ``quant_state.dtype``. Raises NotImplementedError for what the JAX
+    package's kernel does not take: a state that is not 2-D, or an odd
+    blocksize.
+    """
+    st = quant_state
+    if len(st.shape) != 2:
+        raise NotImplementedError("fused path requires a 2-D quant state")
+    if st.blocksize < 2 or st.blocksize % 2:
+        raise NotImplementedError("fused path requires an even blocksize "
+                                  ">= 2")
+    n, k = st.shape
+    kp = _pad_k(k, st.blocksize)
+    absmax = st.absmax
+    if st.state2 is not None:
+        absmax = dequantize_blockwise(absmax, st.state2)
+    absmax = absmax.reshape(n, kp // st.blocksize).to(torch.float32)
+    mode = "f32" if mxu_dtype == torch.float32 else "bf16"
+    x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
+    if kp != k:
+        x = torch.nn.functional.pad(x, (0, kp - k))
+    out = matmul4bit_mm(x.contiguous(), packed_flat.reshape(n, kp // 2),
+                        absmax.contiguous(), _book(st.quant_type, x.device),
+                        mode)
+    return out.to(st.dtype)
