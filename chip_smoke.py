@@ -8,11 +8,12 @@ Phases (any failure raises: traceback, nonzero exit):
   2. kernels: builds every kernel from ``tpu_bitsandbytes_torch/csrc`` and
      holds each against its plain PyTorch version on the card, at the
      shapes the served paths give it (Llama-2-7B for K1/K2, Llama-2-13B
-     for K3/K4/K5) and at odd ones; times kernel, plain version, the one
-     PyTorch call that computes the same function where there is one
-     (SDPA for K3), and the least time the card could take (bytes over HBM
-     bandwidth, or operations over the peak for their type, whichever is
-     larger).
+     for K3/K4/K5) and at odd ones; times kernel (device time, replayed
+     from a CUDA graph), plain version, the one PyTorch call that computes
+     the same function where there is one (SDPA for K3), and the least time
+     the card could take (bytes over HBM bandwidth, or operations over the
+     peak for their type, whichever is larger). K4 is timed at decode M=8
+     and at the 32/64 prefill buckets.
   3. full width against the CPU: a Llama-2-7B-width model with the int4
      cache, and (3b) a Llama-2-13B-width model off its packed NF4 bytes,
      each cut to 2 layers and built once from a numpy seed, run prefill
@@ -47,7 +48,10 @@ import torch
 
 K1_TOL = 1e-5   # exact int32 block dots; only the f32 sum order differs
 K2_TOL = 1e-3   # one flipped p code where an exp rounds differently
-K3_TOL = 1e-2   # bf16 p from exps that round differently on the card
+# of each query row's own max|ref| (a long row's outputs are far below the
+# first rows'): bf16 p and outputs that round differently on the card;
+# one bf16 ulp of an output is at most 2^-7 of its row's max
+K3_TOL = 1e-2
 K4_TOL = 1e-5   # exact int32 block dots; only the f32 sum order differs
 # f32: exact products, another sum order; bf16: the f32 result rounds to
 # bf16, whose ulp at max|ref| is 3.9e-3
@@ -69,7 +73,8 @@ def card_rates(name: str):
 
 def time_ms(calls, iters: int) -> float:
     """Mean ms per call over ``iters`` calls cycling through ``calls``
-    (closures over distinct buffers, so operands come from HBM, not L2)."""
+    (closures over distinct buffers, so operands come from HBM, not L2),
+    launched from the host: for the plain versions."""
     for c in calls:
         c()
     torch.cuda.synchronize()
@@ -83,10 +88,43 @@ def time_ms(calls, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(calls, iters: int) -> float:
+    """Device ms per call of ``iters`` calls cycling through ``calls``,
+    captured in one CUDA graph after a warm-up call each and replayed: the
+    host's launch cost (Python, ctypes) is not counted, so a kernel's time
+    stands against its bound."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
 def err(got, ref):
     got, ref = got.float(), ref.float()
     abs_err = (got - ref).abs().max().item()
     return abs_err, abs_err / max(ref.abs().max().item(), 1e-30)
+
+
+def row_err(got, ref):
+    """Worst |got - ref| over each row of the last axis, as a share of that
+    row's max|ref|."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().amax(-1)
+            / ref.abs().amax(-1).clamp(min=1e-30)).max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +178,8 @@ def phase_kernels_k1(K1, gen, dev, bw, int8_peak):
         w_bytes = n * k // 2
         copies = max(2, math.ceil(200e6 / w_bytes))
         xq, s_x, ws = k1_inputs(8, n, k, gen, dev, copies)
-        kern = time_ms([lambda w=w, sc=sc: K1.int4_mm(xq, w, sc, s_x)
-                        for w, sc in ws], iters=max(40, 2 * copies))
+        kern = time_graph_ms([lambda w=w, sc=sc: K1.int4_mm(xq, w, sc, s_x)
+                              for w, sc in ws], iters=max(40, 2 * copies))
         plain = time_ms([lambda: K1.int4_mm_plain(xq, *ws[0], s_x)], iters=3)
         bound, by = k1_bound_ms(8, n, k, bw, int8_peak)
         rows.append({"shape": f"{name} M=8 N={n} K={k}", "kernel_ms": kern,
@@ -233,7 +271,7 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
     geo = dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32)
     q, len0, layers = k2_inputs(gen, dev, layers=8, **geo)
     off = len0 + 31
-    kern = time_ms([lambda kv=kv, st=st: K2.flash_decode_attention(
+    kern = time_graph_ms([lambda kv=kv, st=st: K2.flash_decode_attention(
         q, *kv, off, staged=st + (31,)) for kv, st in layers], iters=64)
     kv, st = layers[0]
     plain = time_ms([lambda: K2.flash_decode_plain(
@@ -264,10 +302,12 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
 K4_DECODE = [("qkv", 15360, 5120, 40), ("o", 5120, 5120, 40),
              ("gateup", 27648, 5120, 40), ("down", 5120, 13824, 40),
              ("lm_head", 32000, 5120, 1)]
-# (M, N, K, blocksize): other decode widths, prefill buckets, blocksize 128
+# (M, N, K, blocksize): other decode widths, prefill buckets, blocksizes
+# 128, 32 and 2048 (a block longer than the kernel's chunk), odd N and M
 K4_EXTRA = [(1, 5120, 5120, 128), (64, 27648, 5120, 64),
             (8, 15360, 5120, 128), (32, 5120, 13824, 64),
-            (3, 256, 512, 16)]
+            (3, 256, 512, 16), (33, 5120, 5120, 32), (9, 1000, 4096, 2048)]
+K4_M = (8, 32, 64)   # decode, and the 32/64 prefill buckets
 
 
 def packed_inputs(n, k, bs, gen, dev, copies=1):
@@ -301,26 +341,35 @@ def phase_kernels_k4(K4, gen, dev, bw, int8_peak):
             raise AssertionError(f"K4 M={m} N={n} K={k} bs={bs}: rel err {r}")
         worst = [max(worst[0], a), max(worst[1], r)]
     rows = []
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    # M=8: one decode step; M=32/64: one prefill of those buckets (161
+    # launches each, as many as a decode step)
+    totals = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+              for m in K4_M}
     for name, n, k, per_step in K4_DECODE:
         copies = max(2, math.ceil(200e6 / packed_bytes(n, k, 64)))
-        xq, s_x = inputs(8, k)
         ws = packed_inputs(n, k, 64, gen, dev, copies)
-        kern = time_ms([lambda w=w, am=am: K4.w4a8_mm(xq, w, am, s_x)
-                        for w, am in ws], iters=max(40, 2 * copies))
-        plain = time_ms([lambda: K4.w4a8_mm_plain(xq, *ws[0], s_x)], iters=3)
-        nbytes = packed_bytes(n, k, 64) + 8 * k + 4 * 8 + 4 * 8 * n
-        ops = 2 * 8 * n * k
-        bound = max(nbytes / bw, ops / int8_peak) * 1e3
-        rows.append({"shape": f"{name} M=8 N={n} K={k}", "kernel_ms": kern,
-                     "plain_ms": plain, "bound_ms": bound,
-                     "bound_by": "bytes" if nbytes / bw >= ops / int8_peak
-                     else "operations", "per_step": per_step})
-        total["ms"] += per_step * kern
-        total["plain_ms"] += per_step * plain
-        total["bound_ms"] += per_step * bound
+        for m in K4_M:
+            xq, s_x = inputs(m, k)
+            kern = time_graph_ms(
+                [lambda w=w, am=am: K4.w4a8_mm(xq, w, am, s_x)
+                 for w, am in ws], iters=max(40, 2 * copies))
+            plain = time_ms([lambda: K4.w4a8_mm_plain(xq, *ws[0], s_x)],
+                            iters=3)
+            nbytes = packed_bytes(n, k, 64) + m * k + 4 * m + 4 * m * n
+            ops = 2 * m * n * k
+            bound = max(nbytes / bw, ops / int8_peak) * 1e3
+            rows.append({"shape": f"{name} M={m} N={n} K={k}",
+                         "kernel_ms": kern, "plain_ms": plain,
+                         "bound_ms": bound, "x_bound": kern / bound,
+                         "bound_by": "bytes" if nbytes / bw >= ops / int8_peak
+                         else "operations", "per_step": per_step})
+            for key, val in (("ms", kern), ("plain_ms", plain),
+                             ("bound_ms", bound)):
+                totals[m][key] += per_step * val
         del ws
-    emit({"phase": "kernels", "kernel": "K4_w4a8_matmul", "shapes": rows})
+    emit({"phase": "kernels", "kernel": "K4_w4a8_matmul", "shapes": rows,
+          "per_161_launches": {f"M={m}": t for m, t in totals.items()}})
+    total = totals[8]
     return {
         "name": "K4_w4a8_matmul", "route": "cuda",
         "source": "tpu_bitsandbytes_torch/csrc/w4a8_matmul.cu",
@@ -331,7 +380,8 @@ def phase_kernels_k4(K4, gen, dev, bw, int8_peak):
         "max_abs_err": worst[0], "max_rel_err": worst[1],
         "ms": total["ms"], "kernel_ms": total["ms"],
         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}
+        "bound_by": "bytes", "library_ms": None,
+        "prefill_buckets": {f"M={m}": totals[m] for m in K4_M[1:]}}
 
 
 def k5_bound(m, n, k, bs, bw, bf16_peak):
@@ -388,7 +438,7 @@ def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
             ws = packed_inputs(n, k, 64, gen, dev, copies)
             x = x_of(m, k, "bf16")
             book = TF.codebook("nf4", dev)
-            kern = time_ms([lambda w=w, am=am: K5.matmul4bit_mm(
+            kern = time_graph_ms([lambda w=w, am=am: K5.matmul4bit_mm(
                 x, w, am, book, "bf16") for w, am in ws],
                 iters=max(20, 2 * copies))
             plain = time_ms([lambda: K5.matmul4bit_plain(x, *ws[0], book,
@@ -404,7 +454,8 @@ def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
             del ws
     x = x_of(65, 5120, "f32")
     ((w, am),) = packed_inputs(5120, 5120, 64, gen, dev)
-    f32_ms = time_ms([lambda: K5.matmul4bit_mm(x, w, am, book, "f32")], 20)
+    f32_ms = time_graph_ms([lambda: K5.matmul4bit_mm(x, w, am, book, "f32")],
+                           20)
     emit({"phase": "kernels", "kernel": "K5_matmul4bit", "shapes": rows,
           "f32_mode_o_M65_ms": f32_ms,
           "worst_rel_err": {k: v[1] for k, v in worst.items()}})
@@ -447,7 +498,7 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
             torch.bfloat16) for shape in ((b, s, h, d), (b, s, h_kv, d),
                                           (b, s, h_kv, d))]
 
-    worst = [0.0, 0.0]
+    worst = [0.0, 0.0, 0.0]   # abs, share of max|ref|, share of the row's
     for b, s, h, h_kv, d, s_real, opts in cases:
         q, k, v = qkv(b, s, h, h_kv, d)
         scale = 1.0 / d ** 0.5
@@ -457,22 +508,25 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
                                      block_k=K3.BLOCK, **opts)
         torch.cuda.synchronize()
         a, r = err(got[:, :s_real], ref[:, :s_real])
-        if not (r <= K3_TOL and torch.isfinite(got[:, :s_real]).all()):
+        rr = row_err(got[:, :s_real], ref[:, :s_real])
+        if not (rr <= K3_TOL and torch.isfinite(got[:, :s_real]).all()):
             raise AssertionError(f"K3 B={b} S={s} H={h}/{h_kv} D={d} "
-                                 f"s_real={s_real} {opts}: rel err {r}")
-        worst = [max(worst[0], a), max(worst[1], r)]
+                                 f"s_real={s_real} {opts}: rel err {rr} of "
+                                 "a query row's max")
+        worst = [max(worst[0], a), max(worst[1], r), max(worst[2], rr)]
     rows = []
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for b, s in ((1, 1024), (4, 2048)):   # the served path's two buckets
         q, k, v = qkv(b, s, 40, 40, 128)
         scale = 1.0 / 128 ** 0.5
-        kern = time_ms([lambda: K3.flash_prefill_attention(
+        kern = time_graph_ms([lambda: K3.flash_prefill_attention(
             q, k, v, s_real=s, scale=scale)], iters=10)
         plain = time_ms([lambda: K3.flash_prefill_plain(
             q, k, v, s_real=s, scale=scale, block_k=K3.BLOCK)], iters=2)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True)], iters=10)
+        lib = time_graph_ms(
+            [lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)], iters=10)
         bound, by = k3_bound(b, s, 40, 40, 128, s, None, bw, bf16_peak, K3)
         rows.append({"shape": f"B={b} S={s} H=40 D=128", "kernel_ms": kern,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
@@ -490,6 +544,7 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
         "shape": "the prefills of the 1024 (B=1) and 2048 (B=4) buckets at "
                  "Llama-2-13B, bf16: 40 layers x (H=40, D=128)",
         "max_abs_err": worst[0], "max_rel_err": worst[1],
+        "max_row_rel_err": worst[2],
         "ms": total["ms"], "kernel_ms": total["ms"],
         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
         "bound_by": "operations", "library_ms": total["library_ms"]}
@@ -929,8 +984,9 @@ def phase_serve(dev, counters, plains):
 PACKED_PROMPTS = [24, 60, 100, 200, 700, 1100, 1500, 1800]
 
 
-def phase_serve_packed(dev, counters, plains):
-    """5: Llama-2-13B, 40 layers, off the packed NF4 bytes."""
+def phase_serve_packed(dev, counters, plains, bw, int8_peak):
+    """5: Llama-2-13B, 40 layers, off the packed NF4 bytes. Returns the
+    launches and K2's bound for the step counted alone (ms, 40 layers)."""
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
                                                        SamplingParams)
@@ -1008,6 +1064,10 @@ def phase_serve_packed(dev, counters, plains):
     toks = torch.tensor([o[-1] for o in outs], dtype=torch.int32, device=dev)
     active = torch.ones((8,), dtype=torch.bool, device=dev)
     span = E._span_bucket(int(engine.cache.lengths.max()) + 32, 2048)
+    # K2 keeps keys 0..position of each slot: the bound at these lengths
+    kept_keys = int(engine.cache.lengths.sum()) + 8
+    k2_bound = cfg.num_layers * k2_bound_ms(
+        kept_keys, 8, cfg.num_heads, cfg.num_kv_heads, cfg.hd, bw, int8_peak)
     logits, _ = E.decode_step(engine.params, engine.cache, toks, active, cfg,
                               attn_span=span)
     torch.cuda.synchronize()
@@ -1040,8 +1100,9 @@ def phase_serve_packed(dev, counters, plains):
           "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
           "max_memory_allocated_gib": peak_gib,
           "launches": launches, "launches_per_decode_step": per_step,
-          "plain_calls_on_cuda": plain_cuda})
-    return launches
+          "plain_calls_on_cuda": plain_cuda,
+          "k2_kept_keys": kept_keys, "k2_bound_ms_per_step": k2_bound})
+    return launches, k2_bound
 
 
 def main() -> int:
@@ -1077,9 +1138,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_all()
     build_s = time.perf_counter() - t0
+    # ptxas -v: each kernel's name, then its registers, shared memory, spills
     ptxas = [line.strip() for src in _build.sources()
              for line in _build.build_log(src.stem).splitlines()
-             if "registers" in line or "spill" in line]
+             if "Compiling entry function" in line or "registers" in line
+             or "spill" in line]
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [phase_kernels_k1(K1, gen, dev, bw, int8_peak),
@@ -1108,7 +1171,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the slice: Llama-2-13B off the packed bytes
-    by_path["llama2_13b_packed"] = phase_serve_packed(dev, counters, plains)
+    by_path["llama2_13b_packed"], k2_bound_13b = phase_serve_packed(
+        dev, counters, plains, bw, int8_peak)
+    # K2's bound at the 13B path's spans, beside its 7B row
+    kernels[1]["bound_13b_step_ms"] = k2_bound_13b
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

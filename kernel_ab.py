@@ -1,0 +1,145 @@
+"""Times the kernels of two trees of the port on one CUDA card, alternately.
+
+    git archive <commit> tpu_bitsandbytes_torch | tar -x -C build/ab_base
+    python3 kernel_ab.py --base build/ab_base [--out build/ab.jsonl]
+
+Runs one worker process per tree in the order base, this tree, this tree,
+base. Each worker imports ``tpu_bitsandbytes_torch`` from its tree, builds
+that tree's kernels, and times K3 and K4 at ``chip_smoke.py`` phase 2's
+timed shapes (K3 at B=1 S=1024 and B=4 S=2048, H=40, D=128, bf16; K4 at
+the five Llama-2-13B shapes, blocksize 64, M = 8, 32, 64) and K1 and K2 at
+theirs, each two ways: replayed from a CUDA graph (device time, as phase 2
+reports it) and launched from the host (as phase 2 reported it before the
+graph). The inputs come from the same seed in every worker. Prints one JSON
+line per worker, then one summary line: per row, each tree's mean over its
+two workers. Without a CUDA card it exits with code 2 and prints no result.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as C
+
+HERE = Path(__file__).resolve().parent
+
+
+def timed(calls, iters):
+    return {"graph_ms": C.time_graph_ms(calls, iters),
+            "host_ms": C.time_ms(calls, iters)}
+
+
+def worker(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import tpu_bitsandbytes_torch
+    from tpu_bitsandbytes_torch.ops import _build
+    from tpu_bitsandbytes_torch.ops import flash_decode as K2
+    from tpu_bitsandbytes_torch.ops import flash_prefill as K3
+    from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
+    pkg = Path(tpu_bitsandbytes_torch.__file__).resolve()
+    if root.resolve() not in pkg.parents:
+        raise RuntimeError(f"imported {pkg}, not the tree at {root}")
+    _build.load_all()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    for b, s in ((1, 1024), (4, 2048)):
+        q, k, v = [(torch.randn((b, s, 40, 128), generator=gen, device=dev)
+                    * 0.5).to(torch.bfloat16) for _ in range(3)]
+        rows[f"K3 B={b} S={s} H=40 D=128, per layer"] = timed(
+            [lambda: K3.flash_prefill_attention(q, k, v, s_real=s,
+                                                scale=128 ** -0.5)], 10)
+        del q, k, v
+
+    per_161 = {m: {"graph_ms": 0.0, "host_ms": 0.0} for m in C.K4_M}
+    for name, n, k, per_step in C.K4_DECODE:
+        copies = max(2, math.ceil(200e6 / C.packed_bytes(n, k, 64)))
+        ws = C.packed_inputs(n, k, 64, gen, dev, copies)
+        for m in C.K4_M:
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int16).to(torch.int8)
+            s_x = torch.rand((m,), generator=gen, device=dev) * 0.05 + 1e-3
+            t = timed([lambda w=w, am=am: K4.w4a8_mm(xq, w, am, s_x)
+                       for w, am in ws], max(40, 2 * copies))
+            rows[f"K4 {name} M={m} N={n} K={k}"] = t
+            for key in t:
+                per_161[m][key] += per_step * t[key]
+        del ws
+    for m, t in per_161.items():
+        rows[f"K4 M={m}, per 161 launches"] = t
+
+    per_step = {"graph_ms": 0.0, "host_ms": 0.0}
+    for name, n, k, count in C.K1_DECODE:
+        copies = max(2, math.ceil(200e6 / (n * k // 2)))
+        xq, s_x, ws = C.k1_inputs(8, n, k, gen, dev, copies)
+        t = timed([lambda w=w, sc=sc: K1.int4_mm(xq, w, sc, s_x)
+                   for w, sc in ws], max(40, 2 * copies))
+        for key in t:
+            per_step[key] += count * t[key]
+        del ws
+    rows["K1 per 7B decode step (129 launches)"] = per_step
+
+    q, len0, layers = C.k2_inputs(gen, dev, layers=8, b=8, h=32, h_kv=32,
+                                  d=128, s=512, span=384, c=32)
+    off = len0 + 31
+    t = timed([lambda kv=kv, st=st: K2.flash_decode_attention(
+        q, *kv, off, staged=st + (31,)) for kv, st in layers], 64)
+    rows["K2 per 7B decode step (32 launches)"] = {
+        key: 32 * val for key, val in t.items()}
+    return {"tree": str(root), "rows": rows}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", type=Path, help="root of the other tree")
+    ap.add_argument("--out", type=Path, help="also write the lines here")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if args.worker:
+        print(json.dumps(worker(args.worker)), flush=True)
+        return 0
+    if args.base is None or not (args.base / "tpu_bitsandbytes_torch").is_dir():
+        ap.error("--base must hold a tpu_bitsandbytes_torch package")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    lines = [{"nvidia_smi": smi, "torch": torch.__version__}]
+    runs = []
+    for label, root in (("base", args.base), ("this", HERE),
+                        ("this", HERE), ("base", args.base)):
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--worker", str(root.resolve())], cwd=HERE,
+                             capture_output=True, text=True, check=True)
+        run = json.loads(out.stdout.strip().splitlines()[-1])
+        run["label"] = label
+        runs.append(run)
+        lines.append(run)
+    summary = {}
+    for row in runs[0]["rows"]:
+        summary[row] = {}
+        for label in ("base", "this"):
+            mine = [r["rows"][row] for r in runs if r["label"] == label]
+            summary[row][label] = {key: sum(t[key] for t in mine) / len(mine)
+                                   for key in mine[0]}
+    lines.append({"summary": summary})
+    text = "\n".join(json.dumps(line) for line in lines)
+    print(text, flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -58,6 +58,31 @@ def test_plain_matches_jax_kernel(h, h_kv, s_real, opts):
     assert _cos(got, ref) > 0.999
 
 
+@pytest.mark.parametrize("h,h_kv,s_real,opts", [
+    (2, 2, 1024, {}),
+    (4, 1, 1000, {"window": 300}),
+    (2, 2, 1024, {"softcap": 50.0}),
+])
+def test_plain_at_kernel_tile_matches_jax_kernel(h, h_kv, s_real, opts):
+    """What CPU tensors run, and what the card's K3 computes: the plain
+    version at the kernel's key tile (``BLOCK``), against JAX's kernel at
+    its 512 tile, within the same bound (p rounds to bf16 at other tile
+    edges: another running max when it rounds)."""
+    q, k, v = _qkv(1, 1024, h, h_kv, 128, seed=h * 11 + s_real)
+    scale = 1.0 / np.sqrt(128)
+    ref = JFP.flash_prefill_attention(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), s_real=s_real,
+        scale=scale, **opts)
+    got = TFP.flash_prefill_attention(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)),
+        s_real=s_real, scale=scale, **opts)
+    ref = np.asarray(ref, np.float32)[:, :s_real]
+    got = t32(got)[:, :s_real]
+    assert TFP.BLOCK == 128
+    assert rel_err(got, ref) <= 1e-2
+    assert _cos(got, ref) > 0.999
+
+
 @pytest.mark.parametrize("opts", [{}, {"window": 300, "softcap": 50.0}])
 def test_f32_scan_matches_jax(opts):
     q, k, v = _qkv(2, 1100, 4, 2, 64, seed=5)

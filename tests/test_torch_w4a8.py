@@ -179,3 +179,116 @@ def test_kernel_decode_words_give_the_codebook():
     got = got.view(np.int8).reshape(-1, 4)
     codes = (v[:, None] >> (np.arange(4, dtype=np.uint32) * 4)) & 15
     np.testing.assert_array_equal(got, np.asarray(TW.NF4_I8)[codes])
+
+
+# The tensor-core K4 (csrc/w4a8_matmul.cu), mirrored in numpy: one warp,
+# mma.sync m16n8k32 with the weights as A (16 rows) and the activations as
+# B (8 rows). PTX's fragment layout, for lane (g, t) = (lane >> 2, lane & 3):
+# A register r holds row g + 8 * (r & 1), logical k 4t + i + 16 * (r >> 1)
+# in byte i; B register j holds column (activation row) g, logical k
+# 4t + i + 16 * j. The kernel fills them from the k32 step's 32-code window
+# so that logical k 4t + i + 16h is the physical code 8t + 4h + i: A from
+# the packed word at bytes 4t..4t+3 of the row (decode8: low half into a0/a1,
+# high half into a2/a3), B from x[row][8t .. 8t + 7].
+MAGIC = 0x4B400000          # a block's int32 MMA chain starts here
+MAGIC_F = np.float32(12582912.0)
+
+
+def _decode8(v, words):
+    """The kernel's decode8 on uint32 words v: (codes 0-3, codes 4-7) as
+    int8x4 words, byte i for code i."""
+    t0, t1, t2, t3 = (np.full_like(v, w) for w in words)
+    sel = v & np.uint32(0x77777777)
+    pick = np.uint32(0x32103210) | ((v >> np.uint32(1))
+                                    & np.uint32(0x44444444))
+
+    def half(s, p):
+        return _byte_perm(_byte_perm(t0, t1, s), _byte_perm(t2, t3, s), p)
+
+    return half(sel, pick), half(sel >> np.uint32(16), pick >> np.uint32(16))
+
+
+def _fragments(packed_step, x_step, words):
+    """A and B registers of all 32 lanes for one k32 step: packed_step
+    uint8 [16 rows, 16 bytes], x_step int8 [8 rows, 32]. Returns int8
+    arrays A [32 lanes, 4 regs, 4 bytes] and B [32, 2, 4]."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    word = packed_step.view("<u4")                # [16 rows, 4 words]
+    lo_g, hi_g = _decode8(word[g, t], words)
+    lo_g8, hi_g8 = _decode8(word[g + 8, t], words)
+    regs = np.stack([lo_g, lo_g8, hi_g, hi_g8], axis=1).astype("<u4")
+    a = regs.view(np.int8).reshape(32, 4, 4)
+    b = x_step.reshape(8, 4, 8)[g, t].reshape(32, 2, 4)
+    return a, b
+
+
+def _mma_m16n8k32(a, b):
+    """D [16, 8] = A B over PTX's logical fragment layout."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    a_full = np.zeros((16, 32), np.int64)
+    b_full = np.zeros((32, 8), np.int64)
+    for r in range(4):
+        for i in range(4):
+            a_full[g + 8 * (r & 1), 4 * t + i + 16 * (r >> 1)] = a[:, r, i]
+    for j in range(2):
+        for i in range(4):
+            b_full[4 * t + i + 16 * j, g] = b[:, j, i]
+    return a_full @ b_full
+
+
+def test_kernel_fragment_map_covers_the_window_once():
+    """Over one k32 step, the 32 lanes' A registers hold every (weight row,
+    code) of the 16 x 32 window once, each decoded from its own packed byte
+    and nibble, and their B registers every (activation row, k) once."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    seen_a, seen_b = np.zeros((16, 32), int), np.zeros((8, 32), int)
+    for r in range(4):
+        row = g + 8 * (r & 1)
+        for i in range(4):
+            k = 8 * t + 4 * (r >> 1) + i                # physical code
+            # packed byte 4t + 2 * (r >> 1) + i // 2 of the row, nibble i % 2
+            byte = 4 * t + 2 * (r >> 1) + i // 2
+            assert np.array_equal(byte, k // 2) and i % 2 == k[0] % 2
+            np.add.at(seen_a, (row, k), 1)
+    for j in range(2):
+        for i in range(4):
+            np.add.at(seen_b, (g, 8 * t + 4 * j + i), 1)
+    assert (seen_a == 1).all() and (seen_b == 1).all()
+
+
+def test_kernel_fragment_map_gives_the_block_sums():
+    """One full tile of the tensor-core K4 (16 weight rows, one 256-code
+    chunk, 8 activation rows, blocksize 64) through the kernel's decode,
+    fragment fill and MMA, emulated: the int32 block sums equal the direct
+    dot of x with the codebook values, read exactly as floats from the
+    MAGIC-seeded chains; scaled block by block they give w4a8_mm_plain."""
+    rng = np.random.default_rng(11)
+    n, m, kp, bs = 16, 8, 256, 64
+    packed = rng.integers(0, 256, (n, kp // 2), dtype=np.uint8)
+    xq = rng.integers(-127, 128, (m, kp), dtype=np.int8)
+    absmax = rng.uniform(5e-3, 3.5e-2, (n, kp // bs)).astype(np.float32)
+    s_x = rng.uniform(1e-3, 5e-2, (m,)).astype(np.float32)
+    words = [np.uint32(w) for w in TW._table_words()]
+    codes = np.stack([packed & 15, packed >> 4], axis=-1).reshape(n, kp)
+    w_i8 = np.asarray(TW.NF4_I8, np.int64)[codes]
+    acc = np.zeros((n, m), np.float32)
+    for blk in range(kp // bs):
+        chain = np.full((n, m), MAGIC, np.int64)
+        for step in range(blk * bs // 32, (blk + 1) * bs // 32):
+            a, b = _fragments(packed[:, step * 16:(step + 1) * 16],
+                              xq[:, step * 32:(step + 1) * 32], words)
+            chain += _mma_m16n8k32(a, b)
+        direct = w_i8[:, blk * bs:(blk + 1) * bs] @ xq[:, blk * bs:(
+            blk + 1) * bs].astype(np.int64).T
+        assert np.array_equal(chain - MAGIC, direct)
+        as_float = chain.astype(np.uint32).view(np.float32) - MAGIC_F
+        assert np.array_equal(as_float, direct.astype(np.float32))
+        acc += as_float * (absmax[:, blk:blk + 1]
+                           * np.float32(1.0 / 127.0))
+    got = (acc * s_x[None, :]).T
+    ref = TW.w4a8_mm_plain(torch.from_numpy(xq), torch.from_numpy(packed),
+                           torch.from_numpy(absmax), torch.from_numpy(s_x))
+    assert rel_err(got, t32(ref)) <= 1e-6

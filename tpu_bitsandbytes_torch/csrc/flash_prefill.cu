@@ -1,9 +1,9 @@
 // K3: causal GQA flash attention for aligned prefill, for Hopper (sm_90a).
 //
 // Replaces tpu_bitsandbytes/ops/flash_prefill.py:_kernel (pallas_call at
-// :135) and computes what it does, over 64 x 64 tiles in place of 512 x 512:
-// for each query tile, key tiles from the window's first tile up to the
-// causal diagonal;
+// :135) and computes what it does, over 128 x 128 tiles in place of
+// 512 x 512: for each query tile, key tiles from the window's first tile up
+// to the causal diagonal;
 //     lg = dot(q, k) * scale in f32 (bf16 or f16 operands), optional
 //     softcap tanh(lg / cap) * cap; masked logits (keep kpos <= qpos,
 //     kpos < s_real and the window) are -1e30;
@@ -15,19 +15,32 @@
 //
 // Bound on the H100: the operations, 4 * B * H * D * (kept (q, k) pairs)
 // over the dense bf16 peak; the bytes (q, k, v and out once each) are a few
-// per cent of that time at S >= 1024.
+// per cent of that time at S >= 1024. Besides the tensor cores, each logit
+// costs an expf and a few f32 operations, which the design keeps off the
+// tensor cores' path where it can.
 //
-// Design: one block of 4 warps per (64 queries, head, batch row), the
-// longest query tiles launched first. Each warp owns 16 query rows: their
-// Q fragments stay in registers, and the S = QK^T tile, the online softmax
-// and the O accumulator live in mma.sync m16n8k16 fragments (f32 accumulate);
-// p goes from the S fragments straight into the A fragments of the PV
-// product, and V's B fragments come from shared memory through
-// ldmatrix.trans. Each key tile is staged in shared memory (K and V, 64 rows
-// padded against bank conflicts) by all threads. GQA reads kv head h / rep.
-// No TMA, no double buffering and no wgmma yet: those are for the PRs that
-// make this kernel fast.
+// Design (after FlashAttention-3): one block of three warpgroups per (128
+// queries, head, batch row), the longest query tiles launched first.
+// Warpgroup 0 is the producer: one thread loads the Q tile once and keeps
+// the K and V tiles (128 keys x D) in flight through a 2-stage ring in
+// dynamic shared memory (Q and the ring: 164,936 bytes at D = 128, 83,016
+// at D = 64, barriers and alignment included), by TMA (cp.async.bulk.tensor from a 4-D tensor map
+// over [B, S, H, D], 128-byte swizzle, rows past S zero-filled), with full
+// and empty mbarriers for K and for V apart, so a K tile is refilled as soon
+// as its S product is done. Warpgroups 1 and 2 each own 64 query rows:
+// S = Q K^T is one wgmma.mma_async m64n128k16 chain per tile (Q and K read
+// from the swizzled tiles through descriptors, f32 accumulate); the online
+// softmax runs on the accumulator registers; p, rounded to the operands'
+// type, goes from the S accumulator straight into the register A operand of
+// the PV chain, and V is the shared-memory B operand in its token-major
+// layout (the descriptor's transpose bit, no explicit transpose). Each
+// warpgroup issues PV of tile j - 1 with S of tile j as one wgmma group, and
+// the two take turns to issue (named barriers), so one's softmax runs while
+// the other's products keep the tensor cores busy. The producer gives up
+// registers to the consumers (setmaxnreg). Tiles that no mask touches skip
+// the mask. GQA reads kv head h / rep.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -35,8 +48,156 @@
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
+constexpr int BQ = 128, BK = 128, STAGES = 2;
+constexpr int THREADS = 384;        // producer warpgroup + 2 consumer warpgroups
+constexpr int SUB = 128 * 64 * 2;   // a [128 rows][64 columns] 16-bit sub-tile
 constexpr float NEG = -1e30f;
+
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 1024 bytes): Q, the K ring, the V ring, the barriers.
+template <int D>
+struct Layout {
+  static constexpr int NSUB = D / 64;         // 64-column sub-tiles per row
+  static constexpr int TILE = NSUB * SUB;     // one 128 x D tile
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BAR = V + STAGES * TILE;
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;  // + alignment
+};
+static_assert(Layout<128>::BYTES == 164936 && Layout<64>::BYTES == 83016,
+              "the header states these sizes");
+
+// the barriers after Q's: full and empty, for K and for V, one per stage
+__device__ __forceinline__ uint32_t full_k(uint32_t bar, int s) { return bar + 8 * (1 + s); }
+__device__ __forceinline__ uint32_t full_v(uint32_t bar, int s) {
+  return bar + 8 * (1 + STAGES + s);
+}
+__device__ __forceinline__ uint32_t empty_k(uint32_t bar, int s) {
+  return bar + 8 * (1 + 2 * STAGES + s);
+}
+__device__ __forceinline__ uint32_t empty_v(uint32_t bar, int s) {
+  return bar + 8 * (1 + 3 * STAGES + s);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head),
+         "r"(row), "r"(batch)
+      : "memory");
+}
+
+// the consumer warpgroups' turns to issue: warpgroup w waits on barrier
+// 1 + w, which the other warpgroup arrives at
+__device__ __forceinline__ void sched_sync(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void sched_arrive(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads across the async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define TBNB_D32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TBNB_D64                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define TBNB_F8(d, i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),             \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TBNB_ACC32(d) TBNB_F8(d, 0), TBNB_F8(d, 8), TBNB_F8(d, 16), TBNB_F8(d, 24)
+#define TBNB_ACC64(d) TBNB_ACC32(d), TBNB_F8(d, 32), TBNB_F8(d, 40), TBNB_F8(d, 48), TBNB_F8(d, 56)
+
+// d[64] (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
+template <bool F16>
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db, int scale_d) {
+#define TBNB_QK(TY)                                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " " TBNB_D64              \
+               ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                          \
+               : TBNB_ACC64(d)                                                            \
+               : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (F16) TBNB_QK(".f16.f16"); else TBNB_QK(".bf16.bf16");
+#undef TBNB_QK
+}
+
+// d[D/2] += A (64 x 16, registers) * B (16 x D, smem, N-major: transposed)
+template <int D, bool F16>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (D == 128) {
+#define TBNB_PV128(TY)                                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " " TBNB_D64              \
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                           \
+               : TBNB_ACC64(d)                                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+    if constexpr (F16) TBNB_PV128(".f16.f16"); else TBNB_PV128(".bf16.bf16");
+#undef TBNB_PV128
+  } else {
+#define TBNB_PV64(TY)                                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32" TY " " TBNB_D32               \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                           \
+               : TBNB_ACC32(d)                                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+    if constexpr (F16) TBNB_PV64(".f16.f16"); else TBNB_PV64(".bf16.bf16");
+#undef TBNB_PV64
+  }
+}
 
 template <bool F16>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -49,31 +210,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-template <bool F16>
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (F16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -84,167 +220,269 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows [row0, row0 + 64) of a token-major [S, stride] operand (one head's
-// D columns at src) into a padded [64][LD] tile; rows past S are zero
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          size_t stride, int row0, int S) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < BKV * CH; c += THREADS) {
-    const int r = c / CH, part = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * stride + part);
-    *reinterpret_cast<uint4*>(dst + r * LD + part) = val;
-  }
-}
-
 template <int D, bool F16>
-__global__ void __launch_bounds__(THREADS)
-flash_prefill_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, uint16_t* __restrict__ out, int S,
-                     int H, int Hkv, int s_real, int window, int has_window,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, uint16_t* __restrict__ out,
+                     int S, int H, int Hkv, int s_real, int window, int has_window,
                      float scale, float softcap) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;  // k16 steps of QK^T
-  constexpr int ND = D / 8;   // n8 tiles of O
-  __shared__ __align__(16) uint16_t Ks[BKV * LD];
-  __shared__ __align__(16) uint16_t Vs[BKV * LD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t bar = base + L::BAR;  // Q's, then full_k, full_v, empty_k, empty_v
+  const int tid = threadIdx.x;
   const int qi = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
-  const uint16_t* qb = q + (size_t)b * S * q_stride + (size_t)h * D;
-  const uint16_t* kb = k + (size_t)b * S * kv_stride + (size_t)hk * D;
-  const uint16_t* vb = v + (size_t)b * S * kv_stride + (size_t)hk * D;
-  const int wr = warp * 16;
-
-  // this warp's 16 query rows as A fragments, through the K buffer
-  load_tile<D, LD>(Ks, qb, q_stride, qi * BQ, S);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const uint16_t* r0 = Ks + (wr + g) * LD + ks * 16 + 2 * t;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD + 8);
-  }
-  __syncthreads();
-
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
-  const int qpos[2] = {qi * BQ + wr + g, qi * BQ + wr + g + 8};
   int kt_lo = 0;
   if (has_window) {
     const int lo = qi * BQ - window + 1;  // smallest key any row keeps
-    kt_lo = lo > 0 ? lo / BKV : 0;
+    kt_lo = lo > 0 ? lo / BK : 0;
   }
+  const int n_tiles = qi - kt_lo + 1;
 
-  for (int kt = kt_lo; kt <= qi; ++kt) {
-    load_tile<D, LD>(Ks, kb, kv_stride, kt * BKV, S);
-    load_tile<D, LD>(Vs, vb, kv_stride, kt * BKV, S);
-    __syncthreads();
-
-    float sc[8][4];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[ni][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const uint16_t* kr = Ks + (ni * 8 + g) * LD + ks * 16 + 2 * t;
-        mma16816<F16>(sc[ni], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                      *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = kt * BKV + ni * 8 + 2 * t + (e & 1);
-        const int qp = qpos[e >> 1];
-        float x = sc[ni][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool keep = kpos <= qp && kpos < s_real;
-        if (has_window) keep = keep && kpos > qp - window;
-        x = keep ? x : NEG;
-        sc[ni][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m_r[i], quad_max(mx[i]));
-      alpha[i] = expf(m_r[i] - m_new);
-      m_r[i] = m_new;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(bar, s), 1);
+      mbar_init(full_v(bar, s), 1);
+      mbar_init(empty_k(bar, s), 8);  // lane 0 of each consumer warp
+      mbar_init(empty_v(bar, s), 8);
     }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[ni][e] - m_r[e >> 1]);
-        sc[ni][e] = p;
-        ls[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + quad_sum(ls[i]);
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha[0]; o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1]; o[nd][3] *= alpha[1];
-    }
-
-    // PV: the S fragments of keys 16j..16j+15 are the A fragment of step j
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {pack2<F16>(sc[2 * j][0], sc[2 * j][1]),
-                              pack2<F16>(sc[2 * j][2], sc[2 * j][3]),
-                              pack2<F16>(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-                              pack2<F16>(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-      const uint16_t* vrow = Vs + (16 * j + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vrow + nd * 8);
-        mma16816<F16>(o[nd], pa, bf[0], bf[1]);
-        mma16816<F16>(o[nd + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const float den[2] = {fmaxf(l_r[0], 1e-38f), fmaxf(l_r[1], 1e-38f)};
+  if (tid < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      mbar_expect_tx(bar, L::TILE);
+      for (int j = 0; j < L::NSUB; ++j)
+        tma_load(base + L::Q + j * SUB, &tq, bar, 64 * j, h, qi * BQ, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t free_ph = ((i / STAGES) & 1) ^ 1;
+        const int row = (kt_lo + i) * BK;
+        mbar_wait(empty_k(bar, s), free_ph);
+        mbar_expect_tx(full_k(bar, s), L::TILE);
+        for (int j = 0; j < L::NSUB; ++j)
+          tma_load(base + L::K + s * L::TILE + j * SUB, &tk, full_k(bar, s), 64 * j, hk, row, b);
+        mbar_wait(empty_v(bar, s), free_ph);
+        mbar_expect_tx(full_v(bar, s), L::TILE);
+        for (int j = 0; j < L::NSUB; ++j)
+          tma_load(base + L::V + s * L::TILE + j * SUB, &tv, full_v(bar, s), 64 * j, hk, row, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = tid - 128;
+    const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int q0 = qi * BQ, q_last = q0 + BQ - 1;
+    const int qpos[2] = {q0 + cw * 64 + warp * 16 + g, q0 + cw * 64 + warp * 16 + g + 8};
+    const uint32_t q_tile = base + L::Q + cw * 64 * 128;  // this warpgroup's rows
+
+    float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= S) continue;
-    uint16_t* orow = out + ((size_t)b * S + qpos[i]) * q_stride + (size_t)h * D;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float sc[64];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t) =
-          pack2<F16>(o[nd][2 * i] / den[i], o[nd][2 * i + 1] / den[i]);
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+    uint32_t pa[8][4];  // p of the last tile as the A operand of PV, k16 step kk
+
+    // online softmax of the tile at key k0 on its S accumulator (sc[4i + e]
+    // is row qpos[e >> 1], key k0 + 8i + 2t + (e & 1)); leaves p in pa and
+    // O rescaled by alpha
+    auto softmax = [&](int k0) {
+      const bool masked = k0 + BK - 1 > q0 || k0 + BK > s_real ||
+                          (has_window && k0 <= q_last - window);
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * i + e] * scale;
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          if (masked) {
+            const int kpos = k0 + 8 * i + 2 * t + (e & 1);
+            const int qp = qpos[e >> 1];
+            bool keep = kpos <= qp && kpos < s_real;
+            if (has_window) keep = keep && kpos > qp - window;
+            x = keep ? x : NEG;
+          }
+          sc[4 * i + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
+        alpha[r] = expf(m_r[r] - m_new);
+        m_r[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(sc[4 * i + e] - m_r[e >> 1]);
+          ls[e >> 1] += p[e];
+        }
+        pa[i >> 1][(i & 1) * 2] = pack2<F16>(p[0], p[1]);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack2<F16>(p[2], p[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + quad_sum(ls[r]);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+    };
+    auto issue_qk = [&](int s) {  // S = Q K^T
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * SUB + (kk & 3) * 32;
+        wgmma_qk<F16>(sc, sw128(q_tile + off, 16, 1024),
+                      sw128(base + L::K + s * L::TILE + off, 16, 1024), kk > 0);
+      }
+    };
+    auto issue_pv = [&](int s) {  // O += P V, V token-major in the ring
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<D, F16>(o, pa[kk], sw128(base + L::V + s * L::TILE + kk * 2048, SUB, 1024));
+    };
+
+    // Phase j issues PV of tile j - 1 and S of tile j as one wgmma group,
+    // then runs the softmax of tile j. The two warpgroups take turns to
+    // issue (named barriers 1 and 2), so one's softmax overlaps the other's
+    // products. Every wgmma is issued outside a branch: ptxas serializes
+    // wgmma chains in divergent paths.
+    mbar_wait(bar, 0);
+    if (cw == 1) sched_arrive(0);  // warpgroup 0 issues first
+    sched_sync(cw);
+    mbar_wait(full_k(bar, 0), 0);
+    fence_regs<64>(sc);
+    wg_fence();
+    issue_qk(0);
+    wg_commit();
+    sched_arrive(1 - cw);
+    wg_wait();
+    fence_regs<64>(sc);
+    if (lane == 0) mbar_arrive(empty_k(bar, 0));
+    softmax(kt_lo * BK);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int sq = j % STAGES, sv = (j - 1) % STAGES;
+      sched_sync(cw);
+      mbar_wait(full_k(bar, sq), (j / STAGES) & 1);
+      mbar_wait(full_v(bar, sv), ((j - 1) / STAGES) & 1);
+      fence_regs<64>(sc);
+      fence_regs<D / 2>(o);
+      wg_fence();
+      issue_pv(sv);
+      issue_qk(sq);
+      wg_commit();
+      sched_arrive(1 - cw);
+      wg_wait();
+      fence_regs<64>(sc);
+      fence_regs<D / 2>(o);
+      if (lane == 0) {
+        mbar_arrive(empty_k(bar, sq));
+        mbar_arrive(empty_v(bar, sv));
+      }
+      softmax((kt_lo + j) * BK);
+    }
+    const int sv = (n_tiles - 1) % STAGES;
+    sched_sync(cw);
+    mbar_wait(full_v(bar, sv), ((n_tiles - 1) / STAGES) & 1);
+    fence_regs<D / 2>(o);
+    wg_fence();
+    issue_pv(sv);
+    wg_commit();
+    if (cw == 0) sched_arrive(1);  // no turn follows warpgroup 1's last
+    wg_wait();
+    fence_regs<D / 2>(o);
+
+    const size_t q_stride = (size_t)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] >= S) continue;
+      const float den = fmaxf(l_r[r], 1e-38f);
+      uint16_t* orow = out + ((size_t)b * S + qpos[r]) * q_stride + (size_t)h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack2<F16>(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+    }
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, S, heads, D] contiguous, read as 128 rows x 64 columns of one head
+bool head_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, bool f16) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BK, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D, bool F16>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-           int H, int Hkv, int s_real, int window, int has_window, float scale,
-           float softcap, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+           int Hkv, int s_real, int window, int has_window, float scale, float softcap,
+           cudaStream_t st) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_kernel<D, F16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<D>::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, q, B, S, H, D, F16) || !head_map(&tk, k, B, S, Hkv, D, F16) ||
+      !head_map(&tv, v, B, S, Hkv, D, F16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_prefill_kernel<D, F16><<<grid, THREADS, 0, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), S, H, Hkv, s_real,
-      window, has_window, scale, softcap);
+  flash_prefill_kernel<D, F16><<<grid, THREADS, Layout<D>::BYTES, st>>>(
+      tq, tk, tv, static_cast<uint16_t*>(out), S, H, Hkv, s_real, window, has_window, scale,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,7 +490,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 // q [B, S, H, D], k/v [B, S, Hkv, D], out [B, S, H, D], all contiguous, in
 // bf16 (is_f16 = 0) or f16; D in {64, 128}; H % Hkv == 0. softcap <= 0
-// disables the cap; has_window = 0 the window. Returns cudaGetLastError().
+// disables the cap; has_window = 0 the window. Returns cudaGetLastError()
+// (cudaErrorInvalidValue where a tensor map cannot be made).
 extern "C" int tbnb_flash_prefill(const void* q, const void* k, const void* v, void* out,
                                   int B, int S, int H, int Hkv, int D, int s_real,
                                   int window, int has_window, int is_f16, float scale,

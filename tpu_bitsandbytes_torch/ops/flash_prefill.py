@@ -11,7 +11,7 @@ operands' dtype before the PV dot, and ``acc / max(l, 1e-38)`` at the end.
 
 Where ``p`` is rounded depends on the key tile, so the plain version takes
 the tile (``block_k``): 512 as the TPU kernel (what the tests hold against
-the JAX package), 64 as the CUDA kernel (what CPU tensors run, so the CPU
+the JAX package), 128 as the CUDA kernel (what CPU tensors run, so the CPU
 computes what the card does).
 """
 
@@ -28,7 +28,7 @@ from . import _build
 __all__ = ["flash_prefill_attention", "flash_prefill_plain",
            "tiled_attention", "kept_pairs", "BLOCK"]
 
-BLOCK = 64      # the CUDA kernel's query and key tile
+BLOCK = 128     # the CUDA kernel's query and key tile
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
 

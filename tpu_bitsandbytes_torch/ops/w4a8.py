@@ -86,13 +86,52 @@ def w4a8_mm_plain(xq: torch.Tensor, packed: torch.Tensor,
 w4a8_mm_plain.cuda_calls = 0
 
 
+_LIB = {}
+
+
 def _launcher():
-    fn = _build.library("w4a8_matmul").tbnb_w4a8_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    if not _LIB:
+        lib = _build.library("w4a8_matmul")
+        fn, plan = lib.tbnb_w4a8_matmul, lib.tbnb_w4a8_plan
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_uint32] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        plan.restype = None
+        _LIB.update(launch=fn, plan=plan)
+    return _LIB["launch"], _LIB["plan"]
+
+
+# (M, N, K_pad, blocksize, device) -> (chunks per K split, f32 partials,
+# counts): the kernel's launch plan, made once per shape
+_PLANS = {}
+# (device, stream) -> the split-K partials and the counts K4 reads as 0 and
+# leaves 0. Launches on one stream run in order and share one pair; a launch
+# on another stream gets its own, so two launches never meet in a count.
+_SCRATCH = {}
+
+
+def _plan(fn, m, n, kp, bs, device):
+    """K4's launch plan for this shape and the split-K scratch it needs on
+    the current stream (grown on demand)."""
+    key = (m, n, kp, bs, device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        cps, n_part, n_count = (ctypes.c_int(0), ctypes.c_longlong(0),
+                                ctypes.c_int(0))
+        fn(m, n, kp, bs, ctypes.byref(cps), ctypes.byref(n_part),
+           ctypes.byref(n_count))
+        plan = _PLANS[key] = (cps.value, n_part.value, n_count.value)
+    stream = torch.cuda.current_stream(device)
+    skey = (device, stream.cuda_stream)
+    part, counts = _SCRATCH.get(skey, (None, None))
+    if part is None or part.numel() < plan[1] or counts.numel() < plan[2]:
+        part = torch.empty((max(plan[1], 1 << 20),), dtype=torch.float32,
+                           device=device)
+        counts = torch.zeros((max(plan[2], 1024),), dtype=torch.int32,
+                             device=device)
+        _SCRATCH[skey] = (part, counts)
+    return plan[0], part, counts, stream.cuda_stream
 
 
 def _table_words():
@@ -129,11 +168,16 @@ def w4a8_mm(xq: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
                for t in (xq, packed, absmax, s_x)):
         raise ValueError("w4a8_mm: all operands must be contiguous tensors "
                          "on one CUDA device")
+    if xq.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("w4a8_mm: x and the packed codes must start on a "
+                         "16-byte boundary (the kernel copies 16 bytes at "
+                         "a time)")
+    launch, plan = _launcher()
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    err = _launcher()(xq.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
-                      s_x.data_ptr(), out.data_ptr(), m, n, kp, bs,
-                      *_TABLE_WORDS,
-                      torch.cuda.current_stream(xq.device).cuda_stream)
+    cps, part, counts, stream = _plan(plan, m, n, kp, bs, xq.device)
+    err = launch(xq.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+                 s_x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 counts.data_ptr(), m, n, kp, bs, cps, *_TABLE_WORDS, stream)
     _build.check(err, "w4a8_matmul")
     w4a8_mm.launches += 1
     return out
