@@ -8,12 +8,15 @@ Phases (any failure raises: traceback, nonzero exit):
   2. kernels: builds every kernel from ``tpu_bitsandbytes_torch/csrc`` and
      holds each against its plain PyTorch version on the card, at the
      shapes the served paths give it (Llama-2-7B for K1/K2, Llama-2-13B
-     for K3/K4/K5) and at odd ones; times kernel (device time, replayed
+     for K2/K3/K4/K5) and at odd ones (K2: spans of 128 to 8192 keys, rep
+     8, a span past the single-block shared memory limit, an all-masked slot
+     beside live ones, window + softcap); times kernel (device time, replayed
      from a CUDA graph), plain version, the one PyTorch call that computes
      the same function where there is one (SDPA for K3), and the least time
      the card could take (bytes over HBM bandwidth, or operations over the
      peak for their type, whichever is larger). K4 is timed at decode M=8
-     and at the 32/64 prefill buckets.
+     and at the 32/64 prefill buckets; K2 at the 7B step and at the 13B step
+     at phase 5's last positions (``ms_13b_step``).
   3. full width against the CPU: a Llama-2-7B-width model with the int4
      cache, and (3b) a Llama-2-13B-width model off its packed NF4 bytes,
      each cut to 2 layers and built once from a numpy seed, run prefill
@@ -24,7 +27,8 @@ Phases (any failure raises: traceback, nonzero exit):
   4. Llama-2-7B at its 32 layers, random NF4 weights from a seed, served by
      ``DecodeEngine.generate`` (int4 runtime cache, B=8, 32-step chunks)
      for 8 requests of 16-200 prompt tokens and 64 greedy new tokens each.
-     Counts kernel launches per decode step.
+     Counts kernel launches per decode step, and the kernels one
+     decode-shaped matmul launches besides K1 (the A8 quantization).
   5. the slice: Llama-2-13B at its 40 layers, random NF4 weights from a
      seed, served off the packed bytes (``runtime_cache=None``, B=8,
      ``max_seq`` 2048, 32-step chunks) for 8 prompts of 24-1800 tokens with
@@ -235,21 +239,48 @@ def k2_bound_ms(keys, b, h, h_kv, d, bw, int8_peak):
     return max(nbytes / bw, ops / int8_peak) * 1e3
 
 
+def k2_kept_keys(off, step, span, c):
+    """Keys the masks keep at these positions: each slot's main keys up to
+    ``off - step - 1`` (``step`` the stage's last filled row), and the
+    stage's ``step + 1``."""
+    main = (off - step).clamp(min=0, max=span)
+    return int(main.sum()) + off.shape[0] * min(c, step + 1)
+
+
 def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
     worst = [0.0, 0.0]
-    cases = [  # (geometry, step, options)
-        (dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32), 31, {}),
-        (dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32), 0, {}),
-        (dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32), None, {}),
-        (dict(b=4, h=32, h_kv=8, d=128, s=512, span=256, c=32), 7, {}),
+    final_13b = [p + 47 for p in PACKED_PROMPTS]   # phase 5's last step
+    cases = [  # (geometry, step, options, offsets or None for random)
+        (dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32), 31, {}, None),
+        (dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32), 0, {}, None),
+        (dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32), None, {},
+         None),
+        (dict(b=4, h=32, h_kv=8, d=128, s=512, span=256, c=32), 7, {}, None),
         (dict(b=3, h=8, h_kv=4, d=64, s=128, span=96, c=16), 5,
-         dict(window=40, softcap=30.0)),
+         dict(window=40, softcap=30.0), None),
         (dict(b=2, h=8, h_kv=4, d=128, s=512, span=512, c=8, start=128), 3,
-         dict(kpos_start=128)),
+         dict(kpos_start=128), None),
+        # short, medium and long spans; rep 8; past the single-block limit
+        (dict(b=4, h=16, h_kv=16, d=128, s=256, span=128, c=32), 31, {},
+         None),
+        (dict(b=3, h=32, h_kv=4, d=128, s=1024, span=600, c=16), 5, {},
+         None),
+        (dict(b=2, h=32, h_kv=4, d=128, s=8192, span=8192, c=8), 7, {},
+         None),
+        (dict(b=8, h=40, h_kv=40, d=128, s=2048, span=1920, c=32), 31, {},
+         final_13b),
+        # an all-masked slot (off = 5 below kpos_start) beside live ones
+        (dict(b=3, h=16, h_kv=8, d=128, s=768, span=768, c=8, start=128),
+         None, dict(kpos_start=128), [5, 300, 700]),
+        (dict(b=2, h=16, h_kv=8, d=128, s=768, span=700, c=16), 9,
+         dict(window=300, softcap=30.0), None),
     ]
-    for geo, step, opts in cases:
+    for geo, step, opts, offs in cases:
         q, len0, ((kv, st),) = k2_inputs(gen, dev, layers=1, **geo)
-        off = len0 + (0 if step is None else step)
+        if offs is not None:
+            off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        else:
+            off = len0 + (0 if step is None else step)
         staged = None if step is None else st + (step,)
         got = K2.flash_decode_attention(q, *kv, off, staged=staged, **opts)
         if staged is None:      # the dummy block the wrapper passes the kernel
@@ -268,6 +299,9 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
         if not (r <= K2_TOL and torch.isfinite(got).all()):
             raise AssertionError(f"K2 {geo} step={step} {opts}: rel err {r}")
         worst = [max(worst[0], a), max(worst[1], r)]
+        del q, kv, st
+    rows = []
+    # Llama-2-7B: 32 layers, span 384
     geo = dict(b=8, h=32, h_kv=32, d=128, s=512, span=384, c=32)
     q, len0, layers = k2_inputs(gen, dev, layers=8, **geo)
     off = len0 + 31
@@ -277,25 +311,49 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
     plain = time_ms([lambda: K2.flash_decode_plain(
         q, *kv, off, *st, 31, scale=1.0 / 128 ** 0.5, window=None,
         kpos_start=0, softcap=None)], iters=3)
-    # the main block keeps len0 keys of each slot, the stage all 32 (step 31)
-    bound = k2_bound_ms(int(len0.sum()) + 8 * 32, 8, 32, 32, 128, bw,
-                        int8_peak)
+    kept = k2_kept_keys(off, 31, 384, 32)
+    bound = k2_bound_ms(kept, 8, 32, 32, 128, bw, int8_peak)
     bound_span = k2_bound_ms(8 * (384 + 32), 8, 32, 32, 128, bw, int8_peak)
-    emit({"phase": "kernels", "kernel": "K2_flash_decode",
-          "shapes": [{"shape": "B=8 H=32 H_kv=32 D=128 T=384 C=32",
-                      "kept_keys": int(len0.sum()) + 8 * 32,
-                      "kernel_ms": kern, "plain_ms": plain,
-                      "bound_ms": bound, "bound_span_ms": bound_span,
-                      "per_step": 32}]})
+    rows.append({"shape": "7B: B=8 H=32 H_kv=32 D=128 T=384 C=32",
+                 "kept_keys": kept, "cluster": K2.cluster_size(1, 384, 32, 128, 8, 32, dev),
+                 "kernel_ms": kern, "plain_ms": plain, "bound_ms": bound,
+                 "bound_span_ms": bound_span, "per_step": 32})
+    del q, layers, kv, st
+    # Llama-2-13B at phase 5's last step: 40 layers, span 1920, the slots
+    # at PACKED_PROMPTS + 48 tokens (8 distinct layers, cycled)
+    geo = dict(b=8, h=40, h_kv=40, d=128, s=2048, span=1920, c=32)
+    q, _, layers = k2_inputs(gen, dev, layers=8, **geo)
+    off = torch.tensor(final_13b, dtype=torch.int32, device=dev)
+    kern13 = time_graph_ms([lambda kv=kv, st=st: K2.flash_decode_attention(
+        q, *kv, off, staged=st + (31,)) for kv, st in layers], iters=80)
+    kv, st = layers[0]
+    plain13 = time_ms([lambda: K2.flash_decode_plain(
+        q, *kv, off, *st, 31, scale=1.0 / 128 ** 0.5, window=None,
+        kpos_start=0, softcap=None)], iters=3)
+    kept13 = k2_kept_keys(off, 31, 1920, 32)
+    bound13 = k2_bound_ms(kept13, 8, 40, 40, 128, bw, int8_peak)
+    bound13_span = k2_bound_ms(8 * (1920 + 32), 8, 40, 40, 128, bw,
+                               int8_peak)
+    rows.append({"shape": "13B: B=8 H=40 H_kv=40 D=128 T=1920 C=32",
+                 "kept_keys": kept13, "cluster": K2.cluster_size(1, 1920, 32, 128, 8, 40, dev),
+                 "kernel_ms": kern13, "plain_ms": plain13,
+                 "bound_ms": bound13, "bound_span_ms": bound13_span,
+                 "per_step": 40})
+    del q, layers, kv, st
+    emit({"phase": "kernels", "kernel": "K2_flash_decode", "shapes": rows})
     return {
         "name": "K2_flash_decode", "route": "cuda",
         "source": "tpu_bitsandbytes_torch/csrc/flash_decode.cu",
         "replaces": "tpu_bitsandbytes/ops/flash_decode.py:48",
         "shape": "one decode step at Llama-2-7B: 32 x (B=8 H=32 H_kv=32 "
-                 "D=128 T=384 C=32)",
+                 "D=128 T=384 C=32); ms_13b_step: one at Llama-2-13B, 40 x "
+                 "(B=8 H=40 D=128 T=1920 C=32) at phase 5's last positions",
         "max_abs_err": worst[0], "max_rel_err": worst[1],
         "ms": 32 * kern, "kernel_ms": 32 * kern, "plain_ms": 32 * plain,
-        "bound_ms": 32 * bound, "bound_by": "bytes", "library_ms": None}
+        "bound_ms": 32 * bound, "bound_by": "bytes", "library_ms": None,
+        "ms_13b_step": 40 * kern13, "plain_ms_13b_step": 40 * plain13,
+        "bound_13b_step_ms": 40 * bound13,
+        "bound_span_13b_step_ms": 40 * bound13_span}
 
 
 # (name, N, K, launches per decode step) at Llama-2-13B, fused projections
@@ -896,6 +954,19 @@ def step_breakdown(run_chunk, chunk, what):
                "calls_per_step": e.count / chunk} for e in ops[:10]]})
 
 
+def kernel_launches(fn):
+    """The device kernels one call of ``fn`` launches (after a warm-up
+    call), by name, from the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
 def phase_serve(dev, counters, plains):
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
@@ -967,6 +1038,23 @@ def phase_serve(dev, counters, plains):
         torch.cuda.synchronize()
 
     step_breakdown(run_chunk, chunk, "llama2_7b")
+    # what one decode-shaped matmul launches besides K1: the A8 activation
+    # quantization, padding and casts (QLinear4 -> int4_matmul), and the
+    # packed path's quantize_a8 alone
+    from tpu_bitsandbytes_torch.ops import int4cache, w4a8
+    lin = engine.params["layers"][0]["o_proj"]
+    x = torch.randn((8, cfg.hidden_size), generator=gen, device=dev).to(
+        cfg.dtype)
+    per_matmul = {
+        "qlinear4_int4_cache": kernel_launches(lambda: lin(x)),
+        "int4_matmul": kernel_launches(lambda: int4cache.int4_matmul(
+            x, lin.w_cache, lin.cache_scale)),
+        "quantize_a8": kernel_launches(
+            lambda: w4a8.quantize_a8(x, cfg.hidden_size))}
+    emit({"phase": "a8_launches", "model": "llama2_7b", "m": 8,
+          "k": cfg.hidden_size, "kernels_per_call": per_matmul,
+          "launches_per_call": {k: sum(v.values())
+                                for k, v in per_matmul.items()}})
     emit({"phase": "serve", "model": "llama2_7b", "layers": cfg.num_layers,
           "batch": 8, "steps_per_sync": 32,
           "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
@@ -1173,8 +1261,8 @@ def main() -> int:
     # 5. the slice: Llama-2-13B off the packed bytes
     by_path["llama2_13b_packed"], k2_bound_13b = phase_serve_packed(
         dev, counters, plains, bw, int8_peak)
-    # K2's bound at the 13B path's spans, beside its 7B row
-    kernels[1]["bound_13b_step_ms"] = k2_bound_13b
+    # K2's bound at the 13B path's positions in the step counted alone
+    kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

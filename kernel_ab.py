@@ -7,12 +7,15 @@ Runs one worker process per tree in the order base, this tree, this tree,
 base. Each worker imports ``tpu_bitsandbytes_torch`` from its tree, builds
 that tree's kernels, and times K3 and K4 at ``chip_smoke.py`` phase 2's
 timed shapes (K3 at B=1 S=1024 and B=4 S=2048, H=40, D=128, bf16; K4 at
-the five Llama-2-13B shapes, blocksize 64, M = 8, 32, 64) and K1 and K2 at
-theirs, each two ways: replayed from a CUDA graph (device time, as phase 2
-reports it) and launched from the host (as phase 2 reported it before the
-graph). The inputs come from the same seed in every worker. Prints one JSON
-line per worker, then one summary line: per row, each tree's mean over its
-two workers. Without a CUDA card it exits with code 2 and prints no result.
+the five Llama-2-13B shapes, blocksize 64, M = 8, 32, 64; K1 at the five
+Llama-2-7B shapes, M = 8; K2 at the 7B step, span 384, and at the 13B
+step, span 1920, at phase 5's last positions and with every slot long or
+short), each two ways: replayed from a CUDA graph (device time, as phase
+2 reports it) and launched from the host (as phase 2 reported it before
+the graph). The inputs come from
+the same seed in every worker. Prints one JSON line per worker, then one
+summary line: per row, each tree's mean over its two workers. Without a
+CUDA card it exits with code 2 and prints no result.
 """
 
 import argparse
@@ -93,6 +96,21 @@ def worker(root: Path) -> dict:
         q, *kv, off, staged=st + (31,)) for kv, st in layers], 64)
     rows["K2 per 7B decode step (32 launches)"] = {
         key: 32 * val for key, val in t.items()}
+    del layers
+
+    # the 13B step at phase 5's last positions, and with every slot long
+    # (1,863 positions) or short (71): where the split pays and where not
+    q, _, layers = C.k2_inputs(gen, dev, layers=8, b=8, h=40, h_kv=40,
+                               d=128, s=2048, span=1920, c=32)
+    for what, offs in (("phase 5's last positions",
+                        [p + 47 for p in C.PACKED_PROMPTS]),
+                       ("every slot at 1,863", [1863] * 8),
+                       ("every slot at 71", [71] * 8)):
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        t = timed([lambda kv=kv, st=st: K2.flash_decode_attention(
+            q, *kv, off, staged=st + (31,)) for kv, st in layers], 80)
+        rows[f"K2 per 13B decode step, {what} (40 launches)"] = {
+            key: 40 * val for key, val in t.items()}
     return {"tree": str(root), "rows": rows}
 
 

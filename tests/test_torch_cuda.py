@@ -120,6 +120,93 @@ def test_int4_mm_rejects_bad_operands(cuda):
         K1.int4_mm(xq, strided, sc, sx)
 
 
+def _int4_case(m, n, kp, bs, seed):
+    """Random K1 operands on the CPU: x codes, packed codes, K-major scales
+    [kp/bs, N], row scales."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(-127, 128, (m, kp), dtype=np.int8)),
+            torch.from_numpy(rng.integers(0, 256, (n, kp // 2), dtype=np.uint8)),
+            torch.from_numpy(rng.uniform(1e-3, 1e-2, (kp // bs, n))
+                             .astype(np.float32)),
+            torch.from_numpy(rng.uniform(1e-3, 5e-2, (m,)).astype(np.float32)))
+
+
+def _int4_check(cuda, m, n, kp, bs):
+    args = [t.to(cuda) for t in _int4_case(m, n, kp, bs, m * 7 + n + kp + bs)]
+    before = K1.int4_mm.launches
+    got = K1.int4_mm(*args)
+    torch.cuda.synchronize()
+    assert K1.int4_mm.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert rel_err(got, K1.int4_mm_plain(*args)) <= 1e-5
+
+
+@pytest.mark.parametrize("bs", [64, 128, 256])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 32, 33, 64])
+def test_int4_mm_tile_edges(cuda, m, bs):
+    """M at and past the n8 tiles of the tensor-core path (1-64), blocks
+    shorter than and as long as its 256-code chunk, at N=4096 (split along
+    K)."""
+    _int4_check(cuda, m, 4096, 6144, bs)
+
+
+@pytest.mark.parametrize("m,n,kp,bs", [
+    (8, 4099, 4096, 128), (3, 1013, 384, 128), (65, 384, 512, 128),
+    (9, 1000, 4032, 32), (8, 512, 4096, 1024), (5, 22016, 4096, 512)])
+def test_int4_mm_odd_shapes(cuda, m, n, kp, bs):
+    """Odd N (a partial row tile; scales not 16-byte aligned per block row),
+    M past 64 (two M groups), K_pad not a multiple of the chunk (4032),
+    blocks longer than a chunk (512, 1024)."""
+    _int4_check(cuda, m, n, kp, bs)
+
+
+def test_int4_mm_operand_alignment(cuda):
+    """x and the codes must start on a 16-byte boundary, or the wrapper
+    raises."""
+    xq, w, sc, sx = (t.to(cuda) for t in _int4_case(8, 4096, 4096, 128, 3))
+    x_off = torch.empty((8 * 4096 + 4,), dtype=torch.int8,
+                        device=cuda)[4:].view(8, 4096)
+    x_off.copy_(xq)
+    with pytest.raises(ValueError, match="16-byte"):
+        K1.int4_mm(x_off, w, sc, sx)
+
+
+def test_int4_mm_two_streams(cuda):
+    """Two split-K shapes with the same row tiles, launched on two streams
+    at once: each stream has its own partials and counts, so every result
+    equals the plain version."""
+    cases = [[t.to(cuda) for t in _int4_case(8, 4096, kp, 128, kp)]
+             for kp in (4096, 11008)]
+    refs = [K1.int4_mm_plain(*args) for args in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(20):
+        for st, args, got in zip(streams, cases, outs):
+            with torch.cuda.stream(st):
+                got.append(K1.int4_mm(*args))
+    torch.cuda.synchronize()
+    for ref, got in zip(refs, outs):
+        assert max(rel_err(g, ref) for g in got) <= 1e-5
+
+
+def test_int4_mm_graph_replay(cuda):
+    """K1 captured in a CUDA graph (split-K scratch of the capture stream)
+    and replayed on new inputs copied into the captured ones."""
+    x1, w, sc, sx = (t.to(cuda) for t in _int4_case(8, 4096, 11008, 128, 4))
+    K1.int4_mm(x1, w, sc, sx)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = K1.int4_mm(x1, w, sc, sx)
+    for seed in (5, 6):
+        x2 = _int4_case(8, 4096, 11008, 128, seed)[0].to(cuda)
+        x1.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert rel_err(got, K1.int4_mm_plain(x2, w, sc, sx)) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # K2: flash-decode attention over int8 KV
 # ---------------------------------------------------------------------------
@@ -161,6 +248,9 @@ def _k2_run(dev, q, cache, stage, off, start, span, step, opts):
     (2, 16, 2, 128, 256, 0, 256, 8, 7, {}),
     (2, 16, 8, 64, 128, 0, 128, 8, 3, {"window": 40, "softcap": 30.0}),
     (2, 8, 4, 128, 512, 128, 512, 8, 3, {"kpos_start": 128}),
+    # the 13B path's last step, and rep 8 over a 600-key span
+    (8, 40, 40, 128, 2048, 0, 1920, 32, 31, {}),
+    (2, 32, 4, 128, 1024, 0, 600, 16, 5, {}),
 ])
 def test_flash_decode_matches_plain(cuda, b, h, h_kv, d, s, start, span, c,
                                     step, opts):
@@ -189,12 +279,74 @@ def test_flash_decode_fully_masked_row(cuda):
 
 
 def test_flash_decode_raises_past_shared_memory(cuda):
+    """Eight CTAs share a slot's logits: rep 8 over 65,536 keys needs 8 x
+    8,193 floats per CTA, past the 232,448 bytes one may use."""
     q = torch.zeros((1, 8, 128), dtype=torch.bfloat16, device=cuda)
-    k = torch.zeros((1, 1, 8192, 128), dtype=torch.int8, device=cuda)
-    sc = torch.ones((1, 1, 8192), device=cuda)
+    k = torch.zeros((1, 1, 65536, 128), dtype=torch.int8, device=cuda)
+    sc = torch.ones((1, 1, 65536), device=cuda)
     off = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="shared memory"):
         K2.flash_decode_attention(q, k, sc, k, sc, off)
+
+
+@pytest.mark.parametrize("t", [6900, 8192])
+def test_flash_decode_past_the_old_limit(cuda, t):
+    """rep 8, D 128: 6,900 keys sat just under the single-block limit and
+    8,192 past it (it raised); both run now, unstaged, and match."""
+    q, cache, stage, rng = _k2_inputs(t, 1, 8, 1, 128, t, 8)
+    off = torch.from_numpy(rng.integers(t // 2, t, (1,)).astype(np.int32))
+    ref = _k2_run("cpu", q, cache, stage, off, 0, t, None, {})
+    got = _k2_run(cuda, q, cache, stage, off, 0, t, None, {})
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= 1e-3
+
+
+def test_flash_decode_all_masked_slot_beside_live_ones(cuda):
+    """Slot 0 reads from kpos_start = 128 at off = 5, unstaged: every key
+    masked, p uniform over the whole span and the dummy block; slots 1-2
+    keep part of the span. S = 3 CTAs per slot."""
+    q, cache, stage, _ = _k2_inputs(21, 3, 16, 8, 128, 768, 8)
+    off = torch.tensor([5, 300, 700], dtype=torch.int32)
+    opts = {"kpos_start": 128}
+    ref = _k2_run("cpu", q, cache, stage, off, 128, 768, None, opts)
+    got = _k2_run(cuda, q, cache, stage, off, 128, 768, None, opts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel_err(got, ref) <= 1e-3
+
+
+def test_flash_decode_cluster_plan(cuda):
+    """The CTAs per cluster come from the shape and the card: a 128-key
+    span takes one, the 7B and 13B decode steps (B=8, span 384 / 1920)
+    split each slot over at least two, and a span whose logits overflow one
+    CTA's shared memory takes enough CTAs to fit."""
+    assert K2.cluster_size(1, 128, 32, 128, 8, 40, cuda) == 1
+    assert K2.cluster_size(1, 384, 32, 128, 8, 32, cuda) >= 2
+    assert K2.cluster_size(1, 1920, 32, 128, 8, 40, cuda) >= 2
+    assert K2.cluster_size(8, 8192, 8, 128, 64, 8, cuda) >= 2
+
+
+def test_flash_decode_graph_replay(cuda):
+    """K2 captured in a CUDA graph and replayed with new positions written
+    into the captured ``off``: the kept range comes from the device, so
+    each replay matches the plain version at its positions."""
+    q, cache, stage, _ = _k2_inputs(23, 8, 32, 32, 128, 512, 32)
+    dev_q = q.to(cuda)
+    kv = [t.to(cuda)[:, :, :384] for t in cache]
+    st = [t.to(cuda) for t in stage]
+    off = torch.full((8,), 200, dtype=torch.int32, device=cuda)
+    K2.flash_decode_attention(dev_q, *kv, off, staged=(*st, 31))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = K2.flash_decode_attention(dev_q, *kv, off, staged=(*st, 31))
+    for pos in ([40, 100, 150, 200, 250, 300, 350, 383],
+                [383, 31, 64, 90, 128, 256, 300, 33]):
+        off.copy_(torch.tensor(pos, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = _k2_run("cpu", q, cache, stage, off.cpu(), 0, 384, 31, {})
+        assert rel_err(got, ref) <= 1e-3
 
 
 # ---------------------------------------------------------------------------

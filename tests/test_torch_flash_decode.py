@@ -116,3 +116,134 @@ def test_strided_span_view():
     ref = T.flash_decode_attention(
         q, *(view[k].contiguous() for k in ("k", "ks", "v", "vs")), off)
     np.testing.assert_array_equal(t32(got), t32(ref))
+
+
+def split_emulation(q, k, ks, v, vs, off, staged, step, *, scale, window,
+                    kpos_start, softcap, s):
+    """K2's decomposition (csrc/flash_decode.cu), emulated with torch on the
+    CPU. Per slot: the main keys the masks keep, [t_lo, t_hi) from off,
+    step, window and kpos_start (the whole span when every key of the slot,
+    staged ones included, is masked); then those keys and the staged block,
+    in that order, split into ``s`` contiguous shares. Each share gives its
+    logits' max; their max m is the slot's. Each share gives its sums of p
+    and pv maxima per block; l sums the shares' in rank order, s_p and s_ps
+    take the max. Each share quantizes its own p codes and forms exact
+    integer PV partials, added in rank order. Returns f32 [B, H, D]."""
+    st_k, st_ks, st_v, st_vs = staged
+    b, h, d = q.shape
+    h_kv, t = k.shape[1], k.shape[2]
+    c = st_k.shape[2]
+    rep = h // h_kv
+    qf = q.to(torch.float32).reshape(b, h_kv, rep, d)
+    q_s = qf.abs().amax(-1, keepdim=True) + 1e-9
+    q_i8 = torch.clamp(torch.round(qf * (torch.full_like(q_s, 127.0) / q_s)),
+                       -127, 127).double()
+    lg_scale = q_s * (scale / (127.0 * 127.0))            # [B, H_kv, rep, 1]
+    out = torch.empty((b, h_kv, rep, d), dtype=torch.float32)
+    for bi in range(b):
+        o = int(off[bi])
+        t_hi = min(t, max(0, o - step - kpos_start))
+        t_lo = min(t, max(0, o - window + 1 - kpos_start)) if window else 0
+        j_lo = max(0, step - window + 1) if window else 0
+        j_hi = min(c, step + 1)
+        if t_hi <= t_lo and j_hi <= j_lo:
+            t_lo, t_hi = 0, t
+        t_hi = max(t_hi, t_lo)
+        nmain = t_hi - t_lo
+        keys = torch.cat([k[bi, :, t_lo:t_hi], st_k[bi]], 1).double()
+        vals = torch.cat([v[bi, :, t_lo:t_hi], st_v[bi]], 1).double()
+        kscale = torch.cat([ks[bi, :, t_lo:t_hi], st_ks[bi]], 1)
+        vscale = torch.cat([vs[bi, :, t_lo:t_hi], st_vs[bi]], 1)
+        kpos = kpos_start + torch.arange(t_lo, t_hi)
+        jst = torch.arange(c)
+        keep_m = kpos <= o - step - 1
+        keep_s = jst <= step
+        if window:
+            keep_m &= kpos > o - window
+            keep_s &= jst > step - window
+        keep = torch.cat([keep_m, keep_s])
+        main = torch.arange(nmain + c) < nmain
+        n = nmain + c
+        per = -(-n // s)
+        shares = [(min(n, r * per), min(n, r * per + per)) for r in range(s)]
+        shares = [sh for sh in shares if sh[1] > sh[0]]   # an empty share adds nothing
+
+        def logits(i0, i1):
+            dots = torch.einsum("hrd,htd->hrt", q_i8[bi], keys[:, i0:i1])
+            x = dots.float() * lg_scale[bi] * kscale[:, None, i0:i1]
+            if softcap is not None:
+                x = torch.tanh(x / softcap) * softcap
+            return torch.where(keep[i0:i1], x, torch.full_like(x, -1e30))
+
+        lgs = [logits(i0, i1) for i0, i1 in shares]
+        m = torch.full((h_kv, rep, 1), -float("inf"))
+        for x in lgs:
+            m = torch.maximum(m, x.amax(-1, keepdim=True))
+        stats, pvs = [], []
+        for (i0, i1), x in zip(shares, lgs):
+            p = torch.exp(x - m)
+            pv = p * vscale[:, None, i0:i1]
+            mk = main[i0:i1]
+            zero = torch.zeros_like(pv)
+            stats.append((torch.where(mk, p, zero).sum(-1, keepdim=True),
+                          torch.where(mk, zero, p).sum(-1, keepdim=True),
+                          torch.where(mk, pv, zero).amax(-1, keepdim=True),
+                          torch.where(mk, zero, pv).amax(-1, keepdim=True)))
+            pvs.append(pv)
+        lm = ls = torch.zeros((h_kv, rep, 1))
+        pm = ps = torch.zeros((h_kv, rep, 1))
+        for a_m, a_s, b_m, b_s in stats:
+            lm, ls = lm + a_m, ls + a_s
+            pm, ps = torch.maximum(pm, b_m), torch.maximum(ps, b_s)
+        s_p, s_ps = pm + 1e-30, ps + 1e-30
+        acc_m = acc_s = torch.zeros((h_kv, rep, d), dtype=torch.int64)
+        for (i0, i1), pv in zip(shares, pvs):
+            mk = main[i0:i1]
+            inv = torch.where(mk, torch.full_like(s_p, 127.0) / s_p,
+                              torch.full_like(s_ps, 127.0) / s_ps)
+            codes = torch.clamp(torch.round(pv * inv), 0, 127).long()
+            vv = vals[:, i0:i1].long()
+            acc_m = acc_m + torch.einsum("hrt,htd->hrd", codes * mk, vv)
+            acc_s = acc_s + torch.einsum("hrt,htd->hrd", codes * ~mk, vv)
+        assert acc_m.abs().max() < 2 ** 31 and acc_s.abs().max() < 2 ** 31
+        o_f = acc_m.float() * s_p + acc_s.float() * s_ps
+        out[bi] = o_f / ((lm + ls) * (127.0 * 127.0))
+    return out.reshape(b, h, d)
+
+
+# (step or None for the unstaged call, options, offsets or None) over
+# make(9, 3, 8, 4, 32, 70, 8): T = 70 is not a multiple of 3 or 8
+SPLIT_CASES = {
+    # slot 0 reads from kpos_start = 16 at off = 5: every key masked, p = 1
+    # over the whole span (the dummy block too), beside two live slots
+    "all_masked_slot": (None, {"kpos_start": 16}, [5, 50, 80]),
+    "staged": (15, {}, None),
+    "window_softcap": (5, {"window": 24, "softcap": 30.0}, None),
+    "kpos_start": (3, {"kpos_start": 32}, [40, 70, 95]),
+    "unstaged_window": (None, {"window": 20}, None),
+}
+_JAX_SPLIT = {}
+
+
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_emulation_matches(case, s):
+    """K2's cluster split gives flash_decode_plain's and the JAX kernel's
+    numbers for S = 1, 3 and 8 CTAs (f32 sums in another order; expected
+    ~1e-6, held to TOL_JAX)."""
+    step, kw, offs = SPLIT_CASES[case]
+    a = make(9, 3, 8, 4, 32, 70, 8)
+    if offs is not None:
+        a["off"] = np.asarray(offs, np.int32)
+    if case not in _JAX_SPLIT:
+        _JAX_SPLIT[case] = run_both(a, step, **kw)
+    got_plain, ref, t, t_st, scale = _JAX_SPLIT[case]
+    if t_st is None:
+        t_st = T._dummy_stage(3, 4, 32, torch.device("cpu"))
+    emu = split_emulation(
+        t["q"].to(torch.bfloat16), t["k"], t["ks"], t["v"], t["vs"],
+        t["off"], t_st[:4], t_st[4], scale=scale, window=kw.get("window"),
+        kpos_start=kw.get("kpos_start", 0), softcap=kw.get("softcap"), s=s)
+    assert np.isfinite(t32(emu)).all()
+    assert rel_err(t32(emu), got_plain) <= TOL_JAX
+    assert rel_err(t32(emu), ref) <= TOL_JAX

@@ -22,6 +22,7 @@ from tpu_bitsandbytes_torch.models.layers import QLinear4
 from tpu_bitsandbytes_torch.ops import int4cache as T
 
 from test_torch_functional import qlinear_arrays, rel_err, t32, to_np
+from test_torch_w4a8 import MAGIC, MAGIC_F, _byte_perm, _mma_m16n8k32
 
 
 def _w(n, k, seed):
@@ -143,3 +144,84 @@ def test_cpu_calls_take_the_plain_version():
     before = T.int4_mm.launches, T.int4_mm_plain.cuda_calls
     T.int4_matmul(torch.ones((2, 256)), tq, ts)
     assert (T.int4_mm.launches, T.int4_mm_plain.cuda_calls) == before
+
+
+# The tensor-core K1 (csrc/int4_matmul.cu on csrc/a8_tc.cuh), mirrored in
+# numpy. Its decode sign-extends the low and the high nibbles of a packed
+# word apart and interleaves them with two byte permutes, so that it gives
+# codes 0-3 of the word in one int8x4 word and 4-7 in the other, the order
+# K4's table decode gives: the fragment map is K4's (test_torch_w4a8.py).
+
+def _sext_nibbles(v):
+    return v | ((v & np.uint32(0x08080808)) * np.uint32(0x1E))
+
+
+def _int4_decode8(v):
+    """The kernel's Int4::decode8 on uint32 words v."""
+    ev = _sext_nibbles(v & np.uint32(0x0F0F0F0F))
+    od = _sext_nibbles((v >> np.uint32(4)) & np.uint32(0x0F0F0F0F))
+    return (_byte_perm(ev, od, np.full_like(v, 0x5140)),
+            _byte_perm(ev, od, np.full_like(v, 0x7362)))
+
+
+def test_kernel_decode_gives_unpack_int4():
+    """Every byte value in every byte position of a word, and random words:
+    the decode's eight int8 values are ``unpack_int4``'s codes of the word's
+    four bytes, in element order."""
+    rng = np.random.default_rng(12)
+    b = np.arange(256, dtype=np.uint32)
+    words = np.concatenate([b << np.uint32(8 * i) for i in range(4)]
+                           + [rng.integers(0, 2 ** 32, 4096, dtype=np.uint32)])
+    lo, hi = _int4_decode8(words)
+    got = np.stack([lo, hi], axis=1).astype("<u4").view(np.int8)
+    packed = torch.from_numpy(words.astype("<u4").view(np.uint8).reshape(-1, 4))
+    np.testing.assert_array_equal(got.reshape(-1, 8),
+                                  T.unpack_int4(packed).numpy())
+
+
+def _int4_fragments(packed_step, x_step):
+    """A and B registers of all 32 lanes for one k32 step of K1: packed_step
+    uint8 [16 rows, 16 bytes], x_step int8 [8 rows, 32]."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    word = packed_step.view("<u4")                # [16 rows, 4 words]
+    lo_g, hi_g = _int4_decode8(word[g, t])
+    lo_g8, hi_g8 = _int4_decode8(word[g + 8, t])
+    regs = np.stack([lo_g, lo_g8, hi_g, hi_g8], axis=1).astype("<u4")
+    a = regs.view(np.int8).reshape(32, 4, 4)
+    b = x_step.reshape(8, 4, 8)[g, t].reshape(32, 2, 4)
+    return a, b
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128, 256])
+def test_kernel_fragment_map_gives_the_block_sums(bs):
+    """One tile of K1 (16 weight rows, one 256-code chunk, 8 activation
+    rows) through the kernel's decode, fragment fill and MMA, emulated: the
+    permuted int32 block sums equal the plain dots of x with unpack_int4's
+    codes, read exactly as floats from the MAGIC-seeded chains; scaled by
+    the K-major scale[b, n] block by block and by s_x last they give
+    int4_mm_plain."""
+    rng = np.random.default_rng(bs)
+    n, m, kp = 16, 8, 256
+    packed = rng.integers(0, 256, (n, kp // 2), dtype=np.uint8)
+    xq = rng.integers(-127, 128, (m, kp), dtype=np.int8)
+    scales = rng.uniform(1e-3, 1e-2, (kp // bs, n)).astype(np.float32)
+    s_x = rng.uniform(1e-3, 5e-2, (m,)).astype(np.float32)
+    w_i8 = T.unpack_int4(torch.from_numpy(packed)).numpy().astype(np.int64)
+    acc = np.zeros((n, m), np.float32)
+    for blk in range(kp // bs):
+        chain = np.full((n, m), MAGIC, np.int64)
+        for step in range(blk * bs // 32, (blk + 1) * bs // 32):
+            a, b = _int4_fragments(packed[:, step * 16:(step + 1) * 16],
+                                   xq[:, step * 32:(step + 1) * 32])
+            chain += _mma_m16n8k32(a, b)
+        cols = slice(blk * bs, (blk + 1) * bs)
+        direct = w_i8[:, cols] @ xq[:, cols].astype(np.int64).T
+        assert np.array_equal(chain - MAGIC, direct)
+        as_float = chain.astype(np.uint32).view(np.float32) - MAGIC_F
+        assert np.array_equal(as_float, direct.astype(np.float32))
+        acc += as_float * scales[blk][:, None]
+    got = (acc * s_x[None, :]).T
+    ref = T.int4_mm_plain(torch.from_numpy(xq), torch.from_numpy(packed),
+                          torch.from_numpy(scales), torch.from_numpy(s_x))
+    assert rel_err(got, t32(ref)) <= 1e-6

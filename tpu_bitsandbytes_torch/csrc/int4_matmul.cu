@@ -6,31 +6,33 @@
 // with x int8 [M, Kp] (the A8 row codes), w two signed nibbles per byte
 // [N, Kp/2] (element 2j in the low nibble), scale f32 [Kp/bs, N] and sx f32
 // [M]. Each block dot is an exact int32 sum; the f32 scaling follows the
-// TPU kernel's order per block.
+// TPU kernel's order per block (acc += f32(dot) * scale[b, n], then * sx[m]),
+// so only the order of the block sums can differ.
 //
 // Bound on the H100: the weight bytes. At decode M (8) the kernel reads
 // N*Kp/2 + 4*N*Kp/bs bytes of weights and scales and M*Kp bytes of x,
 // against 2*M*N*Kp int8 operations: a few operations per byte, far below
-// the card's ~590 int8 operations per byte of HBM bandwidth.
+// the card's ~590 int8 operations per byte of HBM bandwidth. What the first
+// design lost was latency: one warp per two rows kept ~1 KB in flight.
 //
-// Design: one warp streams ROWS weight rows at a time, each lane loading
-// 16 contiguous bytes (32 nibbles, inside one scale block) per row per
-// iteration, so a warp's loads are fully coalesced 512-byte runs. The
-// nibbles are sign-extended in registers into int8x4 words in K order and
-// contracted with __dp4a against x, which every row of the warp shares (x is
-// tiny and stays in L1). The lanes of one scale block combine their int32
-// partials with shuffles before the one f32 multiply by scale[b, n]. M is
-// covered MT rows per grid row (MT <= 8); larger M re-reads the weights
-// from L2 once per MT rows. No tensor cores and no TMA yet: those are for
-// the PRs that make this kernel fast.
+// Design: the int8 tensor-core ring of a8_tc.cuh, shared with K4 (mma.sync
+// m16n8k32 with 16 weight rows per warp as A and the M activation rows as n8
+// tiles over one decoded fragment; a 3-stage cp.async ring of 256-code
+// chunks, so two chunks of 64 rows are in flight per block; a wave-aware
+// split along K chosen once per shape by tbnb_int4_plan, whose last split
+// adds the partials in split order). The decode is cheaper than K4's: the
+// two's-complement nibbles sign-extend with one multiply-or per four codes
+// and two byte permutes put them in element order, the same order K4's
+// table decode gives, so the fragment map is K4's. The scales are K-major
+// [Kp/bs, N]: a stage holds the [blocks of the chunk][64 rows] tile of them.
+// Every blocksize the wrapper takes (powers of two, 32-1024) runs this path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "a8_tc.cuh"
 
-constexpr int WARPS = 4;  // warps per block
-constexpr int ROWS = 2;   // weight rows per warp
+namespace {
 
 // Four 4-bit two's-complement values, one in the low half of each byte ->
 // four int8 values. (v & 0x08) * 0x1E sets the high half of a negative
@@ -39,108 +41,78 @@ __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
   return v | ((v & 0x08080808u) * 0x1Eu);
 }
 
-template <int MT>
-__global__ void __launch_bounds__(WARPS * 32)
-int4_mm_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ scales, const float* __restrict__ sx,
-               float* __restrict__ out, int M, int N, int Kp, int bs) {
-  const int lane = threadIdx.x & 31;
-  const int n0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * ROWS;
-  const int m0 = blockIdx.y * MT;
-  if (n0 >= N) return;  // warp-uniform: the whole warp leaves
-  const int lpb = bs >> 5;  // lanes per scale block
-  const bool leader = (lane & (lpb - 1)) == 0;
-  const size_t row_bytes = (size_t)(Kp >> 1);
+struct NoArg {};
 
-  float acc[ROWS][MT];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int i = 0; i < MT; ++i) acc[r][i] = 0.f;
+struct Int4 {
+  using Arg = NoArg;
 
-  for (int base = 0; base < Kp; base += 1024) {
-    const int k = base + lane * 32;
-    const bool active = k < Kp;
-    const int b = k / bs;
-    uint32_t wa[ROWS][8];
-    float s[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int n = n0 + r;
-      const bool live = active && n < N;
-      uint4 pk = make_uint4(0u, 0u, 0u, 0u);
-      if (live) pk = *reinterpret_cast<const uint4*>(w + n * row_bytes + (k >> 1));
-      const uint32_t words[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // byte i of a word holds elements 2i (low) and 2i+1 (high)
-        const uint32_t lo = sext_nibbles(words[j] & 0x0F0F0F0Fu);
-        const uint32_t hi = sext_nibbles((words[j] >> 4) & 0x0F0F0F0Fu);
-        wa[r][2 * j] = __byte_perm(lo, hi, 0x5140);      // e0 e1 e2 e3
-        wa[r][2 * j + 1] = __byte_perm(lo, hi, 0x7362);  // e4 e5 e6 e7
+  // byte i of v holds elements 2i (low nibble) and 2i+1 (high)
+  static __device__ __forceinline__ void decode8(uint32_t v, const NoArg&, uint32_t& lo,
+                                                 uint32_t& hi) {
+    const uint32_t ev = sext_nibbles(v & 0x0F0F0F0Fu);         // e0 e2 e4 e6
+    const uint32_t od = sext_nibbles((v >> 4) & 0x0F0F0F0Fu);  // e1 e3 e5 e7
+    lo = __byte_perm(ev, od, 0x5140);                          // e0 e1 e2 e3
+    hi = __byte_perm(ev, od, 0x7362);                          // e4 e5 e6 e7
+  }
+
+  // scale[blocks of chunk c][n0 .. n0+63] -> sc[j * TC_ROWS + row]
+  static __device__ __forceinline__ void load_scales(float* sc, const float* scales, int c,
+                                                     int n0, int N, int Kp, int lbs) {
+    using a8tc::LKC;
+    using a8tc::TC_ROWS;
+    const int tid = threadIdx.x;
+    const int lper = lbs < LKC ? LKC - lbs : 0;  // log2 of the blocks this chunk touches
+    const int nb = Kp >> lbs, b0 = (c * a8tc::KC) >> lbs;
+    // 4 rows per copy where each block's row of N is 16-byte aligned
+    if ((N & 3) == 0 && (reinterpret_cast<uintptr_t>(scales) & 15) == 0) {
+      for (int i = tid; i < ((TC_ROWS / 4) << lper); i += a8tc::TC_WARPS * 32) {
+        const int j = i / (TC_ROWS / 4), r = (i % (TC_ROWS / 4)) * 4;
+        const int n = n0 + r, b = b0 + j;
+        const bool ok = n < N && b < nb;
+        a8tc::cp_async16(sc + j * TC_ROWS + r,
+                         ok ? static_cast<const void*>(scales + (size_t)b * N + n) : scales, ok);
       }
-      s[r] = (live && leader) ? scales[(size_t)b * N + n] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int m = m0 + i;
-      int d[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) d[r] = 0;
-      if (active && m < M) {
-        const int4* xr = reinterpret_cast<const int4*>(x + (size_t)m * Kp + k);
-        const int4 xa = __ldg(xr);
-        const int4 xb = __ldg(xr + 1);
-        const int xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) d[r] = __dp4a(xv[j], (int)wa[r][j], d[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        for (int o = 1; o < lpb; o <<= 1) d[r] += __shfl_xor_sync(0xffffffffu, d[r], o);
-        acc[r][i] += (float)d[r] * s[r];  // s is 0 off the block's leader lane
+    } else {
+      for (int i = tid; i < (TC_ROWS << lper); i += a8tc::TC_WARPS * 32) {
+        const int j = i / TC_ROWS, r = i % TC_ROWS;
+        const int n = n0 + r, b = b0 + j;
+        const bool ok = n < N && b < nb;
+        a8tc::cp_async4(sc + j * TC_ROWS + r,
+                        ok ? static_cast<const void*>(scales + (size_t)b * N + n) : scales, ok);
       }
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      float v = acc[r][i];
-#pragma unroll
-      for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      const int m = m0 + i;
-      const int n = n0 + r;
-      if (lane == 0 && m < M && n < N) out[(size_t)m * N + n] = v * sx[m];
-    }
+  static __device__ __forceinline__ float scale(const float* sc, int row, int j) {
+    return sc[j * a8tc::TC_ROWS + row];
   }
-}
+};
+
+static_assert(a8tc::TC_ROWS * (a8tc::KC / 32) * 4 == a8tc::SC_STAGE,
+              "a chunk of 32-code blocks fills the scale stage");
 
 }  // namespace
 
+// The launch plan of a shape: the chunks per K split and the scratch a
+// launch with it needs, f32 partial sums and int counts that are 0 (the
+// kernel leaves them 0), both 0 when K is not split. bs a power of two in
+// [32, 1024].
+extern "C" void tbnb_int4_plan(int M, int N, int Kp, int bs, int* cps, long long* part_floats,
+                               int* counts) {
+  a8tc::plan<Int4>(M, N, Kp, bs, cps, part_floats, counts);
+}
+
 // x int8 [M, Kp], w uint8 [N, Kp/2], scales f32 [Kp/bs, N], sx f32 [M],
-// out f32 [M, N], all contiguous. Kp % bs == 0; bs a power of two in
-// [32, 1024]. Returns cudaGetLastError() after the launch.
+// out f32 [M, N], all contiguous, x and w 16-byte aligned; cps, part and
+// count as tbnb_int4_plan gives them for this shape (part and count must not
+// be in use by a launch on another stream). Kp % bs == 0; bs a power of two
+// in [32, 1024]. Returns cudaGetLastError() after the launch.
 extern "C" int tbnb_int4_matmul(const void* x, const void* w, const void* scales,
-                                const void* sx, void* out, int M, int N, int Kp,
-                                int bs, void* stream) {
-  const int mt = M >= 5 ? 8 : M >= 3 ? 4 : M;
-  const dim3 block(WARPS * 32);
-  const dim3 grid((N + WARPS * ROWS - 1) / (WARPS * ROWS), (M + mt - 1) / mt);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const uint8_t* wp = static_cast<const uint8_t*>(w);
-  const float* sp = static_cast<const float*>(scales);
-  const float* sxp = static_cast<const float*>(sx);
-  float* op = static_cast<float*>(out);
-  switch (mt) {
-    case 1: int4_mm_kernel<1><<<grid, block, 0, st>>>(xp, wp, sp, sxp, op, M, N, Kp, bs); break;
-    case 2: int4_mm_kernel<2><<<grid, block, 0, st>>>(xp, wp, sp, sxp, op, M, N, Kp, bs); break;
-    case 4: int4_mm_kernel<4><<<grid, block, 0, st>>>(xp, wp, sp, sxp, op, M, N, Kp, bs); break;
-    default: int4_mm_kernel<8><<<grid, block, 0, st>>>(xp, wp, sp, sxp, op, M, N, Kp, bs); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+                                const void* sx, void* out, void* part, void* count, int M,
+                                int N, int Kp, int bs, int cps, void* stream) {
+  return a8tc::launch<Int4>(static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w),
+                            static_cast<const float*>(scales), static_cast<const float*>(sx),
+                            static_cast<float*>(out), static_cast<float*>(part),
+                            static_cast<int*>(count), M, N, Kp, bs, cps, NoArg{},
+                            static_cast<cudaStream_t>(stream));
 }

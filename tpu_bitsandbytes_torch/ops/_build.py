@@ -22,6 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -108,6 +110,42 @@ def library(name: str) -> ctypes.CDLL:
 def loaded() -> Dict[str, bool]:
     """Which kernel libraries are loaded in this process (builds nothing)."""
     return {src.stem: src.stem in _libs for src in sources()}
+
+
+# (plan export, M, N, K_pad, blocksize, device) -> (chunks per K split, f32
+# partials, counts): the launch plan of K1 and K4 (csrc/a8_tc.cuh), made
+# once per shape
+_PLANS = {}
+# (device, stream) -> the split-K partials and the counts the kernels read
+# as 0 and leave 0. Launches on one stream run in order and share one pair;
+# a launch on another stream (a CUDA-graph capture included) gets its own,
+# so two launches never meet in a count.
+_SCRATCH = {}
+
+
+def split_plan(plan_fn, m: int, n: int, kp: int, bs: int, device):
+    """The launch plan ``plan_fn`` (``tbnb_w4a8_plan`` or
+    ``tbnb_int4_plan``) gives this shape and the split-K scratch it needs on
+    the current stream (grown on demand): (chunks per split, partials,
+    counts, stream handle)."""
+    key = (plan_fn.__name__, m, n, kp, bs, device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        cps, n_part, n_count = (ctypes.c_int(0), ctypes.c_longlong(0),
+                                ctypes.c_int(0))
+        plan_fn(m, n, kp, bs, ctypes.byref(cps), ctypes.byref(n_part),
+                ctypes.byref(n_count))
+        plan = _PLANS[key] = (cps.value, n_part.value, n_count.value)
+    stream = torch.cuda.current_stream(device)
+    skey = (device, stream.cuda_stream)
+    part, counts = _SCRATCH.get(skey, (None, None))
+    if part is None or part.numel() < plan[1] or counts.numel() < plan[2]:
+        part = torch.empty((max(plan[1], 1 << 20),), dtype=torch.float32,
+                           device=device)
+        counts = torch.zeros((max(plan[2], 1024),), dtype=torch.int32,
+                             device=device)
+        _SCRATCH[skey] = (part, counts)
+    return plan[0], part, counts, stream.cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -18,10 +18,12 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_decode_attention", "flash_decode_plain", "SMEM_LIMIT"]
+__all__ = ["flash_decode_attention", "flash_decode_plain", "cluster_size",
+           "SMEM_LIMIT"]
 
-SMEM_LIMIT = 232448          # bytes of shared memory one block may use
+SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use
 _DUMMY_C = 8                 # staged keys the unstaged call masks out
+_MAX_KEYS = (2 ** 31 - 1) // (127 * 127)   # keys an int32 PV sum holds
 
 
 def _127_over(t: torch.Tensor) -> torch.Tensor:
@@ -99,17 +101,45 @@ def flash_decode_plain(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v,
 flash_decode_plain.cuda_calls = 0
 
 
+_LIB = {}
+
+
 def _launcher():
-    lib = _build.library("flash_decode")
-    fn = lib.tbnb_flash_decode
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    if not _LIB:
+        lib = _build.library("flash_decode")
+        fn = lib.tbnb_flash_decode
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.tbnb_flash_decode_smem.argtypes = [ctypes.c_int] * 4
+        lib.tbnb_flash_decode_smem.argtypes = [ctypes.c_int] * 5
         lib.tbnb_flash_decode_smem.restype = ctypes.c_longlong
-    return fn, lib.tbnb_flash_decode_smem
+        lib.tbnb_flash_decode_plan.argtypes = [ctypes.c_int] * 6
+        lib.tbnb_flash_decode_plan.restype = ctypes.c_int
+        _LIB.update(launch=fn, smem=lib.tbnb_flash_decode_smem,
+                    plan=lib.tbnb_flash_decode_plan)
+    return _LIB["launch"], _LIB["smem"], _LIB["plan"]
+
+
+# (rep, T, C, D, B, H_kv, device) -> CTAs per cluster
+_CLUSTER = {}
+
+
+def cluster_size(rep: int, t: int, c: int, d: int, b: int, h_kv: int,
+                 device) -> int:
+    """CTAs per (slot, kv head) for this shape on ``device`` (the kernel's
+    ``tbnb_flash_decode_plan``): up to one per 256 keys of the span, at most
+    8, as long as all B x H_kv clusters fit on the card at once. A function
+    of the shape alone, so the host reads nothing back and one CUDA graph
+    serves every step."""
+    key = (rep, t, c, d, b, h_kv, device)
+    s = _CLUSTER.get(key)
+    if s is None:
+        with torch.cuda.device(device):
+            s = _CLUSTER[key] = _launcher()[2](rep, t, c, d, b, h_kv)
+    return s
 
 
 def _check_kv(codes, scales, what):
@@ -120,6 +150,9 @@ def _check_kv(codes, scales, what):
             s % 16 for s in codes.stride()[:3]):
         raise ValueError(f"flash_decode: {what} codes need a contiguous, "
                          "16-byte aligned last axis and 16-byte strides")
+
+
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _kernel(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,
@@ -134,6 +167,10 @@ def _kernel(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,
     if d < 16 or d > 512 or d & (d - 1):
         raise NotImplementedError(f"flash_decode: head_dim {d} (powers of "
                                   "two in [16, 512] supported)")
+    if max(t, c) > _MAX_KEYS:
+        raise NotImplementedError(f"flash_decode: {max(t, c)} keys in a "
+                                  f"block overflow its int32 PV sums (at "
+                                  f"most {_MAX_KEYS})")
     dev = q.device
     tensors = (k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs)
     if not all(x.is_cuda and x.device == dev for x in tensors):
@@ -147,18 +184,23 @@ def _kernel(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,
         raise ValueError("flash_decode: k and v must share shapes and strides")
     if off.dtype != torch.int32 or off.shape != (b,):
         raise TypeError("flash_decode: off must be int32 [B]")
-    fn, smem_fn = _launcher()
-    smem = smem_fn(rep, t, c, d)
+    fn, smem_fn, _ = _launcher()
+    s = cluster_size(rep, t, c, d, b, h_kv, dev)
+    smem = smem_fn(rep, t, c, d, s)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
-            f"flash_decode: {t + c} keys x {rep} heads need {smem} bytes of "
-            f"shared memory (limit {SMEM_LIMIT}); splitting T is not ported")
-    qf = q.to(torch.float32).contiguous()
+            f"flash_decode: {t + c} keys x {rep} heads over {s} CTAs need "
+            f"{smem} bytes of shared memory per CTA (limit {SMEM_LIMIT})")
+    if q.dtype not in _Q_DTYPES:
+        q = q.to(torch.float32)
+    if q.stride(2) != 1:
+        q = q.contiguous()
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    err = fn(qf.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
-             v_q.data_ptr(), v_scale.data_ptr(), st_k.data_ptr(),
-             st_ks.data_ptr(), st_v.data_ptr(), st_vs.data_ptr(),
-             off.data_ptr(), out.data_ptr(), b, h_kv, rep, t, c, d,
+    err = fn(q.data_ptr(), q.stride(0), q.stride(1), _Q_DTYPES[q.dtype],
+             k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+             v_scale.data_ptr(), st_k.data_ptr(), st_ks.data_ptr(),
+             st_v.data_ptr(), st_vs.data_ptr(), off.data_ptr(),
+             out.data_ptr(), b, h_kv, rep, t, c, d, s,
              *k_q.stride()[:3], *k_scale.stride(), *st_k.stride()[:3],
              *st_ks.stride(), int(step), int(kpos_start),
              0 if window is None else int(window),
@@ -168,6 +210,22 @@ def _kernel(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,
     _build.check(err, "flash_decode")
     flash_decode_attention.launches += 1
     return out
+
+
+# (device, B, H_kv, D) -> the fully masked staged block of the unstaged call
+_DUMMY = {}
+
+
+def _dummy_stage(b: int, h_kv: int, d: int, device):
+    key = (device, b, h_kv, d)
+    blk = _DUMMY.get(key)
+    if blk is None:
+        stk = torch.zeros((b, h_kv, _DUMMY_C, d), dtype=torch.int8,
+                          device=device)
+        stks = torch.ones((b, h_kv, _DUMMY_C), dtype=torch.float32,
+                          device=device)
+        blk = _DUMMY[key] = (stk, stks, stk, stks, -1)
+    return blk
 
 
 def flash_decode_attention(q, k_q, k_scale, v_q, v_scale, off, *,
@@ -193,11 +251,7 @@ def flash_decode_attention(q, k_q, k_scale, v_q, v_scale, off, *,
     if scale is None:
         scale = 1.0 / d ** 0.5
     if staged is None:
-        stk = torch.zeros((b, h_kv, _DUMMY_C, d), dtype=torch.int8,
-                          device=q.device)
-        stks = torch.ones((b, h_kv, _DUMMY_C), dtype=torch.float32,
-                          device=q.device)
-        staged = (stk, stks, stk, stks, -1)
+        staged = _dummy_stage(b, h_kv, d, q.device)
     st_k, st_ks, st_v, st_vs, step = staged
     fn = _kernel if q.is_cuda else flash_decode_plain
     return fn(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,

@@ -113,13 +113,20 @@ def int4_mm_plain(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 int4_mm_plain.cuda_calls = 0
 
 
+_LIB = {}
+
+
 def _launcher():
-    fn = _build.library("int4_matmul").tbnb_int4_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+    if not _LIB:
+        lib = _build.library("int4_matmul")
+        fn, plan = lib.tbnb_int4_matmul, lib.tbnb_int4_plan
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        plan.restype = None
+        _LIB.update(launch=fn, plan=plan)
+    return _LIB["launch"], _LIB["plan"]
 
 
 def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
@@ -145,10 +152,17 @@ def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
                for t in (xq, w, scales, s_x)):
         raise ValueError("int4_mm: all operands must be contiguous tensors "
                          "on one CUDA device")
+    if xq.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("int4_mm: x and the packed codes must start on a "
+                         "16-byte boundary (the kernel copies 16 bytes at a "
+                         "time)")
+    launch, plan = _launcher()
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    err = _launcher()(xq.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                      s_x.data_ptr(), out.data_ptr(), m, n, kp, bs,
-                      torch.cuda.current_stream(xq.device).cuda_stream)
+    cps, part, counts, stream = _build.split_plan(plan, m, n, kp, bs,
+                                                  xq.device)
+    err = launch(xq.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                 s_x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 counts.data_ptr(), m, n, kp, bs, cps, stream)
     _build.check(err, "int4_matmul")
     int4_mm.launches += 1
     return out

@@ -102,38 +102,6 @@ def _launcher():
     return _LIB["launch"], _LIB["plan"]
 
 
-# (M, N, K_pad, blocksize, device) -> (chunks per K split, f32 partials,
-# counts): the kernel's launch plan, made once per shape
-_PLANS = {}
-# (device, stream) -> the split-K partials and the counts K4 reads as 0 and
-# leaves 0. Launches on one stream run in order and share one pair; a launch
-# on another stream gets its own, so two launches never meet in a count.
-_SCRATCH = {}
-
-
-def _plan(fn, m, n, kp, bs, device):
-    """K4's launch plan for this shape and the split-K scratch it needs on
-    the current stream (grown on demand)."""
-    key = (m, n, kp, bs, device)
-    plan = _PLANS.get(key)
-    if plan is None:
-        cps, n_part, n_count = (ctypes.c_int(0), ctypes.c_longlong(0),
-                                ctypes.c_int(0))
-        fn(m, n, kp, bs, ctypes.byref(cps), ctypes.byref(n_part),
-           ctypes.byref(n_count))
-        plan = _PLANS[key] = (cps.value, n_part.value, n_count.value)
-    stream = torch.cuda.current_stream(device)
-    skey = (device, stream.cuda_stream)
-    part, counts = _SCRATCH.get(skey, (None, None))
-    if part is None or part.numel() < plan[1] or counts.numel() < plan[2]:
-        part = torch.empty((max(plan[1], 1 << 20),), dtype=torch.float32,
-                           device=device)
-        counts = torch.zeros((max(plan[2], 1024),), dtype=torch.int32,
-                             device=device)
-        _SCRATCH[skey] = (part, counts)
-    return plan[0], part, counts, stream.cuda_stream
-
-
 def _table_words():
     """NF4_I8 as four little-endian int8x4 words (entries 0-3, 4-7, ...)."""
     b = np.asarray(NF4_I8, np.int8).tobytes()
@@ -174,7 +142,8 @@ def w4a8_mm(xq: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
                          "a time)")
     launch, plan = _launcher()
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    cps, part, counts, stream = _plan(plan, m, n, kp, bs, xq.device)
+    cps, part, counts, stream = _build.split_plan(plan, m, n, kp, bs,
+                                                  xq.device)
     err = launch(xq.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
                  s_x.data_ptr(), out.data_ptr(), part.data_ptr(),
                  counts.data_ptr(), m, n, kp, bs, cps, *_TABLE_WORDS, stream)
