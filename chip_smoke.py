@@ -12,7 +12,9 @@ Phases (any failure raises: traceback, nonzero exit):
      8, a span past the single-block shared memory limit, an all-masked slot
      beside live ones, window + softcap); times kernel (device time, replayed
      from a CUDA graph), plain version, the one PyTorch call that computes
-     the same function where there is one (SDPA for K3), and the least time
+     the same function where there is one (SDPA for K3), for K5
+     ``torch.matmul`` by its already-decoded bf16 weight (``gemm_ms``, a
+     yardstick of the product alone) and the route, and the least time
      the card could take (bytes over HBM bandwidth, or operations over the
      peak for their type, whichever is larger). K4 is timed at decode M=8
      and at the 32/64 prefill buckets; K2 at the 7B step and at the 13B step
@@ -57,9 +59,10 @@ K2_TOL = 1e-3   # one flipped p code where an exp rounds differently
 # one bf16 ulp of an output is at most 2^-7 of its row's max
 K3_TOL = 1e-2
 K4_TOL = 1e-5   # exact int32 block dots; only the f32 sum order differs
-# f32: exact products, another sum order; bf16: the f32 result rounds to
-# bf16, whose ulp at max|ref| is 3.9e-3
-K5_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# f32: exact products, another sum order; bf16: the same bf16 operands (each
+# weight rounded once), another f32 sum order (a weight rounded twice, or to
+# f16, would miss it)
+K5_TOL = {"f32": 1e-5, "bf16": 1e-4}
 E2E_TOL = 3e-2  # bf16 logits and activations, card vs CPU, of max|ref|
 
 
@@ -449,32 +452,50 @@ def k5_bound(m, n, k, bs, bw, bf16_peak):
             "bytes" if nbytes / bw >= ops / bf16_peak else "operations")
 
 
+def dequant_bf16(w, am, book):
+    """The bf16 weight [N, K] K5 multiplies by: book[code] * absmax in f32,
+    rounded once."""
+    scale = am.repeat_interleave(2 * w.shape[1] // am.shape[1], dim=1)
+    codes = torch.stack([w & 15, w >> 4], dim=-1).reshape(w.shape[0], -1)
+    return (book[codes.long()] * scale).to(torch.bfloat16)
+
+
 def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
     shapes13 = [(n, k) for _, n, k, _ in K4_DECODE]
-    cases = ([(m, n, k, "nf4", "bf16") for m in (65, 128, 256)
+    cases = ([(m, n, k, 64, "nf4", "bf16") for m in (65, 128, 256)
               for n, k in shapes13]
-             + [(128, 1000, 4032, qt, mode) for qt in ("nf4", "fp4")
+             + [(128, 1000, 4032, 64, qt, mode) for qt in ("nf4", "fp4")
                 for mode in ("bf16", "f32")]
-             + [(65, 5120, 5120, "nf4", "f32"), (256, 15360, 5120, "fp4",
-                                                 "bf16")])
+             + [(65, 5120, 5120, 64, "nf4", "f32"),
+                (256, 15360, 5120, 64, "fp4", "bf16"),
+                # the wgmma kernel's narrowest tokens, K_pad half a stage
+                # past a whole one with blocks of 32; the ragged bf16 kernel
+                (1, 5120, 5120, 64, "nf4", "bf16"),
+                (129, 5120, 4064, 32, "nf4", "bf16"),
+                (100, 131, 200, 8, "nf4", "bf16")])
     worst = {"bf16": [0.0, 0.0], "f32": [0.0, 0.0]}
+    routes = {}
 
     def x_of(m, k, mode):
         x = torch.randn((m, k), generator=gen, device=dev)
         return x.to(torch.bfloat16 if mode == "bf16" else torch.float32)
 
-    for m, n, k, qt, mode in cases:
-        ((w, am),) = packed_inputs(n, k, 64, gen, dev)
+    for m, n, k, bs, qt, mode in cases:
+        ((w, am),) = packed_inputs(n, k, bs, gen, dev)
         x = x_of(m, k, mode)
         book = TF.codebook(qt, dev)
         got = K5.matmul4bit_mm(x, w, am, book, mode)
         ref = K5.matmul4bit_plain(x, w, am, book, mode)
         torch.cuda.synchronize()
         a, r = err(got, ref)
+        route = K5.kernel_of(m, n, k, bs, mode)
         if not (r <= K5_TOL[mode] and torch.isfinite(got).all()):
-            raise AssertionError(f"K5 M={m} N={n} K={k} {qt} {mode}: rel "
-                                 f"err {r}")
+            raise AssertionError(f"K5 M={m} N={n} K={k} bs={bs} {qt} {mode} "
+                                 f"({route}): rel err {r}")
         worst[mode] = [max(worst[mode][0], a), max(worst[mode][1], r)]
+        routes[route] = routes.get(route, 0) + 1
+    if set(routes) != {"wgmma", "bf16", "f32"}:
+        raise AssertionError(f"K5 cases reached {routes}")
     # double-quantized absmax through the wrapper (K = 4000: K padding)
     w = torch.randn((1000, 4000), generator=gen, device=dev) * 0.05
     packed, st = TF.quantize_4bit(w, blocksize=64, compress_statistics=True)
@@ -485,37 +506,45 @@ def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
                               packed.reshape(1000, -1), am,
                               TF.codebook("nf4", dev), "bf16")
     torch.cuda.synchronize()
-    a, r = err(got, ref.to(torch.bfloat16))
+    a, r = err(got, ref.to(got.dtype))
     if not r <= K5_TOL["bf16"]:
         raise AssertionError(f"K5 double-quant wrapper: rel err {r}")
     rows = []
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "gemm_ms": 0.0}
+    book = TF.codebook("nf4", dev)
     for m in (128, 256):   # the two K5 prefill buckets of the served path
         for name, n, k, per_prefill in K4_DECODE:
             copies = max(2, math.ceil(200e6 / packed_bytes(n, k, 64)))
             ws = packed_inputs(n, k, 64, gen, dev, copies)
             x = x_of(m, k, "bf16")
-            book = TF.codebook("nf4", dev)
             kern = time_graph_ms([lambda w=w, am=am: K5.matmul4bit_mm(
                 x, w, am, book, "bf16") for w, am in ws],
                 iters=max(20, 2 * copies))
             plain = time_ms([lambda: K5.matmul4bit_plain(x, *ws[0], book,
                                                          "bf16")], iters=3)
+            # a yardstick of the product alone, never called by the port:
+            # torch.matmul of x by the already-decoded bf16 weight
+            wd = dequant_bf16(*ws[0], book)
+            gemm = time_graph_ms([lambda: torch.matmul(x, wd.t())], iters=20)
+            del wd
             bound, by = k5_bound(m, n, k, 64, bw, bf16_peak)
             rows.append({"shape": f"{name} M={m} N={n} K={k} bf16",
+                         "route": K5.kernel_of(m, n, k, 64, "bf16"),
                          "kernel_ms": kern, "plain_ms": plain,
-                         "bound_ms": bound, "bound_by": by,
+                         "gemm_ms": gemm, "bound_ms": bound, "bound_by": by,
+                         "x_bound": kern / bound,
                          "per_prefill": per_prefill})
-            total["ms"] += per_prefill * kern
-            total["plain_ms"] += per_prefill * plain
-            total["bound_ms"] += per_prefill * bound
+            for key, val in (("ms", kern), ("plain_ms", plain),
+                             ("bound_ms", bound), ("gemm_ms", gemm)):
+                total[key] += per_prefill * val
             del ws
     x = x_of(65, 5120, "f32")
     ((w, am),) = packed_inputs(5120, 5120, 64, gen, dev)
     f32_ms = time_graph_ms([lambda: K5.matmul4bit_mm(x, w, am, book, "f32")],
                            20)
     emit({"phase": "kernels", "kernel": "K5_matmul4bit", "shapes": rows,
-          "f32_mode_o_M65_ms": f32_ms,
+          "per_run": total, "f32_mode_o_M65_ms": f32_ms,
+          "cases_by_route": routes,
           "worst_rel_err": {k: v[1] for k, v in worst.items()}})
     return {
         "name": "K5_matmul4bit", "route": "cuda",
@@ -530,7 +559,7 @@ def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in rows) else "mixed",
-        "library_ms": None}
+        "library_ms": None, "gemm_ms": total["gemm_ms"]}
 
 
 def k3_bound(b, s, h, h_kv, d, s_real, window, bw, bf16_peak, K3):
@@ -924,9 +953,20 @@ def phase_full_width_packed(dev, counters):
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
+def scratch_mib():
+    """MiB of split-K scratch (K1, K4 and K5's partials and counts) held per
+    stream, largest first: kept once a stream has run a split launch, so it
+    counts in every later peak."""
+    from tpu_bitsandbytes_torch.ops import _build
+    return sorted((b / 2 ** 20 for b in _build.scratch_bytes().values()),
+                  reverse=True)
+
+
 def reset(counters, plains):
     for f in counters.values():
         f.launches = 0
+        if hasattr(f, "wgmma_launches"):
+            f.wgmma_launches = 0
     for f in plains:
         f.cuda_calls = 0
 
@@ -983,6 +1023,7 @@ def phase_serve(dev, counters, plains):
         lambda s: torch.randn(s, generator=gen, device=dev), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = scratch_mib()
     engine = E.DecodeEngine(params, cfg, max_batch=8, max_seq=512,
                             steps_per_sync=32, runtime_cache="int4",
                             device=dev)
@@ -1064,6 +1105,8 @@ def phase_serve(dev, counters, plains):
           "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
           "max_memory_allocated_gib":
               torch.cuda.max_memory_allocated() / 2 ** 30,
+          "split_scratch_mib": {"at_peak_reset": held,
+                                "at_end": scratch_mib()},
           "launches": launches, "launches_per_decode_step": per_step,
           "plain_calls_on_cuda": plain_cuda})
     return launches
@@ -1090,6 +1133,7 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak):
         lambda s: torch.randn(s, generator=gen, device=dev), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = scratch_mib()
     engine = E.DecodeEngine(params, cfg, max_batch=8, max_seq=2048,
                             steps_per_sync=32, runtime_cache=None, device=dev)
     torch.cuda.synchronize()
@@ -1146,6 +1190,15 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak):
         raise AssertionError(f"packed path launches {launches}")
     if sorted(g["bucket"] for g in groups) != [32, 64, 128, 256, 1024, 2048]:
         raise AssertionError(f"admission groups {groups}")
+    # the 128 and 256 buckets: 4 matmuls a layer and the head, each on K5's
+    # wgmma kernel
+    k5 = counters["K5_matmul4bit"]
+    want_k5 = 2 * (4 * cfg.num_layers + 1)
+    if not launches["K5_matmul4bit"] == k5.wgmma_launches == want_k5:
+        raise AssertionError(f"K5 launches {launches['K5_matmul4bit']} "
+                             f"({k5.wgmma_launches} wgmma), expected "
+                             f"{want_k5} on the wgmma kernel")
+    k5_wgmma = k5.wgmma_launches
 
     # one more decode step, counted alone: the per-step launch budget
     reset(counters, ())
@@ -1187,8 +1240,10 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak):
           "decode_step_ms": chunk_s / decode_steps * 1e3,
           "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
           "max_memory_allocated_gib": peak_gib,
+          "split_scratch_mib": {"at_peak_reset": held,
+                                "at_end": scratch_mib()},
           "launches": launches, "launches_per_decode_step": per_step,
-          "plain_calls_on_cuda": plain_cuda,
+          "plain_calls_on_cuda": plain_cuda, "k5_wgmma_launches": k5_wgmma,
           "k2_kept_keys": kept_keys, "k2_bound_ms_per_step": k2_bound})
     return launches, k2_bound
 

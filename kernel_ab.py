@@ -5,9 +5,10 @@
 
 Runs one worker process per tree in the order base, this tree, this tree,
 base. Each worker imports ``tpu_bitsandbytes_torch`` from its tree, builds
-that tree's kernels, and times K3 and K4 at ``chip_smoke.py`` phase 2's
-timed shapes (K3 at B=1 S=1024 and B=4 S=2048, H=40, D=128, bf16; K4 at
-the five Llama-2-13B shapes, blocksize 64, M = 8, 32, 64; K1 at the five
+that tree's kernels, and times K3, K4 and K5 at ``chip_smoke.py`` phase
+2's timed shapes (K3 at B=1 S=1024 and B=4 S=2048, H=40, D=128, bf16; K4 at
+the five Llama-2-13B shapes, blocksize 64, M = 8, 32, 64; K5 at the same
+shapes, bf16, M = 128 and 256, the two prefills' 322 launches; K1 at the five
 Llama-2-7B shapes, M = 8; K2 at the 7B step, span 384, and at the 13B
 step, span 1920, at phase 5's last positions and with every slot long or
 short), each two ways: replayed from a CUDA graph (device time, as phase
@@ -43,7 +44,9 @@ def worker(root: Path) -> dict:
     from tpu_bitsandbytes_torch.ops import _build
     from tpu_bitsandbytes_torch.ops import flash_decode as K2
     from tpu_bitsandbytes_torch.ops import flash_prefill as K3
+    from tpu_bitsandbytes_torch import functional as TF
     from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import matmul4bit as K5
     from tpu_bitsandbytes_torch.ops import w4a8 as K4
     pkg = Path(tpu_bitsandbytes_torch.__file__).resolve()
     if root.resolve() not in pkg.parents:
@@ -111,6 +114,25 @@ def worker(root: Path) -> dict:
             q, *kv, off, staged=st + (31,)) for kv, st in layers], 80)
         rows[f"K2 per 13B decode step, {what} (40 launches)"] = {
             key: 40 * val for key, val in t.items()}
+
+    # K5 last: its split-K scratch, shared with K1 and K4, must not change
+    # where the earlier rows' buffers lie
+    book = TF.codebook("nf4", dev)
+    per_run = {"graph_ms": 0.0, "host_ms": 0.0}
+    for m in (128, 256):
+        for name, n, k, per_prefill in C.K4_DECODE:
+            copies = max(2, math.ceil(200e6 / C.packed_bytes(n, k, 64)))
+            ws = C.packed_inputs(n, k, 64, gen, dev, copies)
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            t = timed([lambda w=w, am=am: K5.matmul4bit_mm(x, w, am, book,
+                                                           "bf16")
+                       for w, am in ws], max(20, 2 * copies))
+            rows[f"K5 {name} M={m} N={n} K={k}"] = t
+            for key in t:
+                per_run[key] += per_prefill * t[key]
+            del ws
+    rows["K5 per run: the 128 and 256 prefills (322 launches)"] = per_run
     return {"tree": str(root), "rows": rows}
 
 

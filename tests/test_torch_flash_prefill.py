@@ -114,6 +114,68 @@ def test_gqa_attention_dispatch_at_1024(monkeypatch):
     assert rel_err(t32(short), t32(f32)[:, :1000]) <= 1e-5
 
 
+@pytest.mark.parametrize("d", [96, 384])
+def test_unkernelled_head_dims_take_the_scan(monkeypatch, d):
+    """Half-precision head dims where neither K3 nor JAX's kernel runs (d
+    not a multiple of 128, or above 256) leave K3's wrapper for the JAX
+    package's scan (``tiled_attention`` at its 512 blocks), on the CPU as
+    on the card, and agree with JAX's ``gqa_attention_flash`` on the same
+    inputs within the half-precision bound above."""
+    q, k, v = _qkv(1, 1024, 2, 1, d, seed=d)
+    k3, scan = [], []
+    monkeypatch.setattr(TLay, "flash_prefill_attention",
+                        lambda *a, **kw: k3.append(1))
+    tiled = TLay.tiled_attention
+    monkeypatch.setattr(TLay, "tiled_attention",
+                        lambda *a, **kw: scan.append(kw["block_k"])
+                        or tiled(*a, **kw))
+    got = TLay.gqa_attention(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
+    assert not k3 and scan == [512]
+    ref = JLay.gqa_attention_flash(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got, ref = t32(got), np.asarray(ref, np.float32)
+    assert rel_err(got, ref) <= 1e-2
+    assert _cos(got, ref) > 0.999
+
+
+@pytest.mark.parametrize("s,kernel", [(1024, True), (5632, True),
+                                      (6144, False), (500, False)])
+def test_head_dim_256_routes_as_jax(monkeypatch, s, kernel):
+    """At d = 256 half precision goes to K3's wrapper exactly where JAX runs
+    its kernel (S from 512 while the 512-padded S fits its budget: 5632 is
+    the last), and to the scan elsewhere. JAX's own rule is asked as on a
+    TPU."""
+    monkeypatch.setattr(JFP.jax, "default_backend", lambda: "tpu")
+    s_pad = -(-s // 512) * 512
+    assert kernel == (s >= 512 and JFP.flash_prefill_supported(
+        1, s, 1, 1, 256, jnp.bfloat16, s_pad))
+    monkeypatch.undo()
+    calls = []
+    monkeypatch.setattr(TLay, "flash_prefill_attention",
+                        lambda *a, **kw: calls.append("k3"))
+    monkeypatch.setattr(TLay, "tiled_attention",
+                        lambda *a, **kw: calls.append("scan"))
+    q = torch.zeros((1, s, 1, 256), dtype=torch.bfloat16)
+    TLay.gqa_attention_flash(q, q, q)
+    assert calls == ["k3" if kernel else "scan"]
+    assert TLay.jax_takes_its_kernel(s, 256) == kernel
+
+
+def test_head_dim_256_matches_jax():
+    """d = 256 at S = 1024 on the CPU: K3's plain version at the kernel's
+    tile against JAX's ``gqa_attention_flash``, within the bound above."""
+    q, k, v = _qkv(1, 1024, 2, 1, 256, seed=256)
+    got = TLay.gqa_attention_flash(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
+    ref = JLay.gqa_attention_flash(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    got, ref = t32(got), np.asarray(ref, np.float32)
+    assert rel_err(got, ref) <= 1e-2
+    assert _cos(got, ref) > 0.999
+
+
 def test_kept_pairs_counts_the_masks():
     for s, s_real, window in [(64, 64, None), (64, 50, None), (64, 64, 10),
                               (100, 37, 5)]:

@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace a8tc {
 
 constexpr int TC_WARPS = 4;
@@ -265,16 +267,7 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 
 inline bool takes(int bs) { return bs >= 32 && (bs & (bs - 1)) == 0; }
 
-inline int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
+using sm90::num_sms;
 
 inline int mt_of(int M) {
   const int m = M < 64 ? M : 64;

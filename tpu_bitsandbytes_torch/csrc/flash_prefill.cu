@@ -40,13 +40,16 @@
 // registers to the consumers (setmaxnreg). Tiles that no mask touches skip
 // the mask. GQA reads kv head h / rep.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int BQ = 128, BK = 128, STAGES = 2;
 constexpr int THREADS = 384;        // producer warpgroup + 2 consumer warpgroups
@@ -80,42 +83,6 @@ __device__ __forceinline__ uint32_t empty_v(uint32_t bar, int s) {
   return bar + 8 * (1 + 3 * STAGES + s);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d0, int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head),
-         "r"(row), "r"(batch)
-      : "memory");
-}
-
 // the consumer warpgroups' turns to issue: warpgroup w waits on barrier
 // 1 + w, which the other warpgroup arrives at
 __device__ __forceinline__ void sched_sync(int wg) {
@@ -124,43 +91,6 @@ __device__ __forceinline__ void sched_sync(int wg) {
 __device__ __forceinline__ void sched_arrive(int wg) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + wg) : "memory");
 }
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator reads across the async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define TBNB_D32                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define TBNB_D64                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
-  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
-  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define TBNB_F8(d, i)                                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),             \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TBNB_ACC32(d) TBNB_F8(d, 0), TBNB_F8(d, 8), TBNB_F8(d, 16), TBNB_F8(d, 24)
-#define TBNB_ACC64(d) TBNB_ACC32(d), TBNB_F8(d, 32), TBNB_F8(d, 40), TBNB_F8(d, 48), TBNB_F8(d, 56)
 
 // d[64] (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
 template <bool F16>
@@ -422,30 +352,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
             pack2<F16>(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // [B, S, heads, D] contiguous, read as 128 rows x 64 columns of one head

@@ -17,7 +17,8 @@ import torch
 from ..functional import (QuantState, _pad_k, dequantize_4bit,
                           dequantize_blockwise, matmul_4bit, quantize_4bit,
                           quantize_blockwise)
-from ..ops.flash_prefill import flash_prefill_attention, tiled_attention
+from ..ops.flash_prefill import (HEAD_DIMS, flash_prefill_attention,
+                                 tiled_attention)
 from ..ops.int4cache import int4_matmul, quantize_int4
 from ..ops.w4a8 import takes_w4a8, w4a8_matmul_4bit
 
@@ -219,20 +220,37 @@ def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
     return keep[:, None, None]
 
 
+def jax_takes_its_kernel(s: int, d: int) -> bool:
+    """Whether the JAX package's ``gqa_attention_flash`` runs its Pallas
+    kernel on half-precision q (its ``flash_prefill_supported``): head dims
+    that are multiples of 128 up to 256, at 512-padded lengths whose K/V
+    tiles, q/out blocks and f32 logits fit the kernel's 14 MiB budget."""
+    if s < _SCAN_BLOCK or d % 128 or d > 256:
+        return False
+    s_pad = -(-s // _SCAN_BLOCK) * _SCAN_BLOCK
+    vmem = (4 * s_pad * d * 2 + 4 * _SCAN_BLOCK * d * 2
+            + _SCAN_BLOCK * _SCAN_BLOCK * 4 + 2 * _SCAN_BLOCK * d * 4)
+    return vmem <= 14 * 2 ** 20
+
+
 def gqa_attention_flash(q, k, v, *, scale=None, window=None, softcap=None):
     """Causal GQA for aligned prefill (S == T) in O(S) memory.
 
-    Half-precision q runs :func:`flash_prefill_attention` (kernel K3).
-    f32 q runs the JAX package's own non-kernel route: the same online
-    softmax in f32 torch ops over its 512 x 512 blocks
-    (:func:`tiled_attention`).
+    Half-precision q runs :func:`flash_prefill_attention` (kernel K3) at a
+    head dim K3 takes (``HEAD_DIMS``) and wherever the JAX package runs its
+    kernel (:func:`jax_takes_its_kernel`; K3's wrapper raises on the card
+    for d = 256, which K3 does not take yet). Everything else runs the JAX
+    package's own non-kernel route, its scan: the same online softmax in
+    torch ops over 512 x 512 blocks (:func:`tiled_attention`), in f32 with
+    p rounded to v's dtype before the PV product.
     """
     s, d = q.shape[1], q.shape[3]
     if s != k.shape[1]:
         raise ValueError("flash path is for aligned causal prefill (S == T)")
     if scale is None:
         scale = 1.0 / np.sqrt(d)
-    if q.dtype in (torch.bfloat16, torch.float16):
+    if q.dtype in (torch.bfloat16, torch.float16) and (
+            d in HEAD_DIMS or jax_takes_its_kernel(s, d)):
         return flash_prefill_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), s_real=s,
                                        scale=float(scale), window=window,

@@ -113,8 +113,8 @@ def loaded() -> Dict[str, bool]:
 
 
 # (plan export, M, N, K_pad, blocksize, device) -> (chunks per K split, f32
-# partials, counts): the launch plan of K1 and K4 (csrc/a8_tc.cuh), made
-# once per shape
+# partials, counts): the launch plan of K1 and K4 (csrc/a8_tc.cuh) and of
+# K5's wgmma path (csrc/matmul4bit.cu), made once per shape
 _PLANS = {}
 # (device, stream) -> the split-K partials and the counts the kernels read
 # as 0 and leave 0. Launches on one stream run in order and share one pair;
@@ -123,11 +123,10 @@ _PLANS = {}
 _SCRATCH = {}
 
 
-def split_plan(plan_fn, m: int, n: int, kp: int, bs: int, device):
-    """The launch plan ``plan_fn`` (``tbnb_w4a8_plan`` or
-    ``tbnb_int4_plan``) gives this shape and the split-K scratch it needs on
-    the current stream (grown on demand): (chunks per split, partials,
-    counts, stream handle)."""
+def plan_of(plan_fn, m: int, n: int, kp: int, bs: int, device):
+    """The launch plan ``plan_fn`` (``tbnb_w4a8_plan``, ``tbnb_int4_plan``
+    or ``tbnb_matmul4bit_plan``) gives this shape: (chunks per split, f32
+    partials, counts), chunks 0 where its kernel does not take the shape."""
     key = (plan_fn.__name__, m, n, kp, bs, device)
     plan = _PLANS.get(key)
     if plan is None:
@@ -136,6 +135,14 @@ def split_plan(plan_fn, m: int, n: int, kp: int, bs: int, device):
         plan_fn(m, n, kp, bs, ctypes.byref(cps), ctypes.byref(n_part),
                 ctypes.byref(n_count))
         plan = _PLANS[key] = (cps.value, n_part.value, n_count.value)
+    return plan
+
+
+def split_plan(plan_fn, m: int, n: int, kp: int, bs: int, device):
+    """:func:`plan_of` this shape and the split-K scratch it needs on the
+    current stream (grown on demand): (chunks per split, partials, counts,
+    stream handle)."""
+    plan = plan_of(plan_fn, m, n, kp, bs, device)
     stream = torch.cuda.current_stream(device)
     skey = (device, stream.cuda_stream)
     part, counts = _SCRATCH.get(skey, (None, None))
@@ -146,6 +153,14 @@ def split_plan(plan_fn, m: int, n: int, kp: int, bs: int, device):
                              device=device)
         _SCRATCH[skey] = (part, counts)
     return plan[0], part, counts, stream.cuda_stream
+
+
+def scratch_bytes() -> Dict[int, int]:
+    """Bytes of split-K scratch (partials and counts) held per stream
+    handle: memory that stays allocated once a stream has run a split
+    launch."""
+    return {st: part.nbytes + counts.nbytes
+            for (_, st), (part, counts) in _SCRATCH.items()}
 
 
 def check(err: int, what: str) -> None:

@@ -26,11 +26,11 @@ import torch
 from . import _build
 
 __all__ = ["flash_prefill_attention", "flash_prefill_plain",
-           "tiled_attention", "kept_pairs", "BLOCK"]
+           "tiled_attention", "kept_pairs", "BLOCK", "HEAD_DIMS"]
 
 BLOCK = 128     # the CUDA kernel's query and key tile
 _NEG = -1e30
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)   # the head dims the CUDA kernel takes
 
 
 def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -137,9 +137,9 @@ def _kernel(q, k, v, *, s_real, scale, window, softcap):
             or h % h_kv):
         raise ValueError(f"flash_prefill: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in _HEAD_DIMS:
+    if d not in HEAD_DIMS:
         raise NotImplementedError(f"flash_prefill: head_dim {d} (the kernel "
-                                  f"takes {_HEAD_DIMS})")
+                                  f"takes {HEAD_DIMS})")
     if not all(t.is_cuda and t.device == q.device and t.is_contiguous()
                for t in (q, k, v)):
         raise ValueError("flash_prefill: q, k and v must be contiguous "

@@ -10,6 +10,11 @@ The TPU kernel broadcasts absmax across its lanes with a 0/1 matmul (a
 lane-layout workaround); the port multiplies by absmax directly, which is
 what that matmul computes. Forward only: the backward pass comes with the
 training slice.
+
+On the card, bf16 mode at the shapes :func:`takes_wgmma` admits (every
+Llama width) runs the wgmma kernel, which decodes each code once per CTA
+whatever M is; the other bf16 shapes run the 64 x 64-tile ``mma.sync``
+kernel, and f32 mode its own kernel (:func:`kernel_of`).
 """
 
 from __future__ import annotations
@@ -22,9 +27,32 @@ import torch
 from ..functional import QuantState, _pad_k, codebook, dequantize_blockwise
 from . import _build
 
-__all__ = ["fused_matmul_4bit", "matmul4bit_mm", "matmul4bit_plain"]
+__all__ = ["fused_matmul_4bit", "kernel_of", "matmul4bit_mm",
+           "matmul4bit_plain", "takes_wgmma"]
 
 MODES = ("bf16", "f32")
+_WGMMA_MAX_M = 256
+
+
+def takes_wgmma(m: int, n: int, k_pad: int, blocksize: int) -> bool:
+    """True where bf16 mode runs the wgmma kernel: 1 <= M <= 256 (the
+    tokens are one wgmma's N), ``K_pad / 2`` a multiple of 16 bytes (the
+    stride of the codes' TMA map) and one absmax per row and 16-code slice
+    (``blocksize % 16 == 0``). Every Llama-2 7B/13B matmul meets it. On
+    the card the kernel's plan (``tbnb_matmul4bit_plan``) routes; this is
+    the same rule, stated where the CPU can test it."""
+    return (1 <= m <= _WGMMA_MAX_M and n >= 1 and k_pad % 32 == 0
+            and blocksize >= 16 and blocksize % 16 == 0
+            and k_pad % blocksize == 0)
+
+
+def kernel_of(m: int, n: int, k_pad: int, blocksize: int, mode: str) -> str:
+    """The kernel a CUDA call of :func:`matmul4bit_mm` launches: "wgmma"
+    (bf16 where :func:`takes_wgmma` holds), "bf16" (the other bf16 shapes)
+    or "f32"."""
+    if mode == "f32":
+        return "f32"
+    return "wgmma" if takes_wgmma(m, n, k_pad, blocksize) else "bf16"
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,13 +86,25 @@ def matmul4bit_plain(x: torch.Tensor, packed: torch.Tensor,
 matmul4bit_plain.cuda_calls = 0
 
 
-def _launcher():
-    fn = _build.library("matmul4bit").tbnb_matmul4bit
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_LIB = {}
+
+
+def _launchers():
+    """(the 64 x 64-tile launch, the wgmma launch, the wgmma plan)."""
+    if not _LIB:
+        lib = _build.library("matmul4bit")
+        tile, wgmma, plan = (lib.tbnb_matmul4bit, lib.tbnb_matmul4bit_wgmma,
+                             lib.tbnb_matmul4bit_plan)
+        tile.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        tile.restype = ctypes.c_int
+        wgmma.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
+        wgmma.restype = ctypes.c_int
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        plan.restype = None
+        _LIB.update(tile=tile, wgmma=wgmma, plan=plan)
+    return _LIB["tile"], _LIB["wgmma"], _LIB["plan"]
 
 
 def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
@@ -72,8 +112,10 @@ def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
                   mode: str) -> torch.Tensor:
     """K5: x [M, K_pad] (bf16 in "bf16" mode, f32 in "f32" mode), packed
     uint8 [N, K_pad/2] (element 2j in the low nibble), absmax f32 [N, nb],
-    book f32 [16] -> f32 [M, N]. CUDA tensors launch the kernel (counted in
-    ``matmul4bit_mm.launches``); CPU tensors take :func:`matmul4bit_plain`."""
+    book f32 [16] -> f32 [M, N]. CUDA tensors launch the kernel
+    :func:`kernel_of` names (counted in ``matmul4bit_mm.launches``, the
+    wgmma kernel's also in ``matmul4bit_mm.wgmma_launches``); CPU tensors
+    take :func:`matmul4bit_plain`."""
     if mode not in MODES:
         raise ValueError(f"matmul4bit_mm: mode must be one of {MODES}")
     if not x.is_cuda:
@@ -95,17 +137,35 @@ def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
                for t in (x, packed, absmax, book)):
         raise ValueError("matmul4bit_mm: all operands must be contiguous "
                          "tensors on one CUDA device")
+    tile, wgmma, plan = _launchers()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = _launcher()(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
-                      book.data_ptr(), out.data_ptr(), m, n, kp, bs,
-                      1 if mode == "bf16" else 0,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+    # the wgmma kernel's own rule routes: its plan has no stages per split
+    # for a shape it does not take (takes_wgmma states the same rule)
+    on_wgmma = mode == "bf16" and _build.plan_of(plan, m, n, kp, bs,
+                                                 x.device)[0] > 0
+    if on_wgmma:
+        if x.data_ptr() % 16 or packed.data_ptr() % 16:
+            raise ValueError("matmul4bit_mm: x and the packed codes must "
+                             "start on a 16-byte boundary (the kernel reads "
+                             "them by TMA)")
+        cps, part, counts, stream = _build.split_plan(plan, m, n, kp, bs,
+                                                      x.device)
+        err = wgmma(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+                    book.data_ptr(), out.data_ptr(), part.data_ptr(),
+                    counts.data_ptr(), m, n, kp, bs, cps, stream)
+    else:
+        err = tile(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+                   book.data_ptr(), out.data_ptr(), m, n, kp, bs,
+                   1 if mode == "bf16" else 0,
+                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "matmul4bit")
     matmul4bit_mm.launches += 1
+    matmul4bit_mm.wgmma_launches += on_wgmma
     return out
 
 
 matmul4bit_mm.launches = 0
+matmul4bit_mm.wgmma_launches = 0
 
 
 def fused_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,
