@@ -18,7 +18,9 @@ Phases (any failure raises: traceback, nonzero exit):
      the card could take (bytes over HBM bandwidth, or operations over the
      peak for their type, whichever is larger). K4 is timed at decode M=8
      and at the 32/64 prefill buckets; K2 at the 7B step and at the 13B step
-     at phase 5's last positions (``ms_13b_step``).
+     at phase 5's last positions (``ms_13b_step``); K3 at the 13B path's
+     two prefills and at d = 256 (64-key tiles) at one Gemma-7B layer
+     (16 heads of 256, S = 2048), which no served path here runs.
   3. full width against the CPU: a Llama-2-7B-width model with the int4
      cache, and (3b) a Llama-2-13B-width model off its packed NF4 bytes,
      each cut to 2 layers and built once from a numpy seed, run prefill
@@ -29,13 +31,29 @@ Phases (any failure raises: traceback, nonzero exit):
   4. Llama-2-7B at its 32 layers, random NF4 weights from a seed, served by
      ``DecodeEngine.generate`` (int4 runtime cache, B=8, 32-step chunks)
      for 8 requests of 16-200 prompt tokens and 64 greedy new tokens each.
-     Counts kernel launches per decode step, and the kernels one
+  5. Llama-2-13B at its 40 layers, random NF4 weights from a seed, served
+     off the packed bytes (``runtime_cache=None``, B=8, ``max_seq`` 2048,
+     32-step chunks) for 8 prompts of 24-1800 tokens with 48 greedy new
+     tokens each: K4 for decode and the 32/64 buckets, K5 for 128/256, K3
+     and the plain GEMM for 1024/2048; each admission group's prefill timed.
+     Phases 4 and 5 serve each workload twice on an engine whose decode
+     chunks are CUDA graph replays (``cuda_graphs=True``, the default), and
+     twice on one that launches the same chunks from the host; the first
+     pass captures the graphs, the second is timed. Greedy tokens must be
+     identical between the two, request by request. Each mode then runs
+     one more 32-step chunk at the slots' final positions: host ms per
+     step, device busy ms per step (profiler kernel records, graph
+     replays included) and idle share, the device's span (CUDA events),
+     and launches per step, which must be 129 K1 + 32 K2 (7B) and 161 K4
+     + 40 K2 (13B) on both paths, by the counters (a graph's holder adds
+     its capture's counts at each replay) and, graphed, by the kernel
+     nodes of the chunk's graph alike; then one eager decode step there, counted alone,
+     whose wrapper-counted launches must be the same and whose logits
+     must be finite. The kernels line's launches are the eager pass's,
+     counted by the wrappers; the graphed pass's must equal them. Each
+     mode's line has graphs captured, capture seconds, the graph pool's
+     MiB and peak device memory. Phase 4 also counts the kernels one
      decode-shaped matmul launches besides K1 (the A8 quantization).
-  5. the slice: Llama-2-13B at its 40 layers, random NF4 weights from a
-     seed, served off the packed bytes (``runtime_cache=None``, B=8,
-     ``max_seq`` 2048, 32-step chunks) for 8 prompts of 24-1800 tokens with
-     48 greedy new tokens each: K4 for decode and the 32/64 buckets, K5 for
-     128/256, K3 and the plain GEMM for 1024/2048. Counts launches.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -43,8 +61,10 @@ Without a CUDA card it exits with code 2 and prints no result.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -95,16 +115,26 @@ def time_ms(calls, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+_CAPTURE_STREAM = []
+
+
 def time_graph_ms(calls, iters: int) -> float:
     """Device ms per call of ``iters`` calls cycling through ``calls``,
     captured in one CUDA graph after a warm-up call each and replayed: the
     host's launch cost (Python, ctypes) is not counted, so a kernel's time
-    stands against its bound."""
-    for c in calls:
-        c()
+    stands against its bound. The warm-up runs on the capture stream (one
+    for every timing graph), so the split-K scratch it needs exists before
+    the capture."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    stream = _CAPTURE_STREAM[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for c in calls:
+            c()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             calls[i % len(calls)]()
     graph.replay()
@@ -117,6 +147,11 @@ def time_graph_ms(calls, iters: int) -> float:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / iters
     del graph
+    # the scratch kept for this stream's earlier graphs, all deleted (a
+    # tree from before release_held needs none released)
+    from tpu_bitsandbytes_torch.ops import _build
+    if hasattr(_build, "release_held"):
+        _build.release_held(stream)
     return ms
 
 
@@ -578,6 +613,11 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
         (2, 1100, 16, 4, 64, 1000, {}),
         (1, 2048, 32, 8, 128, 2048, {"window": 300}),
         (1, 1024, 16, 16, 128, 1024, {"softcap": 50.0}),
+        # d = 256 (64-key tiles) over the lengths JAX's kernel takes there
+        (1, 2048, 16, 16, 256, 2048, {}),
+        (2, 1024, 16, 4, 256, 1000, {"window": 300, "softcap": 50.0}),
+        (1, 512, 8, 8, 256, 512, {}),
+        (1, 5632, 8, 2, 256, 5632, {}),
     ]
 
     def qkv(b, s, h, h_kv, d):
@@ -592,7 +632,7 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
         got = K3.flash_prefill_attention(q, k, v, s_real=s_real, scale=scale,
                                          **opts)
         ref = K3.flash_prefill_plain(q, k, v, s_real=s_real, scale=scale,
-                                     block_k=K3.BLOCK, **opts)
+                                     block_k=K3.KEY_TILE[d], **opts)
         torch.cuda.synchronize()
         a, r = err(got[:, :s_real], ref[:, :s_real])
         rr = row_err(got[:, :s_real], ref[:, :s_real])
@@ -601,28 +641,38 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
                                  f"s_real={s_real} {opts}: rel err {rr} of "
                                  "a query row's max")
         worst = [max(worst[0], a), max(worst[1], r), max(worst[2], rr)]
-    rows = []
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for b, s in ((1, 1024), (4, 2048)):   # the served path's two buckets
-        q, k, v = qkv(b, s, 40, 40, 128)
-        scale = 1.0 / 128 ** 0.5
+    def timed_row(b, s, h, d):
+        q, k, v = qkv(b, s, h, h, d)
+        scale = 1.0 / d ** 0.5
         kern = time_graph_ms([lambda: K3.flash_prefill_attention(
             q, k, v, s_real=s, scale=scale)], iters=10)
         plain = time_ms([lambda: K3.flash_prefill_plain(
-            q, k, v, s_real=s, scale=scale, block_k=K3.BLOCK)], iters=2)
+            q, k, v, s_real=s, scale=scale, block_k=K3.KEY_TILE[d])],
+            iters=2)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = time_graph_ms(
             [lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True)], iters=10)
-        bound, by = k3_bound(b, s, 40, 40, 128, s, None, bw, bf16_peak, K3)
-        rows.append({"shape": f"B={b} S={s} H=40 D=128", "kernel_ms": kern,
-                     "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                     "bound_by": by, "per_prefill": 40,
-                     "tflops": 4 * b * 40 * 128 * K3.kept_pairs(s, s) / kern
-                     / 1e9})
-        for key, val in (("ms", kern), ("plain_ms", plain),
-                         ("library_ms", lib), ("bound_ms", bound)):
+        bound, by = k3_bound(b, s, h, h, d, s, None, bw, bf16_peak, K3)
+        return {"shape": f"B={b} S={s} H={h} D={d}", "kernel_ms": kern,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                "bound_by": by, "key_tile": K3.KEY_TILE[d],
+                "tflops": 4 * b * h * d * K3.kept_pairs(s, s) / kern / 1e9}
+
+    rows = []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for b, s in ((1, 1024), (4, 2048)):   # the served path's two buckets
+        row = timed_row(b, s, 40, 128)
+        rows.append(dict(row, per_prefill=40))
+        for key, val in (("ms", row["kernel_ms"]),
+                         ("plain_ms", row["plain_ms"]),
+                         ("library_ms", row["library_ms"]),
+                         ("bound_ms", row["bound_ms"])):
             total[key] += 40 * val
+    # d = 256: one layer of Gemma-7B (google/gemma-7b: 16 heads of 256,
+    # MHA) at S = 2048, B = 1; no served path of this script runs it
+    d256 = timed_row(1, 2048, 16, 256)
+    rows.append(d256)
     emit({"phase": "kernels", "kernel": "K3_flash_prefill", "shapes": rows})
     return {
         "name": "K3_flash_prefill", "route": "cuda",
@@ -634,7 +684,10 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
         "max_row_rel_err": worst[2],
         "ms": total["ms"], "kernel_ms": total["ms"],
         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-        "bound_by": "operations", "library_ms": total["library_ms"]}
+        "bound_by": "operations", "library_ms": total["library_ms"],
+        "d256_gemma7b_layer": {k: d256[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops")}}
 
 
 # ---------------------------------------------------------------------------
@@ -950,7 +1003,7 @@ def phase_full_width_packed(dev, counters):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the slice
+# phases 4-5: the served paths, eager and graphed
 # ---------------------------------------------------------------------------
 
 def scratch_mib():
@@ -971,27 +1024,66 @@ def reset(counters, plains):
         f.cuda_calls = 0
 
 
-def step_breakdown(run_chunk, chunk, what):
-    """Host clock around an unprofiled chunk of ``chunk`` decode steps,
-    then the device's kernel time in a profiled one."""
-    run_chunk()
+def counts(counters):
+    return {k: f.launches for k, f in counters.items()}
+
+
+# each counter's kernels, by their demangled names (a graph's kernel nodes
+# and the profiler's records name them alike)
+KERNEL_RE = {"K1_int4_matmul": r"tc_kernel<[^,]*\bInt4,",
+             "K2_flash_decode": r"flash_decode_kernel<",
+             "K3_flash_prefill": r"flash_prefill_kernel",
+             "K4_w4a8_matmul": r"tc_kernel<[^,]*\bNf4,|w4a8_dp4a_kernel",
+             "K5_matmul4bit": r"mm4_(bf16|f32|wgmma)_kernel"}
+
+
+def step_breakdown(restore, run_chunk, steps, counters):
+    """Per decode step of one chunk of ``steps``, each chunk run from the
+    state ``restore()`` sets (after a warm-up chunk, which captures the
+    chunk's graph on the graphed path): the host clock around a chunk
+    that ends in a synchronization (``host_ms``); the device's kernel time
+    in a profiled chunk (``device_busy_ms``, the profiler's kernel records,
+    which cover the kernels of a graph replay too) and ``idle_share``, 1 -
+    busy / host; CUDA events around a chunk (``device_span_ms``, the
+    stream's time from the chunk's first operation to its last); and the
+    launches of a chunk by the kernels' counters."""
+    def chunk():
+        restore()
+        torch.cuda.synchronize()
+        run_chunk()
+
+    chunk()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_chunk()
+    chunk()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run_chunk()
+        chunk()
+        torch.cuda.synchronize()
     ops = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
                  reverse=True)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    emit({"phase": "step_breakdown", "model": what, "steps": chunk,
-          "host_ms_per_step": wall_ms / chunk,
-          "device_busy_ms_per_step": busy_ms / chunk,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "top_device_ops": [
-              {"op": e.key[:60], "ms_per_step":
-               e.self_device_time_total / 1e3 / chunk,
-               "calls_per_step": e.count / chunk} for e in ops[:10]]})
+    restore()
+    before = counts(counters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run_chunk()
+    end.record()
+    torch.cuda.synchronize()
+    return {"steps": steps, "host_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_span_ms_per_step": start.elapsed_time(end) / steps,
+            "launches_per_step": {k: (n - before[k]) / steps
+                                  for k, n in counts(counters).items()},
+            "top_device_ops": [
+                {"op": e.key[:60], "ms_per_step":
+                 e.self_device_time_total / 1e3 / steps,
+                 "calls_per_step": e.count / steps} for e in ops[:10]]}
 
 
 def kernel_launches(fn):
@@ -1007,148 +1099,266 @@ def kernel_launches(fn):
             if e.self_device_time_total > 0}
 
 
-def phase_serve(dev, counters, plains):
+MODES = ("eager", "graphed")
+
+
+def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
+               plains, want_per_step, pass_ctx=contextlib.nullcontext):
+    """Serve ``prompts`` twice on one engine built for ``mode`` (graphed:
+    each decode chunk a CUDA graph replay; eager: the same chunk launched
+    from the host), the first pass capturing the graphs (as the JAX engine
+    compiles at first use), the second timed; then the step breakdown of
+    one more chunk of the served length at the slots' final positions,
+    whose launches per step, by the counters and (graphed) by the kernel
+    nodes of its graph, must equal ``want_per_step``; then one eager decode step from there,
+    counted alone, whose launches must equal it too and whose logits must
+    be finite. Each pass runs inside ``pass_ctx()``. Returns (the result,
+    the engine)."""
     from tpu_bitsandbytes_torch.engine import engine as E
-    from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
-                                                       SamplingParams)
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = scratch_mib()
+    t0 = time.perf_counter()
+    engine = E.DecodeEngine(params, cfg, device=dev,
+                            cuda_graphs=mode == "graphed", **engine_kw)
+    torch.cuda.synchronize()
+    res = {"mode": mode, "build_s": time.perf_counter() - t0, "passes": []}
+    for _ in range(2):
+        engine.metrics = MetricsLogger()
+        reset(counters, plains)
+        with pass_ctx() as extra:
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts, sp)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        hist = engine.metrics.history
+        steps = len(hist) * engine.steps_per_sync
+        res["passes"].append({
+            "outs": outs, "generate_s": gen_s, "launches": counts(counters),
+            "wgmma_launches": counters["K5_matmul4bit"].wgmma_launches,
+            "plain_calls_on_cuda": sum(f.cuda_calls for f in plains),
+            "decode_steps": steps,
+            "decode_step_ms": sum(m.wall_s for m in hist) / steps * 1e3,
+            "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
+            "extra": extra})
+    last = res["passes"][-1]
+    if last["plain_calls_on_cuda"]:
+        raise AssertionError(f"{mode}: {last['plain_calls_on_cuda']} plain-"
+                             "version calls on CUDA tensors in the path")
+    if not all(len(o) == sp.max_new_tokens
+               and all(0 <= t < cfg.vocab_size for t in o) for o in outs):
+        raise AssertionError(f"{mode}: wrong token counts or ids")
+    # one more chunk of the served length from the slots' final positions
+    lengths = engine.cache.lengths.clone()
+    n = engine.steps_per_sync
+    toks = np.array([o[-1] for o in outs], np.int32)
+    active = np.ones((engine.max_batch,), bool)
+    span = E._span_bucket(int(lengths.max()) + n, engine.max_seq)
+    bd = step_breakdown(
+        lambda: engine.cache.lengths.copy_(lengths),
+        lambda: engine.run_chunk(toks, active, all_greedy=True,
+                                 attn_span=span), n, counters)
+    if mode == "graphed":
+        names = engine.graph_kernel_names(span)
+        bd["graph_launches_per_step"] = {
+            k: sum(c for nm, c in names.items() if re.search(rx, nm)) / n
+            for k, rx in KERNEL_RE.items()}
+    got = {src: bd[src] for src in ("launches_per_step",
+                                    "graph_launches_per_step") if src in bd}
+    if any(c != want_per_step for c in got.values()):
+        raise AssertionError(f"{mode}: launches per decode step {got}, "
+                             f"expected {want_per_step}")
+    # one decode step at full depth from the same positions, launched from
+    # the host: each wrapper counts its own launches, and the logits of
+    # every layer's output must stay finite
+    engine.cache.lengths.copy_(lengths)
+    reset(counters, plains)
+    logits, _ = E.decode_step(engine.params, engine.cache,
+                              torch.from_numpy(toks).to(dev),
+                              torch.from_numpy(active).to(dev), cfg,
+                              attn_span=span)
+    torch.cuda.synchronize()
+    step_launches = counts(counters)
+    if (step_launches != want_per_step
+            or sum(f.cuda_calls for f in plains)):
+        raise AssertionError(f"{mode}: an eager decode step launched "
+                             f"{step_launches}, expected {want_per_step}, "
+                             "with no plain-version calls on CUDA tensors")
+    if not (logits.shape == (engine.max_batch, cfg.vocab_size)
+            and torch.isfinite(logits).all()):
+        raise AssertionError(f"{mode}: decode-step logits not finite")
+    res.update(step_breakdown=bd, lengths=lengths,
+               graphs=engine.graph_stats(),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               max_memory_reserved_gib=torch.cuda.max_memory_reserved()
+               / 2 ** 30,
+               split_scratch_mib={"at_peak_reset": held,
+                                  "at_end": scratch_mib()})
+    return res, engine
+
+
+def serve_lines(model, results, common):
+    """Emit each mode's ``serve`` line and the modes' comparison; the
+    greedy tokens of the two modes must be identical, request by
+    request, in both passes."""
+    for mode in MODES:
+        r = results[mode]
+        p1, p2 = r["passes"]
+        graphs = r["graphs"]
+        emit({"phase": "serve", "model": model, "mode": mode, **common,
+              "build_s": r["build_s"], "generate_s": p2["generate_s"],
+              "first_pass_generate_s": p1["generate_s"],
+              "decode_steps": p2["decode_steps"],
+              "decode_step_ms": p2["decode_step_ms"],
+              "decode_tokens_per_s": p2["decode_tokens_per_s"],
+              "first_pass_decode_step_ms": p1["decode_step_ms"],
+              **{k: v for k, v in r["step_breakdown"].items()
+                 if k != "top_device_ops"},
+              "graphs_captured": graphs["graphs"],
+              "capture_s": graphs["capture_s"],
+              "graph_pool_mib": graphs["pool_bytes"] / 2 ** 20,
+              "max_memory_allocated_gib": r["max_memory_allocated_gib"],
+              "max_memory_reserved_gib": r["max_memory_reserved_gib"],
+              "split_scratch_mib": r["split_scratch_mib"],
+              "launches": p2["launches"],
+              "plain_calls_on_cuda": p2["plain_calls_on_cuda"],
+              **({"prefill_groups": p2["extra"]} if p2["extra"] else {})})
+        emit({"phase": "step_breakdown", "model": model, "mode": mode,
+              "top_device_ops": r["step_breakdown"]["top_device_ops"]})
+    e, g = results["eager"], results["graphed"]
+    # the eager pass's launches, counted by the wrappers, and the graphed
+    # pass's, counted at capture and added per replay
+    if e["passes"][1]["launches"] != g["passes"][1]["launches"]:
+        raise AssertionError(f"{model}: the graphed pass counted "
+                             f"{g['passes'][1]['launches']} launches, the "
+                             f"eager pass {e['passes'][1]['launches']}")
+    for i in range(2):
+        eo, go = e["passes"][i]["outs"], g["passes"][i]["outs"]
+        differ = [j for j, (a, b) in enumerate(zip(eo, go)) if a != b]
+        if differ or len(eo) != len(go):
+            raise AssertionError(f"{model}: pass {i + 1}: greedy tokens of "
+                                 f"requests {differ} differ between the "
+                                 "eager and the graphed chunks")
+    emit({"phase": "serve_compare", "model": model,
+          "greedy_tokens_identical": True,
+          "decode_step_ms": {m: results[m]["passes"][1]["decode_step_ms"]
+                             for m in MODES},
+          "speedup": e["passes"][1]["decode_step_ms"]
+          / g["passes"][1]["decode_step_ms"],
+          "peak_allocated_gib_delta": g["max_memory_allocated_gib"]
+          - e["max_memory_allocated_gib"],
+          "peak_reserved_gib_delta": g["max_memory_reserved_gib"]
+          - e["max_memory_reserved_gib"]})
+
+
+def free_memory():
+    """Return what the dropped engine held (its KV cache, graphs and their
+    pool) to the device before the next engine is built."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(dev, counters, plains):
+    """4: Llama-2-7B, 32 layers, int4 runtime cache, eager and graphed.
+    Returns the eager pass's launches (equal to the graphed pass's)."""
+    from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig
     cfg = LlamaConfig.llama2_7b()
     gen = torch.Generator(device=dev).manual_seed(7)
-    t0 = time.perf_counter()
     params = random_params(
         cfg,
         lambda s: torch.randint(0, 256, s, generator=gen, device=dev,
                                 dtype=torch.uint8),
         lambda s: torch.rand(s, generator=gen, device=dev),
         lambda s: torch.randn(s, generator=gen, device=dev), dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = scratch_mib()
-    engine = E.DecodeEngine(params, cfg, max_batch=8, max_seq=512,
-                            steps_per_sync=32, runtime_cache="int4",
-                            device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in rng.integers(16, 201, 8)]
-
-    reset(counters, plains)
-    t0 = time.perf_counter()
-    outs = engine.generate(prompts, SamplingParams(max_new_tokens=64))
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in counters.items()}
-    plain_cuda = sum(f.cuda_calls for f in plains)
-    hist = engine.metrics.history
-    decode_steps = len(hist) * engine.steps_per_sync
-    chunk_s = sum(m.wall_s for m in hist)
-    if plain_cuda:
-        raise AssertionError(f"{plain_cuda} plain-version calls on CUDA "
-                             "tensors in the main path")
-    if not all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o)
-               for o in outs):
-        raise AssertionError("generate: wrong token counts or ids")
-    if launches["K2_flash_decode"] != 32 * decode_steps:
-        raise AssertionError(f"K2 launches {launches} for {decode_steps} "
-                             "decode steps")
-    if launches["K1_int4_matmul"] < 129 * decode_steps:
-        raise AssertionError(f"K1 launches {launches} for {decode_steps} "
-                             "decode steps")
-
-    # one more decode step, counted alone: the per-step launch budget
-    reset(counters, ())
-    toks = torch.tensor([o[-1] for o in outs], dtype=torch.int32, device=dev)
-    active = torch.ones((8,), dtype=torch.bool, device=dev)
-    logits, _ = E.decode_step(engine.params, engine.cache, toks, active, cfg,
-                              attn_span=384)
-    torch.cuda.synchronize()
-    per_step = {k: f.launches for k, f in counters.items()}
-    if (per_step["K1_int4_matmul"], per_step["K2_flash_decode"]) != (129, 32):
-        raise AssertionError(f"launches per decode step {per_step}, "
-                             "expected K1 129 and K2 32")
-    if not (logits.shape == (8, cfg.vocab_size)
-            and torch.isfinite(logits).all()):
-        raise AssertionError("decode-step logits not finite")
-    samp = SamplingArrays.build({}, 8, device=dev)
-    chunk = 8
-
-    def run_chunk():
-        E.decode_chunk(engine.params, engine.cache, toks, active, gen, samp,
-                       cfg, n_steps=chunk, all_greedy=True, attn_span=384)
-        torch.cuda.synchronize()
-
-    step_breakdown(run_chunk, chunk, "llama2_7b")
-    # what one decode-shaped matmul launches besides K1: the A8 activation
-    # quantization, padding and casts (QLinear4 -> int4_matmul), and the
-    # packed path's quantize_a8 alone
-    from tpu_bitsandbytes_torch.ops import int4cache, w4a8
-    lin = engine.params["layers"][0]["o_proj"]
-    x = torch.randn((8, cfg.hidden_size), generator=gen, device=dev).to(
-        cfg.dtype)
-    per_matmul = {
-        "qlinear4_int4_cache": kernel_launches(lambda: lin(x)),
-        "int4_matmul": kernel_launches(lambda: int4cache.int4_matmul(
-            x, lin.w_cache, lin.cache_scale)),
-        "quantize_a8": kernel_launches(
-            lambda: w4a8.quantize_a8(x, cfg.hidden_size))}
-    emit({"phase": "a8_launches", "model": "llama2_7b", "m": 8,
-          "k": cfg.hidden_size, "kernels_per_call": per_matmul,
-          "launches_per_call": {k: sum(v.values())
-                                for k, v in per_matmul.items()}})
-    emit({"phase": "serve", "model": "llama2_7b", "layers": cfg.num_layers,
-          "batch": 8, "steps_per_sync": 32,
-          "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
-          "build_s": build_s, "generate_s": gen_s,
-          "decode_steps": decode_steps,
-          "decode_step_ms": chunk_s / decode_steps * 1e3,
-          "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
-          "max_memory_allocated_gib":
-              torch.cuda.max_memory_allocated() / 2 ** 30,
-          "split_scratch_mib": {"at_peak_reset": held,
-                                "at_end": scratch_mib()},
-          "launches": launches, "launches_per_decode_step": per_step,
-          "plain_calls_on_cuda": plain_cuda})
-    return launches
+    sp = SamplingParams(max_new_tokens=64)
+    kw = dict(max_batch=8, max_seq=512, steps_per_sync=32,
+              runtime_cache="int4")
+    want = {"K1_int4_matmul": 129, "K2_flash_decode": 32,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    results = {}
+    for mode in MODES:
+        res, engine = serve_mode(dev, params, cfg, kw, mode, prompts, sp,
+                                 counters, plains, want)
+        launches = res["passes"][-1]["launches"]
+        steps = res["passes"][-1]["decode_steps"]
+        if launches["K2_flash_decode"] != 32 * steps:
+            raise AssertionError(f"{mode}: K2 launches {launches} for "
+                                 f"{steps} decode steps")
+        if launches["K1_int4_matmul"] < 129 * steps:
+            raise AssertionError(f"{mode}: K1 launches {launches} for "
+                                 f"{steps} decode steps")
+        if mode == "eager":
+            # what one decode-shaped matmul launches besides K1: the A8
+            # activation quantization, padding and casts (QLinear4 ->
+            # int4_matmul), and the packed path's quantize_a8 alone
+            from tpu_bitsandbytes_torch.ops import int4cache, w4a8
+            lin = engine.params["layers"][0]["o_proj"]
+            x = torch.randn((8, cfg.hidden_size), generator=gen,
+                            device=dev).to(cfg.dtype)
+            per_matmul = {
+                "qlinear4_int4_cache": kernel_launches(lambda: lin(x)),
+                "int4_matmul": kernel_launches(lambda: int4cache.int4_matmul(
+                    x, lin.w_cache, lin.cache_scale)),
+                "quantize_a8": kernel_launches(
+                    lambda: w4a8.quantize_a8(x, cfg.hidden_size))}
+            emit({"phase": "a8_launches", "model": "llama2_7b", "m": 8,
+                  "k": cfg.hidden_size, "kernels_per_call": per_matmul,
+                  "launches_per_call": {k: sum(v.values())
+                                        for k, v in per_matmul.items()}})
+        results[mode] = res
+        del engine
+        free_memory()
+    serve_lines("llama2_7b", results, {
+        "layers": cfg.num_layers, "batch": 8, "steps_per_sync": 32,
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": 64})
+    return results["eager"]["passes"][-1]["launches"]
 
 
 PACKED_PROMPTS = [24, 60, 100, 200, 700, 1100, 1500, 1800]
 
 
-def phase_serve_packed(dev, counters, plains, bw, int8_peak):
-    """5: Llama-2-13B, 40 layers, off the packed NF4 bytes. Returns the
-    launches and K2's bound for the step counted alone (ms, 40 layers)."""
-    from tpu_bitsandbytes_torch.engine import engine as E
-    from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
-                                                       SamplingParams)
+def packed_workload(dev):
+    """Phase 5's model and requests: (cfg, params, prompts, sampling,
+    engine keywords) for Llama-2-13B at its 40 layers, random NF4 weights
+    from a seed, served off the packed bytes."""
+    from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig
     cfg = LlamaConfig.llama2_13b()
     gen = torch.Generator(device=dev).manual_seed(13)
-    t0 = time.perf_counter()
     params = random_params(
         cfg,
         lambda s: torch.randint(0, 256, s, generator=gen, device=dev,
                                 dtype=torch.uint8),
         lambda s: torch.rand(s, generator=gen, device=dev),
         lambda s: torch.randn(s, generator=gen, device=dev), dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = scratch_mib()
-    engine = E.DecodeEngine(params, cfg, max_batch=8, max_seq=2048,
-                            steps_per_sync=32, runtime_cache=None, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     rng = np.random.default_rng(17)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in PACKED_PROMPTS]
+    kw = dict(max_batch=8, max_seq=2048, steps_per_sync=32,
+              runtime_cache=None)
+    return cfg, params, prompts, SamplingParams(max_new_tokens=48), kw
 
-    # each admission group's prefill, timed between synchronizations
+
+@contextlib.contextmanager
+def timed_prefills(counters):
+    """Each admission group's prefill, timed between synchronizations,
+    with its launches by ``counters``: yields the list of groups."""
+    from tpu_bitsandbytes_torch.engine import engine as E
     groups = []
-    orig = {"prefill_step": E.prefill_step, "prefill_batch": E.prefill_batch}
+    orig = {"prefill_step": E.prefill_step,
+            "prefill_batch": E.prefill_batch}
 
     def timed(fn):
         def run(params, cache, tokens, *args):
-            before = {k: f.launches for k, f in counters.items()}
+            before = counts(counters)
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(params, cache, tokens, *args)
@@ -1156,96 +1366,70 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak):
             groups.append({
                 "rows": tokens.shape[0], "bucket": tokens.shape[1],
                 "ms": (time.perf_counter() - t) * 1e3,
-                "launches": {k: f.launches - before[k]
-                             for k, f in counters.items()
-                             if f.launches - before[k]}})
+                "launches": {k: n - before[k]
+                             for k, n in counts(counters).items()
+                             if n - before[k]}})
             return out
         return run
 
-    reset(counters, plains)
     for name, fn in orig.items():
         setattr(E, name, timed(fn))
     try:
-        t0 = time.perf_counter()
-        outs = engine.generate(prompts, SamplingParams(max_new_tokens=48))
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
+        yield groups
     finally:
         for name, fn in orig.items():
             setattr(E, name, fn)
-    launches = {k: f.launches for k, f in counters.items()}
-    plain_cuda = sum(f.cuda_calls for f in plains)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    hist = engine.metrics.history
-    decode_steps = len(hist) * engine.steps_per_sync
-    chunk_s = sum(m.wall_s for m in hist)
-    if plain_cuda:
-        raise AssertionError(f"{plain_cuda} plain-version calls on CUDA "
-                             "tensors in the packed path")
-    if not all(len(o) == 48 and all(0 <= t < cfg.vocab_size for t in o)
-               for o in outs):
-        raise AssertionError("generate: wrong token counts or ids")
-    if not (launches["K3_flash_prefill"] and launches["K5_matmul4bit"]
-            and launches["K4_w4a8_matmul"]) or launches["K1_int4_matmul"]:
-        raise AssertionError(f"packed path launches {launches}")
-    if sorted(g["bucket"] for g in groups) != [32, 64, 128, 256, 1024, 2048]:
-        raise AssertionError(f"admission groups {groups}")
-    # the 128 and 256 buckets: 4 matmuls a layer and the head, each on K5's
-    # wgmma kernel
-    k5 = counters["K5_matmul4bit"]
-    want_k5 = 2 * (4 * cfg.num_layers + 1)
-    if not launches["K5_matmul4bit"] == k5.wgmma_launches == want_k5:
-        raise AssertionError(f"K5 launches {launches['K5_matmul4bit']} "
-                             f"({k5.wgmma_launches} wgmma), expected "
-                             f"{want_k5} on the wgmma kernel")
-    k5_wgmma = k5.wgmma_launches
 
-    # one more decode step, counted alone: the per-step launch budget
-    reset(counters, ())
-    toks = torch.tensor([o[-1] for o in outs], dtype=torch.int32, device=dev)
-    active = torch.ones((8,), dtype=torch.bool, device=dev)
-    span = E._span_bucket(int(engine.cache.lengths.max()) + 32, 2048)
-    # K2 keeps keys 0..position of each slot: the bound at these lengths
-    kept_keys = int(engine.cache.lengths.sum()) + 8
+
+def phase_serve_packed(dev, counters, plains, bw, int8_peak):
+    """5: Llama-2-13B, 40 layers, off the packed NF4 bytes, eager and
+    graphed. Returns the eager pass's launches (equal to the graphed
+    pass's) and K2's bound for one decode step at the slots' final
+    positions (ms, 40 layers)."""
+    cfg, params, prompts, sp, kw = packed_workload(dev)
+    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": 4 * cfg.num_layers + 1,
+            "K5_matmul4bit": 0}
+    results = {}
+    want_k5 = 2 * (4 * cfg.num_layers + 1)
+    for mode in MODES:
+        res, engine = serve_mode(dev, params, cfg, kw, mode, prompts, sp,
+                                 counters, plains, want,
+                                 lambda: timed_prefills(counters))
+        last = res["passes"][-1]
+        launches = last["launches"]
+        if not (launches["K3_flash_prefill"] and launches["K5_matmul4bit"]
+                and launches["K4_w4a8_matmul"]) or launches["K1_int4_matmul"]:
+            raise AssertionError(f"{mode}: packed path launches {launches}")
+        groups = sorted(last["extra"], key=lambda g: g["bucket"])
+        if [g["bucket"] for g in groups] != [32, 64, 128, 256, 1024, 2048]:
+            raise AssertionError(f"{mode}: admission groups {groups}")
+        last["extra"] = groups
+        # the 128 and 256 buckets: 4 matmuls a layer and the head, each on
+        # K5's wgmma kernel
+        if not launches["K5_matmul4bit"] == last["wgmma_launches"] == want_k5:
+            raise AssertionError(f"{mode}: K5 launches "
+                                 f"{launches['K5_matmul4bit']} "
+                                 f"({last['wgmma_launches']} wgmma), "
+                                 f"expected {want_k5} on the wgmma kernel")
+        if (launches["K2_flash_decode"]
+                != cfg.num_layers * last["decode_steps"]):
+            raise AssertionError(f"{mode}: K2 launches {launches} for "
+                                 f"{last['decode_steps']} decode steps")
+        results[mode] = res
+        del engine
+        free_memory()
+    # K2 keeps keys 0..position of each slot: the bound of one step at the
+    # slots' final lengths
+    kept_keys = int(results["graphed"]["lengths"].sum()) + 8
     k2_bound = cfg.num_layers * k2_bound_ms(
         kept_keys, 8, cfg.num_heads, cfg.num_kv_heads, cfg.hd, bw, int8_peak)
-    logits, _ = E.decode_step(engine.params, engine.cache, toks, active, cfg,
-                              attn_span=span)
-    torch.cuda.synchronize()
-    per_step = {k: f.launches for k, f in counters.items()}
-    want = {"K1_int4_matmul": 0, "K2_flash_decode": 40,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": 4 * 40 + 1,
-            "K5_matmul4bit": 0}
-    if per_step != want:
-        raise AssertionError(f"launches per decode step {per_step}, "
-                             f"expected {want}")
-    if not (logits.shape == (8, cfg.vocab_size)
-            and torch.isfinite(logits).all()):
-        raise AssertionError("decode-step logits not finite")
-    samp = SamplingArrays.build({}, 8, device=dev)
-    chunk = 8
-
-    def run_chunk():
-        E.decode_chunk(engine.params, engine.cache, toks, active, gen, samp,
-                       cfg, n_steps=chunk, all_greedy=True, attn_span=span)
-        torch.cuda.synchronize()
-
-    step_breakdown(run_chunk, chunk, "llama2_13b_packed")
-    emit({"phase": "serve", "model": "llama2_13b", "runtime_cache": None,
-          "layers": cfg.num_layers, "batch": 8, "max_seq": 2048,
-          "steps_per_sync": 32, "prompt_lens": PACKED_PROMPTS,
-          "new_tokens": 48, "build_s": build_s, "generate_s": gen_s,
-          "prefill_groups": sorted(groups, key=lambda g: g["bucket"]),
-          "decode_steps": decode_steps,
-          "decode_step_ms": chunk_s / decode_steps * 1e3,
-          "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
-          "max_memory_allocated_gib": peak_gib,
-          "split_scratch_mib": {"at_peak_reset": held,
-                                "at_end": scratch_mib()},
-          "launches": launches, "launches_per_decode_step": per_step,
-          "plain_calls_on_cuda": plain_cuda, "k5_wgmma_launches": k5_wgmma,
-          "k2_kept_keys": kept_keys, "k2_bound_ms_per_step": k2_bound})
-    return launches, k2_bound
+    serve_lines("llama2_13b", results, {
+        "runtime_cache": None, "layers": cfg.num_layers, "batch": 8,
+        "max_seq": 2048, "steps_per_sync": 32, "prompt_lens": PACKED_PROMPTS,
+        "new_tokens": 48, "k5_wgmma_launches": want_k5,
+        "k2_kept_keys": kept_keys, "k2_bound_ms_per_step": k2_bound})
+    return results["eager"]["passes"][-1]["launches"], k2_bound
 
 
 def main() -> int:

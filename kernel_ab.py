@@ -2,11 +2,14 @@
 
     git archive <commit> tpu_bitsandbytes_torch | tar -x -C build/ab_base
     python3 kernel_ab.py --base build/ab_base [--out build/ab.jsonl]
+    python3 kernel_ab.py --base build/ab_base --prefill
 
 Runs one worker process per tree in the order base, this tree, this tree,
 base. Each worker imports ``tpu_bitsandbytes_torch`` from its tree, builds
 that tree's kernels, and times K3, K4 and K5 at ``chip_smoke.py`` phase
-2's timed shapes (K3 at B=1 S=1024 and B=4 S=2048, H=40, D=128, bf16; K4 at
+2's timed shapes (K3 at B=1 S=1024 and B=4 S=2048, H=40, D=128, bf16, and
+at one Gemma-7B layer, B=1 S=2048 H=16 D=256, null in a tree whose K3
+does not take d = 256; K4 at
 the five Llama-2-13B shapes, blocksize 64, M = 8, 32, 64; K5 at the same
 shapes, bf16, M = 128 and 256, the two prefills' 322 launches; K1 at the five
 Llama-2-7B shapes, M = 8; K2 at the 7B step, span 384, and at the 13B
@@ -14,12 +17,23 @@ step, span 1920, at phase 5's last positions and with every slot long or
 short), each two ways: replayed from a CUDA graph (device time, as phase
 2 reports it) and launched from the host (as phase 2 reported it before
 the graph). The inputs come from
-the same seed in every worker. Prints one JSON line per worker, then one
-summary line: per row, each tree's mean over its two workers. Without a
-CUDA card it exits with code 2 and prints no result.
+the same seed in every worker.
+
+With ``--prefill`` each worker serves ``chip_smoke.py`` phase 5's
+workload (Llama-2-13B at its 40 layers off the packed bytes, the same
+seeded weights and 8 prompts of 24-1800 tokens, 48 greedy new tokens)
+twice on its tree's engine, and reports each admission group's prefill
+ms (timed between synchronizations) and the decode step ms of the second
+pass: for the engine's defaults and, in a tree whose engine takes
+``cuda_graphs``, for ``cuda_graphs=False`` too.
+
+Prints one JSON line per worker, then one summary line: per row, each
+tree's mean over its two workers (null where a tree has no such row).
+Without a CUDA card it exits with code 2 and prints no result.
 """
 
 import argparse
+import inspect
 import json
 import math
 import subprocess
@@ -38,9 +52,48 @@ def timed(calls, iters):
             "host_ms": C.time_ms(calls, iters)}
 
 
-def worker(root: Path) -> dict:
+def import_tree(root: Path) -> None:
+    """Import ``tpu_bitsandbytes_torch`` from the tree at ``root``."""
     sys.path.insert(0, str(root))
     import tpu_bitsandbytes_torch
+    pkg = Path(tpu_bitsandbytes_torch.__file__).resolve()
+    if root.resolve() not in pkg.parents:
+        raise RuntimeError(f"imported {pkg}, not the tree at {root}")
+
+
+def prefill_worker(root: Path) -> dict:
+    import_tree(root)
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.ops import _build
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    _build.load_all()
+    dev = torch.device("cuda", 0)
+    cfg, params, prompts, sp, kw = C.packed_workload(dev)
+    modes = {"default": {}}
+    if "cuda_graphs" in inspect.signature(E.DecodeEngine).parameters:
+        modes["cuda_graphs=False"] = {"cuda_graphs": False}
+    rows = {}
+    for mode, extra in modes.items():
+        engine = E.DecodeEngine(params, cfg, device=dev, **kw, **extra)
+        for _ in range(2):
+            engine.metrics = MetricsLogger()
+            with C.timed_prefills({}) as groups:
+                engine.generate(prompts, sp)
+                torch.cuda.synchronize()
+        for g in sorted(groups, key=lambda g: g["bucket"]):
+            rows[f"{mode}: prefill, bucket {g['bucket']}, {g['rows']} "
+                 "rows"] = {"ms": g["ms"]}
+        hist = engine.metrics.history
+        rows[f"{mode}: decode step"] = {
+            "ms": sum(m.wall_s for m in hist) * 1e3
+            / (len(hist) * engine.steps_per_sync)}
+        del engine
+        C.free_memory()
+    return {"tree": str(root), "rows": rows}
+
+
+def worker(root: Path) -> dict:
+    import_tree(root)
     from tpu_bitsandbytes_torch.ops import _build
     from tpu_bitsandbytes_torch.ops import flash_decode as K2
     from tpu_bitsandbytes_torch.ops import flash_prefill as K3
@@ -48,9 +101,6 @@ def worker(root: Path) -> dict:
     from tpu_bitsandbytes_torch.ops import int4cache as K1
     from tpu_bitsandbytes_torch.ops import matmul4bit as K5
     from tpu_bitsandbytes_torch.ops import w4a8 as K4
-    pkg = Path(tpu_bitsandbytes_torch.__file__).resolve()
-    if root.resolve() not in pkg.parents:
-        raise RuntimeError(f"imported {pkg}, not the tree at {root}")
     _build.load_all()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -63,6 +113,15 @@ def worker(root: Path) -> dict:
             [lambda: K3.flash_prefill_attention(q, k, v, s_real=s,
                                                 scale=128 ** -0.5)], 10)
         del q, k, v
+    q, k, v = [(torch.randn((1, 2048, 16, 256), generator=gen, device=dev)
+                * 0.5).to(torch.bfloat16) for _ in range(3)]
+    row = "K3 B=1 S=2048 H=16 D=256 (one Gemma-7B layer)"
+    if 256 in getattr(K3, "HEAD_DIMS", ()):
+        rows[row] = timed([lambda: K3.flash_prefill_attention(
+            q, k, v, s_real=2048, scale=256 ** -0.5)], 10)
+    else:
+        rows[row] = {"graph_ms": None, "host_ms": None}
+    del q, k, v
 
     per_161 = {m: {"graph_ms": 0.0, "host_ms": 0.0} for m in C.K4_M}
     for name, n, k, per_step in C.K4_DECODE:
@@ -140,13 +199,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, help="root of the other tree")
     ap.add_argument("--out", type=Path, help="also write the lines here")
+    ap.add_argument("--prefill", action="store_true",
+                    help="time phase 5's served prefills, not the kernels")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        run = prefill_worker if args.prefill else worker
+        print(json.dumps(run(args.worker)), flush=True)
         return 0
     if args.base is None or not (args.base / "tpu_bitsandbytes_torch").is_dir():
         ap.error("--base must hold a tpu_bitsandbytes_torch package")
@@ -159,19 +221,26 @@ def main() -> int:
     for label, root in (("base", args.base), ("this", HERE),
                         ("this", HERE), ("base", args.base)):
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--worker", str(root.resolve())], cwd=HERE,
-                             capture_output=True, text=True, check=True)
+                              "--worker", str(root.resolve())]
+                             + ["--prefill"] * args.prefill, cwd=HERE,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{label} worker ({root}) exited "
+                               f"{out.returncode}:\n{out.stderr[-4000:]}")
         run = json.loads(out.stdout.strip().splitlines()[-1])
         run["label"] = label
         runs.append(run)
         lines.append(run)
     summary = {}
-    for row in runs[0]["rows"]:
+    for row in dict.fromkeys(row for r in runs for row in r["rows"]):
+        keys = next(r["rows"][row] for r in runs if row in r["rows"])
         summary[row] = {}
         for label in ("base", "this"):
-            mine = [r["rows"][row] for r in runs if r["label"] == label]
-            summary[row][label] = {key: sum(t[key] for t in mine) / len(mine)
-                                   for key in mine[0]}
+            mine = [r["rows"].get(row) for r in runs if r["label"] == label]
+            summary[row][label] = {
+                key: None if None in mine or None in (t[key] for t in mine)
+                else sum(t[key] for t in mine) / len(mine)
+                for key in keys}
     lines.append({"summary": summary})
     text = "\n".join(json.dumps(line) for line in lines)
     print(text, flush=True)

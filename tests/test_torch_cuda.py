@@ -16,13 +16,14 @@ products, f32 sums in another order) and 1e-4 in bf16 (the same bf16
 operands, each weight rounded once, f32 sums in another order: a weight
 rounded twice or to f16 would miss it);
 K3 1e-2 of each query row's own max|ref| against its plain version at the
-kernel's 128-key tile (one bf16 ulp of the output is at most 2^-7 of its
+kernel's key tile, 128 keys (64 at d = 256) (one bf16 ulp of the output is at most 2^-7 of its
 row's max; a long row's outputs are far below the first rows', so a share
 of the whole tensor's max would not see them); bf16 model logits 3e-2 (bf16
 rounds at other places in the card's kernels than in the CPU's).
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from tpu_bitsandbytes_torch.engine.kvcache import KVCache
 from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
 from tpu_bitsandbytes_torch.models import llama
 from tpu_bitsandbytes_torch import functional as TF
+from tpu_bitsandbytes_torch.ops import _build
 from tpu_bitsandbytes_torch.ops import flash_decode as K2
 from tpu_bitsandbytes_torch.ops import flash_prefill as K3
 from tpu_bitsandbytes_torch.ops import int4cache as K1
@@ -191,21 +193,75 @@ def test_int4_mm_two_streams(cuda):
         assert max(rel_err(g, ref) for g in got) <= 1e-5
 
 
+def _capture(fn, stream=None):
+    """(graph, stream, outputs): ``fn`` captured in a CUDA graph on
+    ``stream`` (a new one by default) after one eager call there, which
+    allocates the stream's split-K scratch (a capture may not)."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    return graph, stream, out
+
+
 def test_int4_mm_graph_replay(cuda):
     """K1 captured in a CUDA graph (split-K scratch of the capture stream)
     and replayed on new inputs copied into the captured ones."""
     x1, w, sc, sx = (t.to(cuda) for t in _int4_case(8, 4096, 11008, 128, 4))
-    K1.int4_mm(x1, w, sc, sx)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        got = K1.int4_mm(x1, w, sc, sx)
+    graph, _, got = _capture(lambda: K1.int4_mm(x1, w, sc, sx))
     for seed in (5, 6):
         x2 = _int4_case(8, 4096, 11008, 128, seed)[0].to(cuda)
         x1.copy_(x2)
         graph.replay()
         torch.cuda.synchronize()
         assert rel_err(got, K1.int4_mm_plain(x2, w, sc, sx)) <= 1e-5
+
+
+def _big_plan(m, n, kp, bs, cps, part, counts):
+    """A plan export's signature, asking for ``m`` floats of split-K
+    partials: more than any kernel's shape here needs."""
+    cps._obj.value, part._obj.value, counts._obj.value = 1, m, 4096
+
+
+def test_split_scratch_is_not_allocated_in_a_capture(cuda):
+    """A capture whose launch needs more split-K scratch than its stream
+    holds raises: the scratch is allocated and zeroed eagerly, never
+    recorded into a graph."""
+    stream = torch.cuda.Stream()
+    held = _build.scratch_bytes().get(stream.cuda_stream)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture stream"):
+        with torch.cuda.graph(graph, stream=stream):
+            _build.split_plan(_big_plan, 1 << 27, 1, 1, 1, cuda)
+    assert _build.scratch_bytes().get(stream.cuda_stream) == held
+
+
+def test_graph_keeps_its_split_scratch(cuda):
+    """A launch that grows its stream's split-K scratch after a graph was
+    captured there leaves the graph's pair allocated: the replay, after
+    the device memory was handed out again, still matches the plain
+    version."""
+    x1, w, sc, sx = (t.to(cuda) for t in _int4_case(8, 4096, 11008, 128, 4))
+    graph, stream, got = _capture(lambda: K1.int4_mm(x1, w, sc, sx))
+    held = _build.scratch_bytes()[stream.cuda_stream]
+    with torch.cuda.stream(stream):
+        _build.split_plan(_big_plan, 1 << 25, 1, 1, 1, cuda)
+    assert (_build.scratch_bytes()[stream.cuda_stream]
+            == held + 4 * (1 << 25) + 4 * 4096)
+    junk = torch.full((1 << 24,), -1, dtype=torch.int32, device=cuda)
+    x2 = _int4_case(8, 4096, 11008, 128, 5)[0].to(cuda)
+    x1.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rel_err(got, K1.int4_mm_plain(x2, w, sc, sx)) <= 1e-5
+    del junk, graph
+    _build.release_held(stream)
+    assert (_build.scratch_bytes()[stream.cuda_stream]
+            == 4 * (1 << 25) + 4 * 4096)
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +486,207 @@ def test_bf16_decode_logits_card_match_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the decode chunk as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_model(packed: bool):
+    """A tiny bf16 model with max_seq 512 (two span buckets within reach):
+    int4-cached weights at hidden 128 (K1), or the packed bytes at hidden
+    256, where decode takes K4."""
+    if packed:
+        cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                                intermediate_size=512, num_layers=2,
+                                num_heads=2, num_kv_heads=1, max_seq_len=512)
+    else:
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(), max_seq_len=512)
+    gen = torch.Generator().manual_seed(7)
+    params = llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True)
+    if not packed:
+        params = llama.build_runtime_cache(params, "int4")
+    return cfg, params
+
+
+def _engine(cfg, params, dev, graphs):
+    return E.DecodeEngine(llama.to_device(params, dev), cfg, max_batch=4,
+                          steps_per_sync=8, device=dev, cuda_graphs=graphs)
+
+
+def _launches():
+    return {"K1": K1.int4_mm.launches, "K2": K2.flash_decode_attention.launches,
+            "K4": K4.w4a8_mm.launches}
+
+
+def _mid_chunk_eos(outs):
+    """(request, token) whose first emission falls inside an 8-step chunk
+    (not at its first or last step; the first token comes from prefill),
+    from a request other than the first, whose long prompt must run to
+    the second span bucket."""
+    for r, toks in list(enumerate(outs))[1:]:
+        for i, tok in enumerate(toks):
+            if (i - 1) % 8 in range(1, 7) and tok not in toks[:i]:
+                return r, tok
+    raise AssertionError(f"no token first emitted mid-chunk in {outs}")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_graphed_chunks_match_eager(cuda, packed):
+    """Greedy tokens of graphed chunks equal the eager chunks', request by
+    request, through the int4 cache (K1) and off the packed bytes (K4),
+    across two span buckets (128 and 256) and with one request stopping
+    at an EOS in the middle of a chunk; the launch counters agree too."""
+    cfg, params = _graph_model(packed)
+    prompts = _prompts([100, 20, 60], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=40)
+    first = _engine(cfg, params, cuda, False).generate(prompts, sp)
+    r, eos = _mid_chunk_eos(first)
+    sps = [sp] * 3
+    sps[r] = SamplingParams(max_new_tokens=40, eos_token_id=eos)
+    outs, counts = {}, {}
+    for graphs in (False, True):
+        eng = _engine(cfg, params, cuda, graphs)
+        before = _launches()
+        outs[graphs] = eng.generate(prompts, sps)
+        counts[graphs] = {k: v - before[k] for k, v in _launches().items()}
+        if graphs:
+            stats = eng.graph_stats()
+            assert stats["graphs"] == 2 and stats["pool_bytes"] > 0
+    assert outs[True] == outs[False]
+    assert outs[True][r][-1] == eos and len(outs[True][r]) < 40
+    assert counts[True] == counts[False]
+    assert counts[True]["K4" if packed else "K1"] > 0
+
+
+def test_graphed_chunk_reads_nothing_back(cuda):
+    """No host sync inside a chunk: with the synchronizing-operation check
+    set to raise, an eager chunk runs, and so does a graphed one, staging
+    its inputs and replaying (after a first chunk that captures: a capture
+    synchronizes the device before it begins)."""
+    cfg, params = _graph_model(False)
+    prompts = _prompts([30, 9, 50], cfg.vocab_size)
+    toks = np.array([5, 6, 7, 0], np.int32)
+    active = np.array([True, True, True, False])
+    for graphs in (False, True):
+        eng = _engine(cfg, params, cuda, graphs)
+        eng.generate(prompts, SamplingParams(max_new_tokens=4))
+        eng.run_chunk(toks, active, all_greedy=True, attn_span=128)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng.run_chunk(toks, active, all_greedy=True, attn_span=128)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert out[0].shape == (8, 4)
+        assert eng.graph_stats()["graphs"] == (1 if graphs else 0)
+
+
+def test_sampled_replays_draw_fresh_numbers(cuda):
+    """A sampling chunk's graph draws from the engine's generator: two
+    replays from one cache state differ, and reseeding the generator
+    reproduces a replay, and the eager chunk it was captured from."""
+    cfg, params = _graph_model(False)
+    eng = _engine(cfg, params, cuda, True)
+    eng.generate(_prompts([30, 9, 50, 12], cfg.vocab_size),
+                 SamplingParams(max_new_tokens=2))
+    hot = SamplingParams(temperature=1.0)
+    eng.active = {s: E.Request(s, [1], hot) for s in range(4)}
+    c = eng.cache
+    saved = [t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale, c.lengths)]
+    toks = np.array([5, 6, 7, 8], np.int32)
+    active = np.ones((4,), bool)
+
+    def chunk(seed=None):
+        for t, v in zip((c.k, c.v, c.k_scale, c.v_scale, c.lengths), saved):
+            t.copy_(v)
+        if seed is not None:
+            eng.generator.manual_seed(seed)
+        out = eng.run_chunk(toks, active, all_greedy=False, attn_span=128)
+        return out[0].cpu()
+
+    graphs = eng.graph_stats()["graphs"]
+    eager = chunk(5)            # captured after this chunk
+    a, b, a2 = chunk(5), chunk(), chunk(5)
+    assert eng.graph_stats()["graphs"] == graphs + 1
+    assert not torch.equal(a, b)
+    assert torch.equal(a, a2)
+    assert torch.equal(a, eager)
+
+
+def test_graph_replays_count_their_launches(cuda):
+    """After k replays the launch counters have moved by k times what one
+    eager chunk of the same key launches."""
+    cfg, params = _graph_model(False)
+    prompts = _prompts([30, 9, 50], cfg.vocab_size)
+    toks = np.array([5, 6, 7, 0], np.int32)
+    active = np.array([True, True, True, False])
+    per_chunk = {}
+    for graphs in (False, True):
+        eng = _engine(cfg, params, cuda, graphs)
+        eng.generate(prompts, SamplingParams(max_new_tokens=4))
+        eng.run_chunk(toks, active, all_greedy=True, attn_span=256)
+        before = _launches()
+        for _ in range(3):
+            eng.run_chunk(toks, active, all_greedy=True, attn_span=256)
+        torch.cuda.synchronize()
+        per_chunk[graphs] = {k: v - before[k] for k, v in _launches().items()}
+    assert per_chunk[False]["K1"] == 3 * 8 * (4 * cfg.num_layers + 1)
+    assert per_chunk[False]["K2"] == 3 * 8 * cfg.num_layers
+    assert per_chunk[True] == per_chunk[False]
+    # the kernels of one replay, by the kernel nodes of its graph
+    names = eng.graph_kernel_names(256)
+    nodes = {k: sum(c for nm, c in names.items() if re.search(rx, nm))
+             for k, rx in (("K1", r"tc_kernel<[^,]*\bInt4,"),
+                           ("K2", r"flash_decode_kernel<"),
+                           ("K4", r"tc_kernel<[^,]*\bNf4,"))}
+    assert {k: 3 * n for k, n in nodes.items()} == per_chunk[True]
+
+
+def test_chunk_graphs_advance_every_registered_counter(cuda):
+    """A replay adds what its capture counted to every counter in
+    ``ops._build.COUNTERS``, the plain versions' calls on CUDA tensors as
+    well as the kernels' launches: a counter registered the same way
+    counts the eager first run once and each replay once."""
+    def doubled(x):
+        doubled.calls += 1
+        return x * 2
+
+    _build.counter(doubled, "calls")
+    try:
+        graphs = E.ChunkGraphs(cuda)
+        x = torch.arange(4.0, device=cuda)
+        for _ in range(3):
+            out = graphs.run("key", lambda: doubled(x))
+        torch.cuda.synchronize()
+        assert doubled.calls == 3 and len(graphs) == 1
+        assert torch.equal(out, 2 * x)
+    finally:
+        _build.COUNTERS.remove((doubled, "calls"))
+
+
+def test_two_graphed_engines_share_a_stream(cuda):
+    """Graphed engines of two widths on one capture stream (the stream
+    pool hands one stream to more than one caller), that stream's split-K
+    scratch grown between their chunks: each engine's graphed greedy
+    tokens equal its eager ones, chunk after chunk."""
+    models = [_graph_model(False), _graph_model(True)]
+    prompts = _prompts([30, 9, 50], 512)
+    sp = SamplingParams(max_new_tokens=20)
+    want = [_engine(cfg, params, cuda, False).generate(prompts, sp)
+            for cfg, params in models]
+    engines = [_engine(cfg, params, cuda, True) for cfg, params in models]
+    stream = engines[0]._graphs.stream
+    engines[1]._graphs.stream = stream
+    assert engines[0].generate(prompts, sp) == want[0]
+    held = _build.scratch_bytes()[stream.cuda_stream]
+    with torch.cuda.stream(stream):
+        _build.split_plan(_big_plan, (1 << 25) + (1 << 20), 1, 1, 1, cuda)
+    assert _build.scratch_bytes()[stream.cuda_stream] > held
+    for i in (1, 0, 1):
+        assert engines[i].generate(prompts, sp) == want[i]
+
+
+# ---------------------------------------------------------------------------
 # K4: packed NF4 x A8 matmul
 # ---------------------------------------------------------------------------
 
@@ -639,11 +896,8 @@ def test_matmul4bit_mm_graph_replay(cuda):
     split-K scratch of the capture stream) and replayed on new inputs
     copied into the captured ones."""
     x1, w, am, book = (t.to(cuda) for t in _mm4_case(256, 5120, 13824, 64, 4))
-    K5.matmul4bit_mm(x1, w, am, book, "bf16")
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        got = K5.matmul4bit_mm(x1, w, am, book, "bf16")
+    graph, _, got = _capture(
+        lambda: K5.matmul4bit_mm(x1, w, am, book, "bf16"))
     for seed in (5, 6):
         x2 = _mm4_case(256, 5120, 13824, 64, seed)[0].to(cuda)
         x1.copy_(x2)
@@ -702,7 +956,15 @@ def test_takes_wgmma_states_the_kernels_plan(cuda):
     (1, 1024, 8, 8, 128, 1024, {"softcap": 50.0}, torch.bfloat16),
     (1, 1100, 8, 2, 128, 1000, {}, torch.float16),
     (2, 1100, 8, 8, 64, 1000, {"window": 300}, torch.bfloat16),
-    (2, 100, 4, 1, 128, 90, {}, torch.bfloat16)])
+    (2, 100, 4, 1, 128, 90, {}, torch.bfloat16),
+    # d = 256 (64-key tiles) over the lengths JAX's kernel takes there
+    # (512 to 5632): MHA, GQA with a window straddling key tiles and a
+    # softcap, f16, ragged S past s_real, the longest
+    (1, 512, 4, 4, 256, 512, {}, torch.bfloat16),
+    (2, 1024, 8, 2, 256, 1024, {"window": 300, "softcap": 50.0},
+     torch.bfloat16),
+    (1, 1100, 4, 4, 256, 1000, {}, torch.float16),
+    (1, 5632, 2, 1, 256, 5632, {}, torch.bfloat16)])
 def test_flash_prefill_matches_plain(cuda, b, s, h, h_kv, d, s_real, opts,
                                      dtype):
     rng = np.random.default_rng(s + h + d)
@@ -711,7 +973,7 @@ def test_flash_prefill_matches_plain(cuda, b, s, h, h_kv, d, s_real, opts,
                for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d)))
     scale = 1.0 / d ** 0.5
     ref = K3.flash_prefill_plain(q, k, v, s_real=s_real, scale=scale,
-                                 block_k=K3.BLOCK, **opts)
+                                 block_k=K3.KEY_TILE[d], **opts)
     before = K3.flash_prefill_attention.launches
     got = K3.flash_prefill_attention(q, k, v, s_real=s_real, scale=scale,
                                      **opts)
@@ -752,15 +1014,24 @@ def test_gqa_attention_flash_head_dim_96_takes_the_scan(cuda):
     assert row_rel_err(got, ref) <= 1e-2
 
 
-def test_gqa_attention_flash_head_dim_256_raises_where_jax_runs_its_kernel(
-        cuda):
-    """d = 256 at S = 1024 is a shape JAX's kernel takes: it goes to K3's
-    wrapper, which raises on the card until K3 takes d = 256, rather than
-    to a plain route."""
+@pytest.mark.parametrize("s", [600, 2048])
+def test_gqa_attention_flash_head_dim_256_runs_k3(cuda, s):
+    """d = 256 where JAX runs its kernel goes to K3 on the card (one
+    launch) and agrees, per query row, with K3's plain version at the
+    kernel's 64-key tile, which is what the CPU runs for the same call."""
     from tpu_bitsandbytes_torch.models import layers
-    q = torch.zeros((1, 1024, 2, 256), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        layers.gqa_attention_flash(q, q, q)
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy((rng.standard_normal(shape) * 0.5)
+                                .astype(np.float32)).to(torch.bfloat16)
+               for shape in ((1, s, 4, 256), (1, s, 2, 256),
+                             (1, s, 2, 256)))
+    ref = layers.gqa_attention_flash(q, k, v)
+    before = K3.flash_prefill_attention.launches
+    got = layers.gqa_attention_flash(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert K3.flash_prefill_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert row_rel_err(got, ref) <= 1e-2
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,102 @@ def test_bf16_decode_logits_match_jax_flash_branch(monkeypatch):
     np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
 
 
+def test_sampling_arrays_refill_only_when_the_active_set_changes(
+        monkeypatch):
+    """The chunk's sampling arrays are tensors that live as long as the
+    engine: refilled in place when the active set's (slot, SamplingParams)
+    change, by value, and left alone otherwise, as the JAX engine caches
+    its ``_samp_arrays``; they hold what a fresh build holds."""
+    te = TE.DecodeEngine({}, TL.LlamaConfig.tiny(), max_batch=4,
+                         device="cpu")
+    builds = []
+    build = TE.SamplingArrays.build
+    monkeypatch.setattr(TE.SamplingArrays, "build", lambda *a, **kw:
+                        builds.append(1) or build(*a, **kw))
+    hot = TSP(temperature=0.7, top_k=20, top_p=0.9, eos_token_id=5)
+
+    def check(per_slot, n_builds):
+        got = te._samp_arrays()
+        assert len(builds) == n_builds
+        assert got is te._samp_static
+        want = build(per_slot, 4, device="cpu")
+        for g, w in zip(got.tensors(), want.tensors()):
+            assert torch.equal(g, w)
+        return [t.data_ptr() for t in got.tensors()]
+
+    te.active = {0: TE.Request(1, [1], TSP()), 2: TE.Request(2, [1], hot)}
+    ptrs = check({0: TSP(), 2: hot}, 1)
+    assert check({0: TSP(), 2: hot}, 1) == ptrs
+    # another request with equal parameters: the same key, no refill
+    te.active[2] = TE.Request(3, [4, 5], TSP(temperature=0.7, top_k=20,
+                                             top_p=0.9, eos_token_id=5))
+    assert check({0: TSP(), 2: hot}, 1) == ptrs
+    te.active[1] = TE.Request(4, [1], TSP(eos_token_id=9))
+    assert check({0: TSP(), 1: TSP(eos_token_id=9), 2: hot}, 2) == ptrs
+    del te.active[0]
+    assert check({1: TSP(eos_token_id=9), 2: hot}, 3) == ptrs
+
+
+def test_sample_batched_draws_what_multinomial_draws():
+    """The sampler's draw, argmax(p / q) with q ~ Exp(1) from the
+    generator, is what ``torch.multinomial(p, 1)`` computes from the same
+    generator state (without its read back to the host); greedy rows stay
+    argmaxes."""
+    from tpu_bitsandbytes_torch.engine.sampler import (SamplingArrays,
+                                                       filter_logits,
+                                                       sample_batched)
+    logits = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (6, 300)).astype(np.float32) * 3)
+    samp = SamplingArrays.build(
+        {i: TSP(temperature=t, top_k=k, top_p=p) for i, (t, k, p) in
+         enumerate([(1.0, 0, 1.0), (0.5, 10, 1.0), (2.0, 0, 0.8),
+                    (0.0, 0, 1.0), (1.3, 50, 0.95), (0.9, 1, 1.0)])}, 6,
+        device="cpu")
+    got = sample_batched(logits, torch.Generator().manual_seed(11), samp)
+    probs = torch.softmax(filter_logits(logits, samp.temperature, samp.top_k,
+                                        samp.top_p), dim=-1)
+    want = torch.multinomial(probs, 1, generator=torch.Generator()
+                             .manual_seed(11))[:, 0].to(torch.int32)
+    want[3] = logits[3].argmax()
+    assert torch.equal(got, want)
+    assert got[5] == logits[5].argmax()     # top-k 1 keeps the argmax
+
+
+def test_every_kernel_counter_is_registered():
+    """The counters a CUDA graph's replay advances
+    (``ops._build.COUNTERS``) hold every kernel wrapper's launches and
+    every plain version's calls on CUDA tensors, so a plain call inside a
+    replayed chunk counts at each replay."""
+    from tpu_bitsandbytes_torch.ops import (_build, flash_decode,
+                                            flash_prefill, int4cache,
+                                            matmul4bit, w4a8)
+    want = {(int4cache.int4_mm, "launches"),
+            (int4cache.int4_mm_plain, "cuda_calls"),
+            (flash_decode.flash_decode_attention, "launches"),
+            (flash_decode.flash_decode_plain, "cuda_calls"),
+            (flash_prefill.flash_prefill_attention, "launches"),
+            (flash_prefill.flash_prefill_plain, "cuda_calls"),
+            (w4a8.w4a8_mm, "launches"), (w4a8.w4a8_mm_plain, "cuda_calls"),
+            (matmul4bit.matmul4bit_mm, "launches"),
+            (matmul4bit.matmul4bit_mm, "wgmma_launches"),
+            (matmul4bit.matmul4bit_plain, "cuda_calls")}
+    assert want <= set(_build.COUNTERS)
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_Z19flash_decode_kernelILi128ELi8EEvPKaPf",
+     "void flash_decode_kernel<128, 8>(signed char const*, float*)"),
+    ("_Z9tc_kernelI4Int4Li8EEvPKaPf",
+     "void tc_kernel<Int4, 8>(signed char const*, float*)"),
+    ("w4a8_dp4a_kernel", "w4a8_dp4a_kernel")])
+def test_graph_census_names_kernels_as_the_profiler_does(mangled, name):
+    """A graph's kernel nodes are counted by demangled name, the form the
+    profiler's records and ``chip_smoke.KERNEL_RE`` use; an ``extern "C"``
+    name stays as it is."""
+    from tpu_bitsandbytes_torch.utils.graph_census import demangle
+    assert demangle(mangled) == name
+
+
 def test_forward_logits_match_f32():
     cfg = dataclasses.replace(JL.LlamaConfig.tiny(), dtype=jnp.float32)
     jp, tp = _model(cfg, seed=2)

@@ -65,7 +65,7 @@ def test_plain_matches_jax_kernel(h, h_kv, s_real, opts):
 ])
 def test_plain_at_kernel_tile_matches_jax_kernel(h, h_kv, s_real, opts):
     """What CPU tensors run, and what the card's K3 computes: the plain
-    version at the kernel's key tile (``BLOCK``), against JAX's kernel at
+    version at the kernel's key tile (``KEY_TILE``), against JAX's kernel at
     its 512 tile, within the same bound (p rounds to bf16 at other tile
     edges: another running max when it rounds)."""
     q, k, v = _qkv(1, 1024, h, h_kv, 128, seed=h * 11 + s_real)
@@ -78,7 +78,7 @@ def test_plain_at_kernel_tile_matches_jax_kernel(h, h_kv, s_real, opts):
         s_real=s_real, scale=scale, **opts)
     ref = np.asarray(ref, np.float32)[:, :s_real]
     got = t32(got)[:, :s_real]
-    assert TFP.BLOCK == 128
+    assert TFP.KEY_TILE[128] == 128
     assert rel_err(got, ref) <= 1e-2
     assert _cos(got, ref) > 0.999
 
@@ -106,10 +106,10 @@ def test_gqa_attention_dispatch_at_1024(monkeypatch):
                         lambda *a, **kw: calls.append(kw["block_k"])
                         or plain(*a, **kw))
     got = TLay.gqa_attention(*(t.to(torch.bfloat16) for t in (q, k, v)))
-    assert calls == [TFP.BLOCK]
+    assert calls == [TFP.KEY_TILE[64]]
     f32 = TLay.gqa_attention(q, k, v)
     short = TLay.gqa_attention(q[:, :1000], k[:, :1000], v[:, :1000])
-    assert calls == [TFP.BLOCK]
+    assert calls == [TFP.KEY_TILE[64]]
     assert rel_err(t32(got), t32(f32)) <= 1e-2
     assert rel_err(t32(short), t32(f32)[:, :1000]) <= 1e-5
 
@@ -171,6 +171,32 @@ def test_head_dim_256_matches_jax():
         *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
     ref = JLay.gqa_attention_flash(
         *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    got, ref = t32(got), np.asarray(ref, np.float32)
+    assert rel_err(got, ref) <= 1e-2
+    assert _cos(got, ref) > 0.999
+
+
+@pytest.mark.parametrize("s,h,h_kv,opts", [
+    (1024, 4, 1, {"window": 300, "softcap": 50.0}),
+    (600, 2, 2, {}),
+])
+def test_plain_at_head_dim_256_tile_matches_jax(monkeypatch, s, h, h_kv,
+                                                opts):
+    """d = 256, where K3 takes 64-key tiles: the CPU runs K3's plain
+    version at that tile (p rounds to bf16 every 64 keys, as on the card)
+    and agrees with JAX's ``gqa_attention_flash`` on the same inputs within
+    the half-precision bound above, GQA, window and softcap included."""
+    q, k, v = _qkv(1, s, h, h_kv, 256, seed=s + h)
+    tiles = []
+    plain = TFP.flash_prefill_plain
+    monkeypatch.setattr(TFP, "flash_prefill_plain",
+                        lambda *a, **kw: tiles.append(kw["block_k"])
+                        or plain(*a, **kw))
+    got = TLay.gqa_attention_flash(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)), **opts)
+    assert tiles == [TFP.KEY_TILE[256]] == [64]
+    ref = JLay.gqa_attention_flash(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), **opts)
     got, ref = t32(got), np.asarray(ref, np.float32)
     assert rel_err(got, ref) <= 1e-2
     assert _cos(got, ref) > 0.999

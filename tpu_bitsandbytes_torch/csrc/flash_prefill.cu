@@ -1,9 +1,10 @@
 // K3: causal GQA flash attention for aligned prefill, for Hopper (sm_90a).
 //
 // Replaces tpu_bitsandbytes/ops/flash_prefill.py:_kernel (pallas_call at
-// :135) and computes what it does, over 128 x 128 tiles in place of
-// 512 x 512: for each query tile, key tiles from the window's first tile up
-// to the causal diagonal;
+// :135) and computes what it does, over 128-query tiles and key tiles of BK
+// keys (128 at D = 64 and 128, 64 at D = 256) in place of 512 x 512: for
+// each query tile, key tiles from the window's first tile up to the causal
+// diagonal;
 //     lg = dot(q, k) * scale in f32 (bf16 or f16 operands), optional
 //     softcap tanh(lg / cap) * cap; masked logits (keep kpos <= qpos,
 //     kpos < s_real and the window) are -1e30;
@@ -22,13 +23,14 @@
 // Design (after FlashAttention-3): one block of three warpgroups per (128
 // queries, head, batch row), the longest query tiles launched first.
 // Warpgroup 0 is the producer: one thread loads the Q tile once and keeps
-// the K and V tiles (128 keys x D) in flight through a 2-stage ring in
+// the K and V tiles (BK keys x D) in flight through a 2-stage ring in
 // dynamic shared memory (Q and the ring: 164,936 bytes at D = 128, 83,016
-// at D = 64, barriers and alignment included), by TMA (cp.async.bulk.tensor from a 4-D tensor map
+// at D = 64, 197,704 at D = 256, barriers and alignment included; 128-key
+// tiles at D = 256 would need 256 KB, past the 227 KB a block may take), by TMA (cp.async.bulk.tensor from a 4-D tensor map
 // over [B, S, H, D], 128-byte swizzle, rows past S zero-filled), with full
 // and empty mbarriers for K and for V apart, so a K tile is refilled as soon
 // as its S product is done. Warpgroups 1 and 2 each own 64 query rows:
-// S = Q K^T is one wgmma.mma_async m64n128k16 chain per tile (Q and K read
+// S = Q K^T is one wgmma.mma_async m64nBKk16 chain per tile (Q and K read
 // from the swizzled tiles through descriptors, f32 accumulate); the online
 // softmax runs on the accumulator registers; p, rounded to the operands'
 // type, goes from the S accumulator straight into the register A operand of
@@ -38,7 +40,9 @@
 // the two take turns to issue (named barriers), so one's softmax runs while
 // the other's products keep the tensor cores busy. The producer gives up
 // registers to the consumers (setmaxnreg). Tiles that no mask touches skip
-// the mask. GQA reads kv head h / rep.
+// the mask. GQA reads kv head h / rep. A consumer thread holds D / 2 f32
+// of O, BK / 2 of S and BK / 4 words of p: 160 registers at D = 128 and
+// 176 at D = 256, where the 64-key tile halves S and p.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,24 +55,29 @@ namespace {
 
 using namespace sm90;
 
-constexpr int BQ = 128, BK = 128, STAGES = 2;
+constexpr int BQ = 128, STAGES = 2;
 constexpr int THREADS = 384;        // producer warpgroup + 2 consumer warpgroups
-constexpr int SUB = 128 * 64 * 2;   // a [128 rows][64 columns] 16-bit sub-tile
 constexpr float NEG = -1e30f;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
-// repeats every 1024 bytes): Q, the K ring, the V ring, the barriers.
+// repeats every 1024 bytes): Q, the K ring, the V ring, the barriers. A
+// tile is D / 64 sub-tiles of [rows][64 columns], 128 bytes a row.
 template <int D>
 struct Layout {
-  static constexpr int NSUB = D / 64;         // 64-column sub-tiles per row
-  static constexpr int TILE = NSUB * SUB;     // one 128 x D tile
+  static constexpr int BK = D == 256 ? 64 : 128;  // keys per K/V tile
+  static constexpr int NSUB = D / 64;             // 64-column sub-tiles per row
+  static constexpr int SUBQ = BQ * 128;           // a [128 rows][64 columns] sub-tile
+  static constexpr int SUBK = BK * 128;           // a [BK rows][64 columns] sub-tile
+  static constexpr int QTILE = NSUB * SUBQ;       // the 128 x D Q tile
+  static constexpr int KTILE = NSUB * SUBK;       // one BK x D K or V tile
   static constexpr int Q = 0;
-  static constexpr int K = TILE;
-  static constexpr int V = K + STAGES * TILE;
-  static constexpr int BAR = V + STAGES * TILE;
+  static constexpr int K = QTILE;
+  static constexpr int V = K + STAGES * KTILE;
+  static constexpr int BAR = V + STAGES * KTILE;
   static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;  // + alignment
 };
-static_assert(Layout<128>::BYTES == 164936 && Layout<64>::BYTES == 83016,
+static_assert(Layout<128>::BYTES == 164936 && Layout<64>::BYTES == 83016 &&
+                  Layout<256>::BYTES == 197704,
               "the header states these sizes");
 
 // the barriers after Q's: full and empty, for K and for V, one per stage
@@ -92,23 +101,43 @@ __device__ __forceinline__ void sched_arrive(int wg) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + wg) : "memory");
 }
 
-// d[64] (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
-template <bool F16>
+// d[BK/2] (+)= A (64 x 16, smem) * B (16 x BK, smem), both K-major
+template <int BK, bool F16>
 __device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db, int scale_d) {
-#define TBNB_QK(TY)                                                                       \
+  if constexpr (BK == 128) {
+#define TBNB_QK128(TY)                                                                    \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                               \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " " TBNB_D64              \
                ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                          \
                : TBNB_ACC64(d)                                                            \
                : "l"(da), "l"(db), "r"(scale_d))
-  if constexpr (F16) TBNB_QK(".f16.f16"); else TBNB_QK(".bf16.bf16");
-#undef TBNB_QK
+    if constexpr (F16) TBNB_QK128(".f16.f16"); else TBNB_QK128(".bf16.bf16");
+#undef TBNB_QK128
+  } else {
+#define TBNB_QK64(TY)                                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32" TY " " TBNB_D32               \
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                          \
+               : TBNB_ACC32(d)                                                            \
+               : "l"(da), "l"(db), "r"(scale_d))
+    if constexpr (F16) TBNB_QK64(".f16.f16"); else TBNB_QK64(".bf16.bf16");
+#undef TBNB_QK64
+  }
 }
 
 // d[D/2] += A (64 x 16, registers) * B (16 x D, smem, N-major: transposed)
 template <int D, bool F16>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+#define TBNB_PV256(TY)                                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                              \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32" TY " " TBNB_D128             \
+               ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                       \
+               : TBNB_ACC128(d)                                                           \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+    if constexpr (F16) TBNB_PV256(".f16.f16"); else TBNB_PV256(".bf16.bf16");
+#undef TBNB_PV256
+  } else if constexpr (D == 128) {
 #define TBNB_PV128(TY)                                                                    \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                               \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " " TBNB_D64              \
@@ -158,6 +187,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                      int S, int H, int Hkv, int s_real, int window, int has_window,
                      float scale, float softcap) {
   using L = Layout<D>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
@@ -171,7 +201,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     const int lo = qi * BQ - window + 1;  // smallest key any row keeps
     kt_lo = lo > 0 ? lo / BK : 0;
   }
-  const int n_tiles = qi - kt_lo + 1;
+  const int n_tiles = (qi * BQ + BQ - 1) / BK - kt_lo + 1;  // up to the diagonal
 
   if (tid == 0) {
     mbar_init(bar, 1);
@@ -189,21 +219,24 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 0) {
-      mbar_expect_tx(bar, L::TILE);
+      mbar_expect_tx(bar, L::QTILE);
       for (int j = 0; j < L::NSUB; ++j)
-        tma_load(base + L::Q + j * SUB, &tq, bar, 64 * j, h, qi * BQ, b);
+        for (int r = 0; r < BQ; r += BK)  // the tensor maps' boxes are BK rows
+          tma_load(base + L::Q + j * L::SUBQ + r * 128, &tq, bar, 64 * j, h, qi * BQ + r, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         const uint32_t free_ph = ((i / STAGES) & 1) ^ 1;
         const int row = (kt_lo + i) * BK;
         mbar_wait(empty_k(bar, s), free_ph);
-        mbar_expect_tx(full_k(bar, s), L::TILE);
+        mbar_expect_tx(full_k(bar, s), L::KTILE);
         for (int j = 0; j < L::NSUB; ++j)
-          tma_load(base + L::K + s * L::TILE + j * SUB, &tk, full_k(bar, s), 64 * j, hk, row, b);
+          tma_load(base + L::K + s * L::KTILE + j * L::SUBK, &tk, full_k(bar, s), 64 * j, hk,
+                   row, b);
         mbar_wait(empty_v(bar, s), free_ph);
-        mbar_expect_tx(full_v(bar, s), L::TILE);
+        mbar_expect_tx(full_v(bar, s), L::KTILE);
         for (int j = 0; j < L::NSUB; ++j)
-          tma_load(base + L::V + s * L::TILE + j * SUB, &tv, full_v(bar, s), 64 * j, hk, row, b);
+          tma_load(base + L::V + s * L::KTILE + j * L::SUBK, &tv, full_v(bar, s), 64 * j, hk,
+                   row, b);
       }
     }
   } else {
@@ -219,11 +252,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float sc[64];
+    float sc[BK / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
     float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
-    uint32_t pa[8][4];  // p of the last tile as the A operand of PV, k16 step kk
+    uint32_t pa[BK / 16][4];  // p of the last tile as the A operand of PV, k16 step kk
 
     // online softmax of the tile at key k0 on its S accumulator (sc[4i + e]
     // is row qpos[e >> 1], key k0 + 8i + 2t + (e & 1)); leaves p in pa and
@@ -233,7 +266,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                           (has_window && k0 <= q_last - window);
       float mx[2] = {NEG, NEG};
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
+      for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = sc[4 * i + e] * scale;
@@ -256,7 +289,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
         m_r[r] = m_new;
       }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < BK / 8; ++i) {
         float p[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -279,15 +312,18 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     auto issue_qk = [&](int s) {  // S = Q K^T
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk >> 2) * SUB + (kk & 3) * 32;
-        wgmma_qk<F16>(sc, sw128(q_tile + off, 16, 1024),
-                      sw128(base + L::K + s * L::TILE + off, 16, 1024), kk > 0);
+        const uint32_t col = (kk & 3) * 32;  // this k16 step's bytes in a 128-byte row
+        wgmma_qk<BK, F16>(sc, sw128(q_tile + (kk >> 2) * L::SUBQ + col, 16, 1024),
+                          sw128(base + L::K + s * L::KTILE + (kk >> 2) * L::SUBK + col, 16,
+                                1024),
+                          kk > 0);
       }
     };
     auto issue_pv = [&](int s) {  // O += P V, V token-major in the ring
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_pv<D, F16>(o, pa[kk], sw128(base + L::V + s * L::TILE + kk * 2048, SUB, 1024));
+        wgmma_pv<D, F16>(o, pa[kk],
+                         sw128(base + L::V + s * L::KTILE + kk * 2048, L::SUBK, 1024));
     };
 
     // Phase j issues PV of tile j - 1 and S of tile j as one wgmma group,
@@ -299,13 +335,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     if (cw == 1) sched_arrive(0);  // warpgroup 0 issues first
     sched_sync(cw);
     mbar_wait(full_k(bar, 0), 0);
-    fence_regs<64>(sc);
+    fence_regs<BK / 2>(sc);
     wg_fence();
     issue_qk(0);
     wg_commit();
     sched_arrive(1 - cw);
     wg_wait();
-    fence_regs<64>(sc);
+    fence_regs<BK / 2>(sc);
     if (lane == 0) mbar_arrive(empty_k(bar, 0));
     softmax(kt_lo * BK);
     for (int j = 1; j < n_tiles; ++j) {
@@ -313,7 +349,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       sched_sync(cw);
       mbar_wait(full_k(bar, sq), (j / STAGES) & 1);
       mbar_wait(full_v(bar, sv), ((j - 1) / STAGES) & 1);
-      fence_regs<64>(sc);
+      fence_regs<BK / 2>(sc);
       fence_regs<D / 2>(o);
       wg_fence();
       issue_pv(sv);
@@ -321,7 +357,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       wg_commit();
       sched_arrive(1 - cw);
       wg_wait();
-      fence_regs<64>(sc);
+      fence_regs<BK / 2>(sc);
       fence_regs<D / 2>(o);
       if (lane == 0) {
         mbar_arrive(empty_k(bar, sq));
@@ -354,14 +390,15 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// [B, S, heads, D] contiguous, read as 128 rows x 64 columns of one head
-bool head_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, bool f16) {
+// [B, S, heads, D] contiguous, read as box_rows rows x 64 columns of one head
+bool head_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int box_rows,
+              bool f16) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BK, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return enc(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(ptr), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -382,8 +419,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
     attr = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, q, B, S, H, D, F16) || !head_map(&tk, k, B, S, Hkv, D, F16) ||
-      !head_map(&tv, v, B, S, Hkv, D, F16))
+  constexpr int BK = Layout<D>::BK;
+  if (!head_map(&tq, q, B, S, H, D, BK, F16) || !head_map(&tk, k, B, S, Hkv, D, BK, F16) ||
+      !head_map(&tv, v, B, S, Hkv, D, BK, F16))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_prefill_kernel<D, F16><<<grid, THREADS, Layout<D>::BYTES, st>>>(
@@ -395,7 +433,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace
 
 // q [B, S, H, D], k/v [B, S, Hkv, D], out [B, S, H, D], all contiguous, in
-// bf16 (is_f16 = 0) or f16; D in {64, 128}; H % Hkv == 0. softcap <= 0
+// bf16 (is_f16 = 0) or f16; D in {64, 128, 256}; H % Hkv == 0. softcap <= 0
 // disables the cap; has_window = 0 the window. Returns cudaGetLastError()
 // (cudaErrorInvalidValue where a tensor map cannot be made).
 extern "C" int tbnb_flash_prefill(const void* q, const void* k, const void* v, void* out,
@@ -406,6 +444,7 @@ extern "C" int tbnb_flash_prefill(const void* q, const void* k, const void* v, v
 #define TBNB_FP_ARGS q, k, v, out, B, S, H, Hkv, s_real, window, has_window, scale, softcap, st
   if (D == 64) return is_f16 ? launch<64, true>(TBNB_FP_ARGS) : launch<64, false>(TBNB_FP_ARGS);
   if (D == 128) return is_f16 ? launch<128, true>(TBNB_FP_ARGS) : launch<128, false>(TBNB_FP_ARGS);
+  if (D == 256) return is_f16 ? launch<256, true>(TBNB_FP_ARGS) : launch<256, false>(TBNB_FP_ARGS);
 #undef TBNB_FP_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,23 +1,29 @@
 """Single-device decode engine: chunked decode steps + continuous batching.
 
-The eager PyTorch counterpart of the JAX package's engine. A decode chunk
+The PyTorch counterpart of the JAX package's engine. A decode chunk
 advances every slot ``n_steps`` tokens with sampling and EOS handling on
 the device, so the host reads tokens back once per chunk; within a chunk
-new K/V go to the cache's stage and are flushed at its end. A host-side
-scheduler admits queued requests into free slots between chunks, grouping
-same-length-bucket prompts into one batched prefill.
+new K/V go to the cache's stage and are flushed at its end. On a CUDA
+device each chunk is one CUDA graph replay (:class:`ChunkGraphs`, the
+counterpart of the JAX package's jitted ``lax.scan``), so the host pays
+the launches of a chunk once per set of static arguments, not once per
+token. A host-side scheduler admits queued requests into free slots
+between chunks, grouping same-length-bucket prompts into one batched
+prefill.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Counter, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..models import llama
+from ..ops import _build
+from ..utils import graph_census
 from ..utils.metrics import MetricsLogger
 from .kvcache import KVCache
 from .sampler import SamplingArrays, SamplingParams, sample_batched
@@ -52,7 +58,9 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
     back to the host; a slot that emits its EOS, or reaches ``max_seq - 1``,
     goes inactive on the device and its later emissions carry
     ``active=False``. Staged like the JAX package's
-    ``decode_chunk(window_stage=False)``.
+    ``decode_chunk(window_stage=False)``. The whole chunk (stage reset,
+    steps, sampling, flush) can be captured in one CUDA graph; the Python
+    loop unrolls into it as JAX's scan runs its body ``n_steps`` times.
 
     Returns (tokens_seq int32 [n_steps, B], active_seq bool [n_steps, B],
     cache, last tokens [B], active [B]).
@@ -134,6 +142,93 @@ def _span_bucket(need: int, max_seq: int) -> int:
     return min(max_seq, max(128, -(-need // 128) * 128))
 
 
+class ChunkGraphs:
+    """CUDA graphs of the decode chunk, one per static key, in one memory
+    pool: the counterpart of the JAX package's ``decode_chunk``, which jit
+    compiles at first use for each set of static arguments.
+
+    A key's first chunk runs eagerly on the capture stream, which builds
+    what must exist before a capture (the rope table, K2's cluster plan, the
+    split-K scratch of that stream, the persistent stage), and is then
+    captured; later chunks of the key replay the graph on the same stream,
+    ordered after the caller's stream and it after them, so the graph's
+    launches share that stream's split-K scratch in order with its eager
+    ones. A capture or replay error raises. The counters of
+    ``ops._build.COUNTERS`` (the kernels' launches, the plain versions'
+    calls on CUDA tensors) tick when their functions run, which for a
+    graph is once, at capture: the capture's ticks are undone, and each
+    replay adds them, so they count what runs on the device. Each graph
+    is kept beside its instantiation, so :meth:`kernel_names` can read
+    the kernels a replay launches from the graph itself.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.capture_s = 0.0
+        # key -> (graph, its static outputs, [(counter, launches)])
+        self._graphs: Dict[Any, tuple] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key, fn: Callable[[], Any],
+            generator: Optional[torch.Generator] = None):
+        """``fn()`` as the graph of ``key``: replayed, or at the key's first
+        use run eagerly and captured. ``generator``: the one ``fn`` draws
+        from, registered with the graph so that every replay draws fresh
+        numbers from its current state. Returns ``fn``'s outputs (a graph's
+        are overwritten by its next replay)."""
+        entry = self._graphs.get(key)
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        if entry is not None:
+            graph, out, ticks = entry
+            with torch.cuda.stream(self.stream):
+                graph.replay()
+            current.wait_stream(self.stream)
+            for (f, a), n in ticks:
+                setattr(f, a, getattr(f, a) + n)
+            return out
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if generator is not None:
+            graph.register_generator_state(generator)
+        counters = list(_build.COUNTERS)
+        before = [getattr(f, a) for f, a in counters]
+        # capture_begin/end, not torch.cuda.graph: that one empties the
+        # allocator's cache first, which the next prefill then pays for
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                static = fn()
+            finally:
+                graph.capture_end()
+            graph.instantiate()
+        current.wait_stream(self.stream)
+        ticks = []
+        for (f, a), n0 in zip(counters, before):
+            if getattr(f, a) != n0:
+                ticks.append(((f, a), getattr(f, a) - n0))
+                setattr(f, a, n0)
+        self._graphs[key] = (graph, static, ticks)
+        self.capture_s += time.perf_counter() - t0
+        return out
+
+    def kernel_names(self, key) -> Counter[str]:
+        """The kernels one replay of ``key``'s graph launches: their
+        demangled names, each with its number of launches."""
+        return graph_census.kernel_names(self._graphs[key][0].raw_cuda_graph())
+
+    def pool_bytes(self) -> int:
+        """Device bytes the graphs' memory pool holds."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
+
+
 class DecodeEngine:
     """Slot-based continuous-batching decode engine over a Llama model."""
 
@@ -141,11 +236,15 @@ class DecodeEngine:
                  max_batch: int = 8, max_seq: Optional[int] = None,
                  seed: int = 0, steps_per_sync: int = 8,
                  runtime_cache: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
         """``params`` must live on ``device``. ``steps_per_sync``: decode
         steps per host read-back (one decode chunk). ``runtime_cache``:
         "int4" attaches the int4 execution cache to every NF4 weight (which
-        kernel K1 streams); None serves the params as they are."""
+        kernel K1 streams); None serves the params as they are.
+        ``cuda_graphs``: on a CUDA device, run each decode chunk as a CUDA
+        graph replay (:class:`ChunkGraphs`, one graph per span bucket,
+        chunk length and all-greedy flag, captured at first use); False
+        runs the same chunk eagerly there. CPU devices run it eagerly."""
         self.config = config
         self.device = torch.device(device)
         self.max_batch = max_batch
@@ -158,6 +257,22 @@ class DecodeEngine:
                                     self.max_seq, config.num_kv_heads,
                                     config.hd, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the chunk's static inputs: tokens and active staged through
+        # (pinned, on CUDA) host buffers, and the sampling arrays, refilled
+        # only when the active set's parameters change
+        pin = self.device.type == "cuda"
+        b = max_batch
+        self._tokens_host = torch.zeros((b,), dtype=torch.int32,
+                                        pin_memory=pin)
+        self._active_host = torch.zeros((b,), dtype=torch.bool,
+                                        pin_memory=pin)
+        self._tokens = torch.zeros((b,), dtype=torch.int32,
+                                   device=self.device)
+        self._active = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        self._samp_static = SamplingArrays.build({}, b, device=self.device)
+        self._samp_key = None
+        self._graphs = (ChunkGraphs(self.device)
+                        if cuda_graphs and pin else None)
         self._uid = 0
         self.waiting: List[Request] = []
         self.active: Dict[int, Request] = {}   # slot -> request
@@ -177,6 +292,22 @@ class DecodeEngine:
 
     def _samp(self, per_slot, n: int) -> SamplingArrays:
         return SamplingArrays.build(per_slot, n, device=self.device)
+
+    def _samp_arrays(self) -> SamplingArrays:
+        """The active set's sampling arrays for a decode chunk: device
+        tensors that live as long as the engine (a captured chunk reads
+        them), refilled in place only when the active set's (slot,
+        SamplingParams) change, as the JAX package's ``_samp_arrays``
+        rebuilds them."""
+        key = [(s, r.params) for s, r in sorted(self.active.items())]
+        if key != self._samp_key:
+            src = SamplingArrays.build(dict(key), self.max_batch,
+                                       device="cpu")
+            if self.device.type == "cuda":
+                src = SamplingArrays(*(t.pin_memory() for t in src.tensors()))
+            self._samp_static.copy_(src)
+            self._samp_key = key
+        return self._samp_static
 
     # -- admission --------------------------------------------------------
     def _admit(self):
@@ -284,6 +415,50 @@ class DecodeEngine:
             self.finished.append(req)
             del self.active[slot]
 
+    def run_chunk(self, tokens: np.ndarray, active: np.ndarray, *,
+                  all_greedy: bool, attn_span: int):
+        """One decode chunk of ``steps_per_sync`` steps from host
+        ``tokens`` int32 [B] and ``active`` bool [B], staged into the static
+        device inputs without a host sync. On CUDA (unless the engine was
+        built with ``cuda_graphs=False``) the chunk replays the graph of
+        ``(attn_span, steps_per_sync, all_greedy)``, captured at the key's
+        first use. Returns the device (tokens_seq, active_seq) [steps, B];
+        read them before the next chunk, which may overwrite them."""
+        n = self.steps_per_sync
+        self._tokens_host.numpy()[:] = tokens
+        self._active_host.numpy()[:] = active
+        self._tokens.copy_(self._tokens_host, non_blocking=True)
+        self._active.copy_(self._active_host, non_blocking=True)
+        samp = self._samp_arrays()
+
+        def chunk():
+            toks_seq, act_seq, _, _, _ = decode_chunk(
+                self.params, self.cache, self._tokens, self._active,
+                self.generator, samp, self.config, n_steps=n,
+                all_greedy=all_greedy, attn_span=attn_span)
+            return toks_seq, act_seq
+
+        if self._graphs is None:
+            return chunk()
+        return self._graphs.run((attn_span, n, all_greedy), chunk,
+                                None if all_greedy else self.generator)
+
+    def graph_stats(self) -> dict:
+        """Graphs captured, seconds spent capturing them (their eager
+        first chunks excluded) and the bytes of their memory pool."""
+        g = self._graphs
+        if g is None:
+            return {"graphs": 0, "capture_s": 0.0, "pool_bytes": 0}
+        return {"graphs": len(g), "capture_s": g.capture_s,
+                "pool_bytes": g.pool_bytes()}
+
+    def graph_kernel_names(self, attn_span: int,
+                           all_greedy: bool = True) -> Counter[str]:
+        """The kernels one replay of the chunk graph of ``attn_span`` and
+        ``all_greedy`` launches, by demangled name, read from the graph."""
+        return self._graphs.kernel_names(
+            (attn_span, self.steps_per_sync, all_greedy))
+
     def step(self) -> bool:
         """One engine iteration: admit, then one decode chunk. Returns False
         when no work remains."""
@@ -296,13 +471,9 @@ class DecodeEngine:
         t0 = time.perf_counter()
         all_greedy = all(r.params.temperature <= 0
                          for r in self.active.values())
-        samp = self._samp({s: r.params for s, r in self.active.items()},
-                          self.max_batch)
-        toks_seq, act_seq, self.cache, _, _ = decode_chunk(
-            self.params, self.cache, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(active).to(self.device), self.generator, samp,
-            self.config, n_steps=self.steps_per_sync, all_greedy=all_greedy,
-            attn_span=self._attn_span())
+        toks_seq, act_seq = self.run_chunk(tokens, active,
+                                           all_greedy=all_greedy,
+                                           attn_span=self._attn_span())
         emitted = self._collect_chunk(toks_seq, act_seq)
         self.metrics.record(emitted, time.perf_counter() - t0)
         return bool(self.waiting or self.active)

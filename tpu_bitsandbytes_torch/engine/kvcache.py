@@ -10,13 +10,16 @@ itself, so ``cache = cache.write_decode(...)`` reads the same in both.
 Within a decode chunk, new tokens go to a per-chunk stage at one uniform
 index per step (:meth:`KVCache.begin_stage`), and attention reads the stage
 as a second key block; :meth:`KVCache.flush_stage` moves the chunk's valid
-tokens into the main cache at the end of the chunk.
+tokens into the main cache at the end of the chunk. The stage is allocated
+once per chunk length and reset in place, and the flush runs on the
+device without reading anything back, so a whole chunk can be captured in
+a CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -24,7 +27,9 @@ import torch
 @dataclasses.dataclass
 class KVStage:
     """Per-chunk staging buffers: entry j of slot b holds the token that
-    slot wrote at chunk step j (absolute position ``len0[b] + j``)."""
+    slot wrote at chunk step j (absolute position ``len0[b] + j``). Entries
+    past ``step`` hold an earlier chunk's tokens: attention masks them and
+    the flush never writes them."""
 
     k: torch.Tensor          # int8 [L, B, H, C, D]
     v: torch.Tensor
@@ -42,6 +47,9 @@ class KVCache:
     v_scale: torch.Tensor
     lengths: torch.Tensor    # int32 [B]
     stage: Optional[KVStage] = None
+    # chunk length -> its stage, allocated at the first begin_stage
+    stages: Dict[int, KVStage] = dataclasses.field(default_factory=dict,
+                                                   repr=False)
 
     @classmethod
     def create(cls, num_layers: int, batch: int, max_seq: int,
@@ -64,21 +72,31 @@ class KVCache:
 
     # -- chunk staging --------------------------------------------------
     def begin_stage(self, n_steps: int) -> "KVCache":
-        """Allocate an ``n_steps``-entry stage (the JAX package's
+        """Open an ``n_steps``-entry stage (the JAX package's
         ``begin_stage(window=False)``); a no-op when ``n_steps`` exceeds
-        the cache length."""
+        the cache length. The stage of each ``n_steps`` is allocated once
+        and reused: beginning resets its step index to 0 and copies the
+        lengths into ``len0`` in place, so every chunk works on the same
+        buffers (what a captured chunk needs)."""
         l, b, h, s, d = self.k.shape
         if n_steps > s:
             return self
-        dev = self.k.device
-        self.stage = KVStage(
-            k=torch.zeros((l, b, h, n_steps, d), dtype=torch.int8, device=dev),
-            v=torch.zeros((l, b, h, n_steps, d), dtype=torch.int8, device=dev),
-            k_scale=torch.ones((l, b, h, n_steps), dtype=torch.float32,
-                               device=dev),
-            v_scale=torch.ones((l, b, h, n_steps), dtype=torch.float32,
-                               device=dev),
-            step=0, len0=self.lengths.clone())
+        st = self.stages.get(n_steps)
+        if st is None:
+            dev = self.k.device
+            st = self.stages[n_steps] = KVStage(
+                k=torch.zeros((l, b, h, n_steps, d), dtype=torch.int8,
+                              device=dev),
+                v=torch.zeros((l, b, h, n_steps, d), dtype=torch.int8,
+                              device=dev),
+                k_scale=torch.ones((l, b, h, n_steps), dtype=torch.float32,
+                                   device=dev),
+                v_scale=torch.ones((l, b, h, n_steps), dtype=torch.float32,
+                                   device=dev),
+                step=0, len0=torch.empty_like(self.lengths))
+        st.step = 0
+        st.len0.copy_(self.lengths)
+        self.stage = st
         return self
 
     def advance_stage(self) -> "KVCache":
@@ -97,27 +115,36 @@ class KVCache:
     def flush_stage(self) -> "KVCache":
         """Write each slot's valid staged tokens (the ``lengths - len0``
         emitted this chunk) to positions ``len0 + j`` of the main cache and
-        drop the stage.
+        close the stage.
 
-        Entries past a slot's valid count (steps after it went inactive)
-        are not written, and nothing else of the slot moves: this is the
-        JAX package's read-modify-write overlay, including its case of a
-        slot within C of ``max_seq``, where a C-wide slab write would have
-        to shift onto valid history. Reads the lengths to the host once.
+        The JAX package's branch-free read-modify-write overlay, on the
+        device with no host read: for slot b and staged entry j, position
+        ``min(len0 + j, max_seq - 1)`` gets the staged value where
+        ``j < lengths - len0`` and keeps what the cache holds elsewhere. A
+        slot that went inactive mid-chunk thus writes only its valid
+        entries, and a slot within C of ``max_seq`` moves none of its
+        history. Valid entries never reach ``max_seq - 1`` (a slot stops at
+        ``lengths == max_seq - 1``), so the clamped duplicates there only
+        write back the value they read.
         """
         st = self.stage
         if st is None:
             return self
-        len0 = st.len0.tolist()
-        valid = (self.lengths - st.len0).tolist()
-        for bi, (start, n) in enumerate(zip(len0, valid)):
-            if n <= 0:
-                continue
-            sl = slice(start, start + n)
-            self.k[:, bi, :, sl] = st.k[:, bi, :, :n]
-            self.v[:, bi, :, sl] = st.v[:, bi, :, :n]
-            self.k_scale[:, bi, :, sl] = st.k_scale[:, bi, :, :n]
-            self.v_scale[:, bi, :, sl] = st.v_scale[:, bi, :, :n]
+        s, c = self.max_seq, st.k.shape[3]
+        dev = self.k.device
+        j = torch.arange(c, device=dev)
+        pos = torch.clamp(st.len0[:, None] + j, max=s - 1).long()   # [B, C]
+        keep = j < (self.lengths - st.len0)[:, None]                  # [B, C]
+        rows = torch.arange(pos.shape[0], device=dev)[:, None]
+        for buf, staged in ((self.k, st.k), (self.v, st.v),
+                            (self.k_scale, st.k_scale),
+                            (self.v_scale, st.v_scale)):
+            # [L, B, H, C(, D)] -> [B, C, L, H(, D)], the layout of the
+            # gather below (its two index axes first)
+            new = staged.permute(1, 3, 0, 2, *range(4, staged.dim()))
+            cur = buf[:, rows, :, pos]
+            mask = keep.reshape(keep.shape + (1,) * (cur.dim() - 2))
+            buf[:, rows, :, pos] = torch.where(mask, new, cur)
         self.stage = None
         return self
 

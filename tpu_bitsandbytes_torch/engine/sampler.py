@@ -2,7 +2,9 @@
 
 Sampling draws from an explicit ``torch.Generator``; it will not repeat the
 JAX package's random draws, only its distribution. Greedy rows are exact
-argmaxes (first index on ties, as ``jnp.argmax``).
+argmaxes (first index on ties, as ``jnp.argmax``). Nothing here reads a
+value back to the host, so a decode chunk that samples can be captured in
+a CUDA graph (with the generator registered to it).
 """
 
 from __future__ import annotations
@@ -50,6 +52,17 @@ class SamplingArrays:
                    torch.tensor(p, dtype=torch.float32, device=device),
                    torch.tensor(e, dtype=torch.int32, device=device))
 
+    def tensors(self):
+        return (self.temperature, self.top_k, self.top_p, self.eos_id)
+
+    def copy_(self, src: "SamplingArrays") -> "SamplingArrays":
+        """Refill these tensors in place from ``src`` (same shapes), without
+        waiting for the copies (``src`` in pinned memory when it is on the
+        host and these on a card)."""
+        for dst, t in zip(self.tensors(), src.tensors()):
+            dst.copy_(t, non_blocking=True)
+        return self
+
 
 def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
                   top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
@@ -72,10 +85,16 @@ def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
 
 def sample_batched(logits: torch.Tensor, generator: torch.Generator,
                    s: SamplingArrays) -> torch.Tensor:
-    """logits [B, V] -> int32 tokens [B] with per-row parameters."""
+    """logits [B, V] -> int32 tokens [B] with per-row parameters.
+
+    A row samples ``argmax(p / q)`` with ``q ~ Exp(1)`` drawn from
+    ``generator``: what ``torch.multinomial(p, 1)`` computes, and the same
+    numbers, without its host-side checks of ``p`` (a read back to the
+    host that a CUDA graph cannot hold)."""
     logits = logits.to(torch.float32)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     masked = filter_logits(logits, s.temperature, s.top_k, s.top_p)
-    sampled = torch.multinomial(torch.softmax(masked, dim=-1), 1,
-                                generator=generator)[:, 0].to(torch.int32)
+    probs = torch.softmax(masked, dim=-1)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    sampled = torch.argmax(probs / q, dim=-1).to(torch.int32)
     return torch.where(s.temperature <= 0.0, greedy, sampled)

@@ -17,8 +17,7 @@ import torch
 from ..functional import (QuantState, _pad_k, dequantize_4bit,
                           dequantize_blockwise, matmul_4bit, quantize_4bit,
                           quantize_blockwise)
-from ..ops.flash_prefill import (HEAD_DIMS, flash_prefill_attention,
-                                 tiled_attention)
+from ..ops.flash_prefill import flash_prefill_attention, tiled_attention
 from ..ops.int4cache import int4_matmul, quantize_int4
 from ..ops.w4a8 import takes_w4a8, w4a8_matmul_4bit
 
@@ -220,6 +219,11 @@ def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
     return keep[:, None, None]
 
 
+# head dims that go to K3 at every length; d = 256 (also one K3 takes) goes
+# where the JAX package runs its kernel, and takes its scan elsewhere
+_K3_ANY_LENGTH = (64, 128)
+
+
 def jax_takes_its_kernel(s: int, d: int) -> bool:
     """Whether the JAX package's ``gqa_attention_flash`` runs its Pallas
     kernel on half-precision q (its ``flash_prefill_supported``): head dims
@@ -236,10 +240,10 @@ def jax_takes_its_kernel(s: int, d: int) -> bool:
 def gqa_attention_flash(q, k, v, *, scale=None, window=None, softcap=None):
     """Causal GQA for aligned prefill (S == T) in O(S) memory.
 
-    Half-precision q runs :func:`flash_prefill_attention` (kernel K3) at a
-    head dim K3 takes (``HEAD_DIMS``) and wherever the JAX package runs its
-    kernel (:func:`jax_takes_its_kernel`; K3's wrapper raises on the card
-    for d = 256, which K3 does not take yet). Everything else runs the JAX
+    Half-precision q runs :func:`flash_prefill_attention` (kernel K3) at
+    d = 64 and 128, whatever S, and wherever the JAX package runs its
+    kernel (:func:`jax_takes_its_kernel`: d = 256 up to S = 5632, which K3
+    takes with 64-key tiles). Everything else runs the JAX
     package's own non-kernel route, its scan: the same online softmax in
     torch ops over 512 x 512 blocks (:func:`tiled_attention`), in f32 with
     p rounded to v's dtype before the PV product.
@@ -250,7 +254,7 @@ def gqa_attention_flash(q, k, v, *, scale=None, window=None, softcap=None):
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     if q.dtype in (torch.bfloat16, torch.float16) and (
-            d in HEAD_DIMS or jax_takes_its_kernel(s, d)):
+            d in _K3_ANY_LENGTH or jax_takes_its_kernel(s, d)):
         return flash_prefill_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), s_real=s,
                                        scale=float(scale), window=window,

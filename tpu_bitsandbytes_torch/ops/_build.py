@@ -112,15 +112,37 @@ def loaded() -> Dict[str, bool]:
     return {src.stem: src.stem in _libs for src in sources()}
 
 
+# Every kernel wrapper's launch counts and every plain version's count of
+# its calls on CUDA tensors, as (function, attribute). A wrapper counts
+# where it launches, so a CUDA graph's kernels count once, at capture: a
+# graph's holder (engine.ChunkGraphs) adds each replay's share through this
+# list.
+COUNTERS = []
+
+
+def counter(fn, *attrs) -> None:
+    """Register ``fn``'s count attributes ``attrs`` in :data:`COUNTERS`,
+    each set to 0."""
+    for attr in attrs:
+        setattr(fn, attr, 0)
+        COUNTERS.append((fn, attr))
+
+
 # (plan export, M, N, K_pad, blocksize, device) -> (chunks per K split, f32
 # partials, counts): the launch plan of K1 and K4 (csrc/a8_tc.cuh) and of
 # K5's wgmma path (csrc/matmul4bit.cu), made once per shape
 _PLANS = {}
 # (device, stream) -> the split-K partials and the counts the kernels read
 # as 0 and leave 0. Launches on one stream run in order and share one pair;
-# a launch on another stream (a CUDA-graph capture included) gets its own,
-# so two launches never meet in a count.
+# a launch on another stream gets its own, so two launches never meet in a
+# count. A CUDA-graph capture uses its stream's pair, which must exist
+# before the capture (it is allocated and zeroed eagerly): a capture that
+# needs a larger one raises. The graph's launches keep the pair's
+# pointers, so a later growth on that stream keeps the captured pair
+# alive in _HELD instead of freeing it.
 _SCRATCH = {}
+_CAPTURED = set()
+_HELD = {}
 
 
 def plan_of(plan_fn, m: int, n: int, kp: int, bs: int, device):
@@ -140,27 +162,47 @@ def plan_of(plan_fn, m: int, n: int, kp: int, bs: int, device):
 
 def split_plan(plan_fn, m: int, n: int, kp: int, bs: int, device):
     """:func:`plan_of` this shape and the split-K scratch it needs on the
-    current stream (grown on demand): (chunks per split, partials, counts,
-    stream handle)."""
+    current stream (grown on demand, outside a capture): (chunks per
+    split, partials, counts, stream handle)."""
     plan = plan_of(plan_fn, m, n, kp, bs, device)
     stream = torch.cuda.current_stream(device)
     skey = (device, stream.cuda_stream)
+    capturing = torch.cuda.is_current_stream_capturing()
     part, counts = _SCRATCH.get(skey, (None, None))
     if part is None or part.numel() < plan[1] or counts.numel() < plan[2]:
+        if capturing:
+            raise RuntimeError(
+                "split-K scratch: this shape needs more than the capture "
+                "stream holds; run the captured calls once on the capture "
+                "stream before capturing them")
+        if skey in _CAPTURED:
+            _HELD.setdefault(skey, []).append((part, counts))
+            _CAPTURED.discard(skey)
         part = torch.empty((max(plan[1], 1 << 20),), dtype=torch.float32,
                            device=device)
         counts = torch.zeros((max(plan[2], 1024),), dtype=torch.int32,
                              device=device)
         _SCRATCH[skey] = (part, counts)
+    if capturing:
+        _CAPTURED.add(skey)
     return plan[0], part, counts, stream.cuda_stream
+
+
+def release_held(stream) -> None:
+    """Free the split-K scratch kept for graphs captured on ``stream``
+    (a ``torch.cuda.Stream``) before its last growth. Call it only once
+    those graphs are gone."""
+    for skey in [k for k in _HELD if k[1] == stream.cuda_stream]:
+        del _HELD[skey]
 
 
 def scratch_bytes() -> Dict[int, int]:
     """Bytes of split-K scratch (partials and counts) held per stream
     handle: memory that stays allocated once a stream has run a split
-    launch."""
-    return {st: part.nbytes + counts.nbytes
-            for (_, st), (part, counts) in _SCRATCH.items()}
+    launch, with the pairs kept for graphs captured before a growth."""
+    return {skey[1]: sum(part.nbytes + counts.nbytes
+                         for part, counts in [pair] + _HELD.get(skey, []))
+            for skey, pair in _SCRATCH.items()}
 
 
 def check(err: int, what: str) -> None:

@@ -98,7 +98,7 @@ def flash_decode_plain(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v,
     return out.reshape(b, h, d)
 
 
-flash_decode_plain.cuda_calls = 0
+_build.counter(flash_decode_plain, "cuda_calls")
 
 
 _LIB = {}
@@ -259,4 +259,4 @@ def flash_decode_attention(q, k_q, k_scale, v_q, v_scale, off, *,
               kpos_start=kpos_start, softcap=softcap)
 
 
-flash_decode_attention.launches = 0
+_build.counter(flash_decode_attention, "launches")

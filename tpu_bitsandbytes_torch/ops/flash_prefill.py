@@ -11,8 +11,9 @@ operands' dtype before the PV dot, and ``acc / max(l, 1e-38)`` at the end.
 
 Where ``p`` is rounded depends on the key tile, so the plain version takes
 the tile (``block_k``): 512 as the TPU kernel (what the tests hold against
-the JAX package), 128 as the CUDA kernel (what CPU tensors run, so the CPU
-computes what the card does).
+the JAX package), or the CUDA kernel's tile for the head dim
+(``KEY_TILE``: 128 keys at d = 64 and 128, 64 at d = 256; what CPU tensors
+run, so the CPU computes what the card does).
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ import torch
 from . import _build
 
 __all__ = ["flash_prefill_attention", "flash_prefill_plain",
-           "tiled_attention", "kept_pairs", "BLOCK", "HEAD_DIMS"]
+           "tiled_attention", "kept_pairs", "KEY_TILE", "HEAD_DIMS"]
 
-BLOCK = 128     # the CUDA kernel's query and key tile
+# the CUDA kernel's key tile for each head dim it takes (its query tile is
+# 128 rows at every d; where p rounds depends on the key tile alone)
+KEY_TILE = {64: 128, 128: 128, 256: 64}
+HEAD_DIMS = tuple(KEY_TILE)
 _NEG = -1e30
-HEAD_DIMS = (64, 128)   # the head dims the CUDA kernel takes
 
 
 def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -104,7 +107,7 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            softcap=softcap, block_k=block_k)
 
 
-flash_prefill_plain.cuda_calls = 0
+_build.counter(flash_prefill_plain, "cuda_calls")
 
 
 def kept_pairs(s: int, s_real: int, window: Optional[int] = None) -> int:
@@ -168,14 +171,19 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
     CUDA tensors launch kernel K3 (counted in
     ``flash_prefill_attention.launches``); CPU tensors take
-    :func:`flash_prefill_plain` at the kernel's tile.
+    :func:`flash_prefill_plain` at the kernel's key tile for the head dim
+    (``KEY_TILE``).
     """
     if not q.is_cuda:
+        d = q.shape[3]
+        if d not in KEY_TILE:
+            raise NotImplementedError(f"flash_prefill: head_dim {d} (the "
+                                      f"kernel takes {HEAD_DIMS})")
         return flash_prefill_plain(q, k, v, s_real=s_real, scale=scale,
                                    window=window, softcap=softcap,
-                                   block_k=BLOCK)
+                                   block_k=KEY_TILE[d])
     return _kernel(q, k, v, s_real=s_real, scale=scale, window=window,
                    softcap=softcap)
 
 
-flash_prefill_attention.launches = 0
+_build.counter(flash_prefill_attention, "launches")

@@ -110,7 +110,7 @@ def int4_mm_plain(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     return acc * s_x[:, None]
 
 
-int4_mm_plain.cuda_calls = 0
+_build.counter(int4_mm_plain, "cuda_calls")
 
 
 _LIB = {}
@@ -168,7 +168,7 @@ def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-int4_mm.launches = 0
+_build.counter(int4_mm, "launches")
 
 
 def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,

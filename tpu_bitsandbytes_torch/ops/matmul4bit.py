@@ -83,7 +83,7 @@ def matmul4bit_plain(x: torch.Tensor, packed: torch.Tensor,
             + xf[:, 1::2].to(f32) @ vhi.to(f32).t())
 
 
-matmul4bit_plain.cuda_calls = 0
+_build.counter(matmul4bit_plain, "cuda_calls")
 
 
 _LIB = {}
@@ -164,8 +164,7 @@ def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-matmul4bit_mm.launches = 0
-matmul4bit_mm.wgmma_launches = 0
+_build.counter(matmul4bit_mm, "launches", "wgmma_launches")
 
 
 def fused_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,

@@ -83,7 +83,7 @@ def w4a8_mm_plain(xq: torch.Tensor, packed: torch.Tensor,
     return acc * s_x[:, None]
 
 
-w4a8_mm_plain.cuda_calls = 0
+_build.counter(w4a8_mm_plain, "cuda_calls")
 
 
 _LIB = {}
@@ -152,7 +152,7 @@ def w4a8_mm(xq: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
     return out
 
 
-w4a8_mm.launches = 0
+_build.counter(w4a8_mm, "launches")
 
 
 def quantize_a8(x: torch.Tensor, k_pad: int
