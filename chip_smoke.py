@@ -27,7 +27,10 @@ Phases (any failure raises: traceback, nonzero exit):
      and 8 staged decode steps on the card (kernels) and on the CPU (plain
      versions), both bf16. 3b runs the card twice: fed the CPU's
      activation at every K4 call, and on its own A8 codes, held to the
-     CPU's own bf16-vs-f32 gap.
+     CPU's own bf16-vs-f32 gap. 3c: 3b's model takes a 600-token prompt
+     as three 256-token prefill chunks (K5 at M = 256, then K4 for the
+     lm_head at M = 1) on the card and the CPU: hidden states and (fed the
+     CPU's K4 input) final logits within E2E_TOL.
   4. Llama-2-7B at its 32 layers, random NF4 weights from a seed, served by
      ``DecodeEngine.generate`` (int4 runtime cache, B=8, 32-step chunks)
      for 8 requests of 16-200 prompt tokens and 64 greedy new tokens each.
@@ -54,6 +57,20 @@ Phases (any failure raises: traceback, nonzero exit):
      mode's line has graphs captured, capture seconds, the graph pool's
      MiB and peak device memory. Phase 4 also counts the kernels one
      decode-shaped matmul launches besides K1 (the A8 quantization).
+  6. The request API on phase 5's model (``prefill_chunk`` 256): nine
+     requests (phase 5's prompts and a queued 300-token one) with
+     repetition penalties, logprobs, a sampled request and a cancel,
+     streamed through ``generate_stream`` on a graphed engine (pass A); the
+     same prompts all greedy on an eager and a graphed engine (pass B:
+     tokens identical, logprobs within 1e-5, 161 K4 + 40 K2 per step of a
+     penalty-and-logprobs chunk by the counters and by its graph's nodes);
+     five of them on a bf16 KV cache (pass C: no K2, 161 K4 per step,
+     tokens identical between modes); every 256-token chunk 160 K5
+     launches on the wgmma kernel and every final chunk 1 K4; then the
+     1800-token prompt chunked against one bucket-2048 ``prefill_step``
+     (K3) in both cache modes. Each pass prints its chunk ms, decode step
+     ms beside and without a prefill chunk, graph keys, capture seconds,
+     pool MiB and peak memory.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -1357,11 +1374,11 @@ def timed_prefills(counters):
             "prefill_batch": E.prefill_batch}
 
     def timed(fn):
-        def run(params, cache, tokens, *args):
+        def run(params, cache, tokens, *args, **kw):
             before = counts(counters)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(params, cache, tokens, *args)
+            out = fn(params, cache, tokens, *args, **kw)
             torch.cuda.synchronize()
             groups.append({
                 "rows": tokens.shape[0], "bucket": tokens.shape[1],
@@ -1381,12 +1398,12 @@ def timed_prefills(counters):
             setattr(E, name, fn)
 
 
-def phase_serve_packed(dev, counters, plains, bw, int8_peak):
+def phase_serve_packed(dev, counters, plains, bw, int8_peak, workload):
     """5: Llama-2-13B, 40 layers, off the packed NF4 bytes, eager and
-    graphed. Returns the eager pass's launches (equal to the graphed
-    pass's) and K2's bound for one decode step at the slots' final
-    positions (ms, 40 layers)."""
-    cfg, params, prompts, sp, kw = packed_workload(dev)
+    graphed (``workload``: :func:`packed_workload`). Returns the eager
+    pass's launches (equal to the graphed pass's) and K2's bound for one
+    decode step at the slots' final positions (ms, 40 layers)."""
+    cfg, params, prompts, sp, kw = workload
     want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
             "K3_flash_prefill": 0, "K4_w4a8_matmul": 4 * cfg.num_layers + 1,
             "K5_matmul4bit": 0}
@@ -1430,6 +1447,475 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak):
         "new_tokens": 48, "k5_wgmma_launches": want_k5,
         "k2_kept_keys": kept_keys, "k2_bound_ms_per_step": k2_bound})
     return results["eager"]["passes"][-1]["launches"], k2_bound
+
+
+# ---------------------------------------------------------------------------
+# phase 3c and phase 6: the request API (chunked prefill, repetition
+# penalty, logprobs, cancel, streaming, the bf16 KV cache)
+# ---------------------------------------------------------------------------
+
+CHUNK = 256         # phase 6's prefill_chunk: K5 at M = 256
+
+
+def run_chunks(params, cfg, device, prompt, *, quantized=True, cache=None):
+    """``prompt`` into slot 0 of a fresh one-slot cache (max_seq 2048) by
+    ``CHUNK``-token ``prefill_chunk_step`` calls, then
+    ``prefill_final_logits``. Returns (each chunk's hidden [1, C, H] on the
+    CPU, f32 logits [V] on the CPU)."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.engine.kvcache import KVCache
+    cache = KVCache.create(cfg.num_layers, 1, 2048, cfg.num_kv_heads,
+                           cfg.hd, quantized=quantized, dtype=cfg.dtype,
+                           device=device)
+    n, hidden = len(prompt), []
+    for start in range(0, n, CHUNK):
+        end = min(start + CHUNK, n)
+        toks = torch.zeros((1, CHUNK), dtype=torch.int32)
+        toks[0, :end - start] = torch.tensor(prompt[start:end])
+        x, cache = E.prefill_chunk_step(
+            params, cache, toks.to(device), 0, start, end, cfg,
+            attn_span=E._chunk_span_bucket(start + CHUNK, 2048))
+        hidden.append(x[0, :end - start].float().cpu())
+    logits = E.prefill_final_logits(params, x, n - 1 - start, cfg)
+    return hidden, logits.float().cpu()
+
+
+def phase_chunked_prefill(dev, counters):
+    """3c: phase 3b's Llama-2-13B-width model (2 layers, NF4-quantized
+    normal weights, seed 2468) takes a 600-token prompt as three 256-token
+    chunks, on the card (K5 at M = 256, then K4 for the lm_head at M = 1)
+    and on the CPU (plain versions). Each chunk's hidden states must agree
+    within E2E_TOL; the final logits too, with the card fed the CPU's K4
+    input (per-row A8 codes turn one bf16 ulp into a few per cent, as in
+    3b); the card's own-codes gap is printed beside it."""
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig, to_device
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
+    params = normal_nf4_params(cfg, np.random.default_rng(2468), dev)
+    cpu_params = to_device(params, "cpu")
+    prompt = np.random.default_rng(2469).integers(1, cfg.vocab_size,
+                                                  600).tolist()
+    t0 = time.perf_counter()
+    cpu_x = []
+    with k4_inputs(record=cpu_x):
+        ref_h, ref_l = run_chunks(cpu_params, cfg, "cpu", prompt)
+    cpu_s = time.perf_counter() - t0
+    before = counts(counters)
+    wg = counters["K5_matmul4bit"].wgmma_launches
+    with k4_inputs(feed=cpu_x) as notes:
+        got_h, got_l = run_chunks(params, cfg, dev, prompt)
+    launches = {k: n - before[k] for k, n in counts(counters).items()}
+    wgmma = counters["K5_matmul4bit"].wgmma_launches - wg
+    want = {k: 0 for k in counters}
+    want.update(K5_matmul4bit=3 * 4 * cfg.num_layers, K4_w4a8_matmul=1)
+    if launches != want or wgmma != want["K5_matmul4bit"] or len(notes) != 1:
+        raise AssertionError(f"chunked prefill: launches {launches} "
+                             f"({wgmma} wgmma, {len(notes)} K4 inputs fed), "
+                             f"expected {want} all on the wgmma kernel")
+    hidden_err = [err(g, r)[1] for g, r in zip(got_h, ref_h)]
+    fed_err = err(got_l, ref_l)[1]
+    _, own_l = run_chunks(params, cfg, dev, prompt)
+    own_err = err(own_l, ref_l)[1]
+    if not (max(hidden_err) <= E2E_TOL and fed_err <= E2E_TOL
+            and torch.isfinite(own_l).all()):
+        raise AssertionError(f"chunked prefill card vs CPU: hidden "
+                             f"{hidden_err}, fed logits {fed_err} > "
+                             f"{E2E_TOL}")
+    emit({"phase": "chunked_prefill", "layers": 2, "hidden": cfg.hidden_size,
+          "prompt_len": len(prompt), "chunk": CHUNK, "tol": E2E_TOL,
+          "hidden_rel_err_by_chunk": hidden_err,
+          "fed_logit_rel_err": fed_err, "own_codes_logit_rel_err": own_err,
+          "k4_input_rel_err": notes[0]["rel_err"],
+          "k4_codes_differ": notes[0]["codes_differ"], "cpu_s": cpu_s,
+          "launches": launches})
+
+
+@contextlib.contextmanager
+def timed_chunks(counters):
+    """Each prefill chunk (``prefill_chunk_step``) and final logits
+    (``prefill_final_logits``) call, timed between synchronizations, with
+    its launches by ``counters`` and K5's wgmma launches: yields the list
+    of calls."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    calls = []
+    orig = {"prefill_chunk_step": E.prefill_chunk_step,
+            "prefill_final_logits": E.prefill_final_logits}
+    k5 = counters["K5_matmul4bit"]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            before, wg = counts(counters), k5.wgmma_launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append({"call": name, "ms": (time.perf_counter() - t) * 1e3,
+                          "wgmma": k5.wgmma_launches - wg,
+                          "launches": {k: n - before[k] for k, n in
+                                       counts(counters).items()
+                                       if n - before[k]}})
+            return out
+        return run
+
+    for name, fn in orig.items():
+        setattr(E, name, timed(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in orig.items():
+            setattr(E, name, fn)
+
+
+def new_engine(dev, params, cfg, kw, mode):
+    """A fresh engine (graphed or eager), built after the last one's memory
+    went back to the device."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    return E.DecodeEngine(params, cfg, device=dev,
+                          cuda_graphs=mode == "graphed", **kw)
+
+
+def serve_stream(engine, mode, prompts, sps, counters, plains, cancel=None,
+                 must_replay=True):
+    """Serve ``prompts`` once through ``generate_stream`` on ``engine``,
+    cancelling request ``cancel`` (its index in ``prompts``) after its
+    first streamed token. Checks what every pass must hold (stream events
+    equal each request's tokens, logprobs, token ids, no plain-version call
+    on a CUDA tensor, and, graphed with ``must_replay``, some decode chunk
+    replayed a graph rather than captured one). Returns the result, whose
+    ``launches`` each wrapper counted where it launched only if ``mode`` is
+    eager (a graph's are counted at capture and added per replay)."""
+    cfg = engine.config
+    reset(counters, plains)
+    # each decode chunk: (a prefill chunk ran before it in its step, it
+    # captured a graph, wall s)
+    state = {"beside": False, "graphs": engine.graph_stats()["graphs"]}
+    decode = []
+    advance, record = engine._advance_prefill, engine.metrics.record
+
+    def advance_logged():
+        state["beside"] = advance()
+        return state["beside"]
+
+    def record_logged(emitted, wall_s):
+        graphs = engine.graph_stats()["graphs"]
+        decode.append((state["beside"], graphs > state["graphs"], wall_s))
+        state["graphs"] = graphs
+        record(emitted, wall_s)
+
+    engine._advance_prefill, engine.metrics.record = (advance_logged,
+                                                      record_logged)
+    events = []
+    first_uid = engine._uid + 1
+    t0 = time.perf_counter()
+    with timed_chunks(counters) as calls:
+        stream = engine.generate_stream(prompts, sps)
+        while True:
+            try:
+                ev = next(stream)
+            except StopIteration as stop:
+                uids = stop.value
+                break
+            events.append(ev)
+            if cancel is not None and ev[0] == first_uid + cancel:
+                engine.cancel(ev[0])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    engine._advance_prefill, engine.metrics.record = advance, record
+    reqs = {r.uid: r for r in engine.finished if r.uid in uids}
+    if (uids != list(range(first_uid, first_uid + len(prompts)))
+            or sorted(reqs) != uids):
+        raise AssertionError(f"{mode}: uids {uids}, finished {sorted(reqs)}")
+    for u in uids:
+        r = reqs[u]
+        mine = [(t, d) for uu, t, d in events if uu == u]
+        if [t for t, _ in mine] != r.generated or not mine:
+            raise AssertionError(f"{mode}: request {u}'s stream events "
+                                 f"differ from its tokens")
+        if not r.cancelled and [d for _, d in mine] != (
+                [False] * (len(mine) - 1) + [True]):
+            raise AssertionError(f"{mode}: request {u}'s last event is not "
+                                 "its only done=True")
+        if not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"{mode}: request {u}: token out of range")
+        if r.params.logprobs and not (
+                len(r.logprobs) == len(r.generated)
+                and all(math.isfinite(x) and x <= 0 for x in r.logprobs)):
+            raise AssertionError(f"{mode}: request {u}: logprobs "
+                                 f"{r.logprobs[:4]}... for "
+                                 f"{len(r.generated)} tokens")
+    plain_calls = sum(f.cuda_calls for f in plains)
+    if plain_calls:
+        raise AssertionError(f"{mode}: {plain_calls} plain-version calls on "
+                             "CUDA tensors")
+    chunks = [c for c in calls if c["call"] == "prefill_chunk_step"]
+    finals = [c for c in calls if c["call"] == "prefill_final_logits"]
+    for c in chunks:
+        if c["launches"] != {"K5_matmul4bit": 4 * cfg.num_layers} or (
+                c["wgmma"] != 4 * cfg.num_layers):
+            raise AssertionError(f"{mode}: a prefill chunk launched {c}")
+    for c in finals:
+        if c["launches"] != {"K4_w4a8_matmul": 1}:
+            raise AssertionError(f"{mode}: final logits launched {c}")
+    n = engine.steps_per_sync
+    capturing = sum(c for _, c, _ in decode)
+    if mode == "graphed" and must_replay and not capturing < len(decode):
+        raise AssertionError(f"{mode}: all {len(decode)} decode chunks "
+                             "captured a graph; none replayed one")
+
+    def step_ms(beside):
+        """Mean decode step ms of the chunks beside (or not beside) a
+        prefill chunk, those that captured a graph left out."""
+        walls = [w for b, cap, w in decode if b == beside and not cap]
+        return (sum(walls) / len(walls) / n * 1e3) if walls else None
+
+    res = {"mode": mode, "wall_s": wall_s, "uids": uids, "reqs": reqs,
+           "launches": counts(counters),
+           "wgmma_launches": counters["K5_matmul4bit"].wgmma_launches,
+           "chunk_ms": [c["ms"] for c in chunks],
+           "final_chunk_ms": [c["ms"] for c in finals],
+           "decode_chunks": len(decode),
+           "decode_chunks_beside_prefill": sum(b for b, _, _ in decode),
+           "decode_chunks_capturing": capturing,
+           "decode_step_ms_beside_prefill": step_ms(True),
+           "decode_step_ms_alone": step_ms(False),
+           "graph_keys": engine.graph_keys(), "graphs": engine.graph_stats(),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+           / 2 ** 30,
+           "max_memory_reserved_gib": torch.cuda.max_memory_reserved()
+           / 2 ** 30}
+    return res
+
+
+def chunk_launches(engine, key, counters):
+    """Launches per decode step of one more chunk of ``key`` (span,
+    n_steps, all_greedy, penalty, want_logprobs) from every slot's current
+    position: by the counters (eager: each wrapper's own; graphed: the
+    replay's), and, graphed, by the kernel nodes of the key's graph."""
+    span, n, greedy, penalty, want_lp = key
+    b, vocab = engine.max_batch, engine.config.vocab_size
+    before = counts(counters)
+    engine.run_chunk(np.ones((b,), np.int32), np.ones((b,), bool),
+                     all_greedy=greedy, attn_span=span,
+                     seen=np.zeros((b, vocab), bool) if penalty else None,
+                     want_logprobs=want_lp)
+    torch.cuda.synchronize()
+    got = {"counters": {k: (c - before[k]) / n
+                        for k, c in counts(counters).items()}}
+    if engine.graph_keys():
+        names = engine.graph_kernel_names(span, greedy, penalty, want_lp)
+        got["graph_nodes"] = {
+            k: sum(c for nm, c in names.items() if re.search(rx, nm)) / n
+            for k, rx in KERNEL_RE.items()}
+    return got
+
+
+def request_line(res):
+    """A pass's printed numbers."""
+    g = res["graphs"]
+    return {"mode": res["mode"], "wall_s": res["wall_s"],
+            "prefill_chunks": len(res["chunk_ms"]), "chunk_ms": res["chunk_ms"],
+            "final_chunk_ms": res["final_chunk_ms"],
+            "decode_chunks": res["decode_chunks"],
+            "decode_chunks_beside_prefill":
+                res["decode_chunks_beside_prefill"],
+            "decode_chunks_capturing": res["decode_chunks_capturing"],
+            "decode_step_ms_beside_prefill":
+                res["decode_step_ms_beside_prefill"],
+            "decode_step_ms_alone": res["decode_step_ms_alone"],
+            "graph_keys": res["graph_keys"], "graphs_captured": g["graphs"],
+            "capture_s": g["capture_s"],
+            "graph_pool_mib": g["pool_bytes"] / 2 ** 20,
+            "max_memory_allocated_gib": res["max_memory_allocated_gib"],
+            "max_memory_reserved_gib": res["max_memory_reserved_gib"],
+            "launches": res["launches"],
+            "k5_wgmma_launches": res["wgmma_launches"]}
+
+
+def phase_requests(dev, counters, plains, workload):
+    """6: the request API at Llama-2-13B width (40 layers, phase 5's model
+    off the packed bytes), B=8, max_seq 2048, 32-step chunks,
+    ``prefill_chunk`` 256, nine requests: phase 5's eight prompts and a
+    300-token one, queued until request 6's slot frees. Pass A (graphed,
+    through ``generate_stream``): greedy, penalties, logprobs, a sampled
+    request and request 6 cancelled after its first streamed token. Pass B
+    (eager and graphed): the same prompts all greedy, penalties and
+    logprobs kept; tokens identical and logprobs within 1e-5, 161 K4 + 40
+    K2 per step of a penalty-and-logprobs chunk by the counters and the
+    graph's nodes. Pass C (bf16 KV, eager and graphed): requests 0-3 and
+    7, 16 greedy tokens, served twice on one engine (the second serving
+    replays the graphs the first captured); tokens identical, no K2, 161
+    K4 per step, finite logits of a decode step at the end. Every graphed
+    serving but pass C's first must replay a graph. Then, on fresh caches, the
+    1800-token prompt chunked against one bucket-2048 ``prefill_step``
+    (K3), in both cache modes. Every 256-token chunk runs 160 K5 launches
+    on the wgmma kernel and every final chunk 1 K4. Returns pass B's eager
+    launches (equal to its graphed pass's)."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.engine.kvcache import KVCache
+    t_phase = time.perf_counter()
+    cfg, params, prompts, greedy, kw = workload
+    prompts = prompts + [np.random.default_rng(19).integers(
+        1, cfg.vocab_size, 300).tolist()]
+    kw = dict(kw, prefill_chunk=CHUNK)
+    pen = dataclasses.replace(greedy, repetition_penalty=1.3)
+    lp = dataclasses.replace(greedy, logprobs=True)
+    both = dataclasses.replace(pen, logprobs=True)
+    hot = dataclasses.replace(greedy, temperature=0.8, top_p=0.9)
+    common = {"model": "llama2_13b", "layers": cfg.num_layers, "batch": 8,
+              "max_seq": 2048, "steps_per_sync": 32, "prefill_chunk": CHUNK,
+              "prompt_lens": [len(p) for p in prompts]}
+    per_step = {k: 0.0 for k in KERNEL_RE}
+    per_step.update(K4_w4a8_matmul=4 * cfg.num_layers + 1.0,
+                    K2_flash_decode=float(cfg.num_layers))
+
+    # pass A: graphed, the full mix
+    engine = new_engine(dev, params, cfg, kw, "graphed")
+    res_a = serve_stream(
+        engine, "graphed", prompts,
+        [greedy, greedy, pen, lp, both, hot, greedy, greedy, greedy],
+        counters, plains, cancel=6)
+    del engine
+    reqs = res_a["reqs"]
+    if not (reqs[7].cancelled and len(reqs[7].generated) < 48
+            and all(len(reqs[u].generated) == 48 for u in reqs if u != 7)):
+        raise AssertionError("pass A: token counts "
+                             f"{ {u: len(r.generated) for u, r in reqs.items()} }")
+    emit({"phase": "requests", "pass": "A", **common, **request_line(res_a),
+          "cancelled_tokens": len(reqs[7].generated),
+          "slots": {u: r.slot for u, r in reqs.items()},
+          "logprobs_per_request": {u: len(r.logprobs) for u, r in reqs.items()
+                                   if r.params.logprobs}})
+
+    # pass B: eager and graphed, all greedy, penalties and logprobs kept
+    sps_b = [greedy, greedy, pen, lp, both, greedy, greedy, greedy, greedy]
+    res_b, steps_b = {}, {}
+    for mode in MODES:
+        engine = new_engine(dev, params, cfg, kw, mode)
+        res = serve_stream(engine, mode, prompts, sps_b, counters, plains)
+        keys = [k for k in res["graph_keys"] if k[3] and k[4]]
+        key = keys[0] if keys else (256, 32, True, True, True)
+        steps_b[mode] = chunk_launches(engine, key, counters)
+        if any(c != per_step for c in steps_b[mode].values()):
+            raise AssertionError(f"pass B {mode}: launches per step of a "
+                                 f"penalty-and-logprobs chunk "
+                                 f"{steps_b[mode]}, expected {per_step}")
+        res_b[mode] = res
+        del engine
+    # the path's launches: the eager pass's, each counted by its wrapper
+    # where it launched; the graphed pass's, counted at capture and added
+    # per replay, must equal them
+    launches = res_b["eager"]["launches"]
+    if res_b["graphed"]["launches"] != launches:
+        raise AssertionError(f"pass B: the graphed pass counted "
+                             f"{res_b['graphed']['launches']} launches, the "
+                             f"eager pass {launches}")
+    for k in ("K2_flash_decode", "K4_w4a8_matmul", "K5_matmul4bit"):
+        if not launches[k]:
+            raise AssertionError(f"pass B: {k} never launched")
+    e_reqs, g_reqs = res_b["eager"]["reqs"], res_b["graphed"]["reqs"]
+    lp_gap = 0.0
+    for u in e_reqs:
+        if e_reqs[u].generated != g_reqs[u].generated:
+            raise AssertionError(f"pass B: request {u}'s tokens differ "
+                                 "between eager and graphed chunks")
+        if e_reqs[u].logprobs:
+            lp_gap = max(lp_gap, float(np.abs(
+                np.array(e_reqs[u].logprobs)
+                - np.array(g_reqs[u].logprobs)).max()))
+    if not lp_gap <= 1e-5:
+        raise AssertionError(f"pass B: logprobs eager vs graphed {lp_gap}")
+    for mode in MODES:
+        emit({"phase": "requests", "pass": "B", **common,
+              **request_line(res_b[mode]),
+              "launches_per_step_penalty_logprobs": steps_b[mode]})
+    emit({"phase": "requests_compare", "pass": "B",
+          "tokens_identical": True, "logprob_max_abs_gap": lp_gap,
+          "decode_step_ms_alone": {
+              m: res_b[m]["decode_step_ms_alone"] for m in MODES}})
+
+    # pass C: bf16 KV, eager and graphed, the prompts served twice on one
+    # engine: the first time captures each key's graph, the second replays
+    kw_c = dict(kw, quantized_kv=False)
+    pick = [0, 1, 2, 3, 7]
+    sp_c = dataclasses.replace(greedy, max_new_tokens=16)
+    per_step_c = dict(per_step, K2_flash_decode=0.0)
+    res_c, steps_c = {}, {}
+    for mode in MODES:
+        engine = new_engine(dev, params, cfg, kw_c, mode)
+        res_c[mode] = [serve_stream(engine, mode, [prompts[i] for i in pick],
+                                    [sp_c] * len(pick), counters, plains,
+                                    must_replay=i > 0) for i in range(2)]
+        lengths = engine.cache.lengths.clone()
+        span = E._span_bucket(int(lengths.max()) + 32, 2048)
+        steps_c[mode] = chunk_launches(engine, (span, 32, True, False, False),
+                                       counters)
+        if any(c != per_step_c for c in steps_c[mode].values()):
+            raise AssertionError(f"pass C {mode}: launches per step "
+                                 f"{steps_c[mode]}, expected {per_step_c}")
+        engine.cache.lengths.copy_(lengths)
+        last = res_c[mode][-1]
+        toks = torch.tensor([last["reqs"][u].generated[-1]
+                             for u in last["uids"]]
+                            + [0] * (8 - len(pick)), dtype=torch.int32,
+                            device=dev)
+        logits = E.decode_step(engine.params, engine.cache, toks,
+                               torch.ones((8,), dtype=torch.bool,
+                                          device=dev), cfg,
+                               attn_span=span)[0]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"pass C {mode}: decode-step logits not "
+                                 "finite")
+        del engine, logits
+    for i in range(2):
+        e, g = res_c["eager"][i], res_c["graphed"][i]
+        if ([e["reqs"][u].generated for u in e["uids"]]
+                != [g["reqs"][u].generated for u in g["uids"]]):
+            raise AssertionError(f"pass C, serving {i + 1}: tokens differ "
+                                 "between eager and graphed chunks")
+    for mode in MODES:
+        for i, res in enumerate(res_c[mode]):
+            emit({"phase": "requests", "pass": "C", "kv": "bf16",
+                  "serving": i + 1, **common,
+                  "prompt_lens": [len(prompts[j]) for j in pick],
+                  "new_tokens": 16, **request_line(res),
+                  "launches_per_step": steps_c[mode]})
+
+    # chunked against unchunked, the 1800-token prompt, fresh caches: the
+    # last-token logits within E2E_TOL of max|ref| and the same argmax, in
+    # both cache modes (with int8 KV the chunks attend over int8 codes, the
+    # unchunked forward over its own bf16 K/V; JAX's tests hold that mode
+    # only to the first token, tests/test_engine.py:772-784)
+    free_memory()
+    long_prompt = prompts[7]
+    gaps = {}
+    for quantized in (False, True):
+        _, chunked = run_chunks(params, cfg, dev, long_prompt,
+                                quantized=quantized)
+        cache = KVCache.create(cfg.num_layers, 1, 2048, cfg.num_kv_heads,
+                               cfg.hd, quantized=quantized, dtype=cfg.dtype,
+                               device=dev)
+        padded = torch.zeros((1, 2048), dtype=torch.int32)
+        padded[0, :len(long_prompt)] = torch.tensor(long_prompt)
+        k3 = counters["K3_flash_prefill"].launches
+        ref, cache = E.prefill_step(params, cache, padded.to(dev), 0,
+                                    len(long_prompt), cfg)
+        if counters["K3_flash_prefill"].launches - k3 != cfg.num_layers:
+            raise AssertionError("unchunked prefill did not run K3")
+        ref = ref.float().cpu()
+        gaps["int8" if quantized else "bf16"] = {
+            "rel_err": err(chunked, ref)[1],
+            "argmax_equal": bool(chunked.argmax() == ref.argmax())}
+        del cache
+        free_memory()
+    if not all(g["rel_err"] <= E2E_TOL and g["argmax_equal"]
+               for g in gaps.values()):
+        raise AssertionError(f"chunked vs unchunked: {gaps} (tol "
+                             f"{E2E_TOL}, argmax equal)")
+    emit({"phase": "chunked_vs_unchunked", "prompt_len": len(long_prompt),
+          "chunk": CHUNK, "gaps": gaps, "tol": E2E_TOL})
+    emit({"phase": "requests_wall", "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def main() -> int:
@@ -1492,14 +1978,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_full_width_packed(dev, counters)
     torch.cuda.empty_cache()
+    phase_chunked_prefill(dev, counters)
+    torch.cuda.empty_cache()
 
     # 4. Llama-2-7B through the int4 cache
     by_path = {"llama2_7b_int4": phase_serve(dev, counters, plains)}
     torch.cuda.empty_cache()
 
-    # 5. the slice: Llama-2-13B off the packed bytes
+    # 5. Llama-2-13B off the packed bytes
+    workload = packed_workload(dev)
     by_path["llama2_13b_packed"], k2_bound_13b = phase_serve_packed(
-        dev, counters, plains, bw, int8_peak)
+        dev, counters, plains, bw, int8_peak, workload)
+    torch.cuda.empty_cache()
+
+    # 6. the slice: the request API on the same model
+    by_path["llama2_13b_requests"] = phase_requests(dev, counters, plains,
+                                                    workload)
+    del workload
+    free_memory()
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     for k in kernels:

@@ -1091,3 +1091,112 @@ def test_packed_path_card_matches_cpu(cuda):
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()
         assert rel_err(g, r) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# the request API: penalty, logprobs, chunked prefill, bf16 KV
+# ---------------------------------------------------------------------------
+
+def _request_mix(vocab):
+    """Prompts of 100, 20, 60 and 45 tokens: greedy, greedy with a
+    penalty, greedy with logprobs, and both; prompts repeat tokens so the
+    penalty acts."""
+    prompts = [p + p[:6] for p in _prompts([94, 14, 54, 39], vocab)]
+    sps = [SamplingParams(max_new_tokens=40),
+           SamplingParams(max_new_tokens=40, repetition_penalty=1.3),
+           SamplingParams(max_new_tokens=40, logprobs=True),
+           SamplingParams(max_new_tokens=40, repetition_penalty=1.5,
+                          logprobs=True)]
+    return prompts, sps
+
+
+def _serve(eng, prompts, sps):
+    for p, sp in zip(prompts, sps):
+        eng.add_request(p, sp)
+    while eng.step():
+        pass
+    return {r.uid: (r.generated, r.logprobs) for r in eng.finished}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_penalty_and_logprobs_graphs_replay_eager(cuda, packed):
+    """Chunks with the repetition penalty and logprobs, graphed, emit the
+    tokens and logprobs the eager chunks emit (the same kernels in the
+    same order: logprobs within 1e-6), through the int4 cache and off the
+    packed bytes; the graphs met carry the penalty and logprobs flags."""
+    cfg, params = _graph_model(packed)
+    prompts, sps = _request_mix(cfg.vocab_size)
+    outs, keys = {}, None
+    for graphs in (False, True):
+        eng = _engine(cfg, params, cuda, graphs)
+        outs[graphs] = _serve(eng, prompts, sps)
+        if graphs:
+            keys = eng.graph_keys()
+    assert {u: g for u, (g, _) in outs[True].items()} == {
+        u: g for u, (g, _) in outs[False].items()}
+    for u, (_, lps) in outs[True].items():
+        np.testing.assert_allclose(lps, outs[False][u][1], rtol=0, atol=1e-6)
+    assert len(outs[True][4][1]) == 40 and outs[True][1][1] == []
+    assert any(k[3] and k[4] for k in keys)
+    plain = _serve(_engine(cfg, params, cuda, True), prompts,
+                   [SamplingParams(max_new_tokens=40)] * 4)
+    assert plain[2][0] != outs[True][2][0]       # the penalty acted
+
+
+def test_graphed_seen_mask_equals_host_rebuild(cuda):
+    """Inside a replayed chunk the seen mask is updated on the device as
+    tokens are emitted; after each chunk it equals the host's rebuild from
+    the requests' prompts and outputs, slot by slot."""
+    cfg, params = _graph_model(False)
+    eng = _engine(cfg, params, cuda, True)
+    prompts, _ = _request_mix(cfg.vocab_size)
+    for p, pen in zip(prompts, (1.2, 1.0, 1.5, 1.3)):
+        eng.add_request(p, SamplingParams(max_new_tokens=30,
+                                          repetition_penalty=pen))
+    checked = 0
+    while eng.step():
+        host = torch.from_numpy(eng._seen_mask())
+        dev = eng._seen.cpu()
+        for slot in eng.active:
+            assert torch.equal(dev[slot], host[slot])
+            checked += 1
+    assert checked > 4 and eng.graph_stats()["graphs"] >= 1
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_kv_engine_serves_graphed(cuda, packed):
+    """``quantized_kv=False``: no stage, no K2 (decode attention is plain
+    torch over the bf16 cache); graphed chunks emit the eager chunks'
+    greedy tokens, with a chunked prefill among them."""
+    cfg, params = _graph_model(packed)
+    prompts = _prompts([100, 20, 60], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=30)
+    outs = {}
+    for graphs in (False, True):
+        eng = E.DecodeEngine(llama.to_device(params, cuda), cfg, max_batch=4,
+                             steps_per_sync=8, device=cuda, cuda_graphs=graphs,
+                             quantized_kv=False, prefill_chunk=32)
+        assert eng.cache.k.dtype == torch.bfloat16
+        k2 = K2.flash_decode_attention.launches
+        outs[graphs] = eng.generate(prompts, sp)
+        assert K2.flash_decode_attention.launches == k2
+    assert outs[True] == outs[False]
+    assert all(len(o) == 30 for o in outs[True])
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_chunked_prefill_card_matches_cpu(cuda, quantized):
+    """f32, int4 cache: 16-token prefill chunks on the card (K1 for every
+    matmul) differ from the CPU's only in f32 sum order, so the greedy
+    tokens are identical, on an int8 and on an unquantized cache."""
+    cfg, params = _tiny(torch.float32)
+    prompts = _prompts([50, 7, 33], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=8)
+    kw = dict(max_batch=2, max_seq=128, steps_per_sync=4, prefill_chunk=16,
+              quantized_kv=quantized)
+    ref = E.DecodeEngine(params, cfg, device="cpu", **kw).generate(prompts, sp)
+    k1 = K1.int4_mm.launches
+    got = E.DecodeEngine(llama.to_device(params, cuda), cfg, device=cuda,
+                         **kw).generate(prompts, sp)
+    assert K1.int4_mm.launches > k1
+    assert got == ref

@@ -9,14 +9,17 @@ counterpart of the JAX package's jitted ``lax.scan``), so the host pays
 the launches of a chunk once per set of static arguments, not once per
 token. A host-side scheduler admits queued requests into free slots
 between chunks, grouping same-length-bucket prompts into one batched
-prefill.
+prefill; with ``prefill_chunk`` a long prompt is written into its slot one
+chunk per engine step, between decode chunks (chunked prefill). Requests
+may ask for a repetition penalty and for logprobs, may be cancelled, and
+may stream their tokens (``on_token``, :meth:`DecodeEngine.generate_stream`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Counter, Dict, List, Optional
+from typing import Any, Callable, Counter, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -26,7 +29,7 @@ from ..ops import _build
 from ..utils import graph_census
 from ..utils.metrics import MetricsLogger
 from .kvcache import KVCache
-from .sampler import SamplingArrays, SamplingParams, sample_batched
+from .sampler import SamplingArrays, SamplingParams, sample, sample_batched
 
 
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
@@ -53,7 +56,9 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
                  active: torch.Tensor, generator: torch.Generator,
                  samp: SamplingArrays, config: llama.LlamaConfig,
                  n_steps: int = 8, all_greedy: bool = False,
-                 attn_span: Optional[int] = None):
+                 attn_span: Optional[int] = None,
+                 seen_mask: Optional[torch.Tensor] = None,
+                 want_logprobs: bool = False):
     """Advance every slot up to ``n_steps`` tokens without reading anything
     back to the host; a slot that emits its EOS, or reaches ``max_seq - 1``,
     goes inactive on the device and its later emissions carry
@@ -62,20 +67,32 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
     steps, sampling, flush) can be captured in one CUDA graph; the Python
     loop unrolls into it as JAX's scan runs its body ``n_steps`` times.
 
+    ``seen_mask`` bool [B, V]: each slot's seen tokens, which turns on the
+    repetition penalty (``samp.rep_pen``; greedy rows too); it is updated in
+    place as tokens are emitted. ``want_logprobs``: also return the model's
+    log-softmax at each emitted token, from the raw logits (before the
+    penalty and the temperature).
+
     Returns (tokens_seq int32 [n_steps, B], active_seq bool [n_steps, B],
-    cache, last tokens [B], active [B]).
+    cache, last tokens [B], active [B], logprobs_seq f32 [n_steps, B] or
+    None, seen_mask).
     """
     max_seq = cache.max_seq
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
     cache.begin_stage(n_steps)
-    toks_seq, act_seq = [], []
+    toks_seq, act_seq, lp_seq = [], [], []
     for _ in range(n_steps):
         logits, cache = decode_step(params, cache, tokens, active, config,
                                     attn_span)
-        if all_greedy:
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)
-        else:
-            toks = sample_batched(logits, generator, samp)
+        toks = sample_batched(logits, generator, samp, seen_mask,
+                              all_greedy=all_greedy)
         toks = torch.where(active, toks, tokens)
+        if want_logprobs:
+            lp_seq.append(torch.log_softmax(logits, dim=-1).gather(
+                1, toks.long()[:, None])[:, 0])
+        if seen_mask is not None:
+            t = toks.long()
+            seen_mask.index_put_((rows, t), seen_mask[rows, t] | active)
         toks_seq.append(toks)
         act_seq.append(active)
         hit_eos = active & (toks == samp.eos_id)
@@ -83,7 +100,8 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
         tokens = toks
     cache.flush_stage()
     return (torch.stack(toks_seq), torch.stack(act_seq), cache, tokens,
-            active)
+            active, torch.stack(lp_seq) if want_logprobs else None,
+            seen_mask)
 
 
 def prefill_step(params, cache: KVCache, tokens: torch.Tensor, slot: int,
@@ -101,10 +119,12 @@ def prefill_step(params, cache: KVCache, tokens: torch.Tensor, slot: int,
 def prefill_batch(params, cache: KVCache, tokens: torch.Tensor,
                   slots: torch.Tensor, true_lens: torch.Tensor,
                   generator: torch.Generator, samp: SamplingArrays,
-                  config: llama.LlamaConfig):
+                  config: llama.LlamaConfig,
+                  seen_mask: Optional[torch.Tensor] = None):
     """Prefill R same-bucket requests in one forward: tokens [R, S_pad],
     target ``slots`` [R], ``true_lens`` [R]. Duplicate slots must be
-    identical rows. Returns (first tokens [R] sampled with ``samp``,
+    identical rows. ``seen_mask`` [R, V]: each row's prompt tokens, for its
+    repetition penalty. Returns (first tokens [R] sampled with ``samp``,
     cache)."""
     logits, new_kv = llama.forward(params, tokens, config, return_kv=True)
     pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(
@@ -114,7 +134,55 @@ def prefill_batch(params, cache: KVCache, tokens: torch.Tensor,
     cache.lengths[slots.long()] = true_lens.to(torch.int32)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = logits[rows, true_lens.long() - 1]
-    return sample_batched(last, generator, samp), cache
+    return sample_batched(last, generator, samp, seen_mask=seen_mask), cache
+
+
+def prefill_chunk_step(params, cache: KVCache, tokens: torch.Tensor,
+                       slot: int, start: int, new_len: int,
+                       config: llama.LlamaConfig,
+                       attn_span: Optional[int] = None):
+    """One chunk of a chunked prefill: tokens [1, C] written into ``slot``
+    at positions [start, start + C) (those past ``max_seq`` dropped), the
+    chunk's queries attending to the slot's own history (``decode_layer``
+    in slot mode). A final chunk's padding writes garbage KV past the
+    prompt, which decode overwrites before attending to it.
+
+    ``new_len``: the slot's length after this chunk. Setting it after every
+    chunk is load-bearing: decode chunks running for other slots write a
+    garbage token into every slot at ``lengths[slot]`` (the int8 stage's
+    flush drops it; an unquantized cache takes it), so the length must
+    track the prefill frontier, where the next chunk, or the slot's first
+    decode step, writes real KV before anything attends to it.
+
+    Returns (hidden [1, C, H], cache); the final chunk's hidden goes to
+    :func:`prefill_final_logits`."""
+    c = tokens.shape[1]
+    positions = start + torch.arange(c, dtype=torch.int32,
+                                     device=tokens.device)[None, :]
+    x, cos, sin = llama.decode_embed_and_rope(params, tokens, positions,
+                                              config)
+    for li, layer in enumerate(params["layers"]):
+        x, cache = llama.decode_layer(layer, x, cos, sin, positions, cache,
+                                      li, config, attn_span=attn_span,
+                                      slot=slot)
+    cache.lengths[slot] = new_len
+    return x, cache
+
+
+def prefill_final_logits(params, x: torch.Tensor, idx: int,
+                         config: llama.LlamaConfig) -> torch.Tensor:
+    """f32 logits [V] of the prompt's last token: x [1, C, H] from the final
+    prefill chunk, ``idx`` its index in the chunk. The lm_head runs once per
+    admission, at M = 1."""
+    xl = llama._norm(x[:, idx], params["final_norm"], config)
+    return llama.head_logits(params, xl, config)[0]
+
+
+def _token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """The model's log-softmax of ``tok`` (a device scalar) under raw
+    logits [V], as a device scalar."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return lp.gather(0, tok.long().reshape(1))[0]
 
 
 @dataclasses.dataclass
@@ -127,6 +195,19 @@ class Request:
     done: bool = False
     # first token from prefill: a device scalar until _host_inputs reads it
     pending_first: Optional[Any] = None
+    # called as on_token(uid, token, done) for every emission, on the host,
+    # when the chunk that emitted it is collected
+    on_token: Optional[Callable[[int, int, bool], Any]] = None
+    cancelled: bool = False
+    # chunked prefill: the prompt tokens already in the slot's KV; a
+    # prefilling request holds its slot but decodes only once its final
+    # chunk has sampled its first token
+    prefilling: bool = False
+    prefill_pos: int = 0
+    # the model's logprob of each emitted token (with params.logprobs)
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    # the first token's logprob: a device scalar until _host_inputs reads it
+    pending_first_lp: Optional[Any] = None
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -140,6 +221,19 @@ def _span_bucket(need: int, max_seq: int) -> int:
     """``need`` rounded up to a multiple of 128, clamped to
     [128, max_seq]."""
     return min(max_seq, max(128, -(-need // 128) * 128))
+
+
+def _chunk_span_bucket(need: int, max_seq: int) -> int:
+    """A prefill chunk's span bucket: multiples of 128 up to 2048, then
+    powers of two (clamped to ``max_seq``), as in the JAX package, whose
+    chunks compile once per bucket."""
+    b = _span_bucket(need, max_seq)
+    if b <= 2048:
+        return b
+    p = 4096
+    while p < b:
+        p *= 2
+    return min(p, max_seq)
 
 
 class ChunkGraphs:
@@ -172,6 +266,10 @@ class ChunkGraphs:
 
     def __len__(self) -> int:
         return len(self._graphs)
+
+    def keys(self) -> List[Any]:
+        """The keys captured so far, in capture order."""
+        return list(self._graphs)
 
     def run(self, key, fn: Callable[[], Any],
             generator: Optional[torch.Generator] = None):
@@ -234,41 +332,58 @@ class DecodeEngine:
 
     def __init__(self, params, config: llama.LlamaConfig, *,
                  max_batch: int = 8, max_seq: Optional[int] = None,
-                 seed: int = 0, steps_per_sync: int = 8,
+                 quantized_kv: bool = True, seed: int = 0,
+                 steps_per_sync: int = 8,
                  runtime_cache: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None,
                  device="cuda", cuda_graphs: bool = True):
-        """``params`` must live on ``device``. ``steps_per_sync``: decode
-        steps per host read-back (one decode chunk). ``runtime_cache``:
-        "int4" attaches the int4 execution cache to every NF4 weight (which
-        kernel K1 streams); None serves the params as they are.
-        ``cuda_graphs``: on a CUDA device, run each decode chunk as a CUDA
-        graph replay (:class:`ChunkGraphs`, one graph per span bucket,
-        chunk length and all-greedy flag, captured at first use); False
-        runs the same chunk eagerly there. CPU devices run it eagerly."""
+        """``params`` must live on ``device``. ``quantized_kv``: an int8 KV
+        cache (staged within a decode chunk); False keeps K/V in the
+        config's dtype (the JAX package's exact-attention mode).
+        ``steps_per_sync``: decode steps per host read-back (one decode
+        chunk). ``runtime_cache``: "int4" attaches the int4 execution cache
+        to every NF4 weight (which kernel K1 streams); None serves the
+        params as they are. ``prefill_chunk``: chunked prefill, at least
+        16: a prompt longer than this is written into its slot
+        ``prefill_chunk`` tokens per engine step, between decode chunks, so
+        one long admission cannot stall every running stream for a whole
+        prompt's forward. ``cuda_graphs``: on a CUDA device, run each decode
+        chunk as a CUDA graph replay (:class:`ChunkGraphs`, one graph per
+        span bucket, chunk length, all-greedy flag, penalty flag and
+        logprobs flag, captured at first use); False runs the same chunk
+        eagerly there. CPU devices run it eagerly."""
+        if prefill_chunk is not None and prefill_chunk < 16:
+            raise ValueError("prefill_chunk must be >= 16")
         self.config = config
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq or config.max_seq_len
         self.steps_per_sync = max(1, int(steps_per_sync))
+        self.prefill_chunk = prefill_chunk
         if runtime_cache is not None:
             params = llama.build_runtime_cache(params, runtime_cache)
         self.params = params
         self.cache = KVCache.create(config.num_layers, max_batch,
                                     self.max_seq, config.num_kv_heads,
-                                    config.hd, device=self.device)
+                                    config.hd, quantized=quantized_kv,
+                                    dtype=config.dtype, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        # the chunk's static inputs: tokens and active staged through
-        # (pinned, on CUDA) host buffers, and the sampling arrays, refilled
-        # only when the active set's parameters change
+        # the chunk's static inputs: tokens, active and the seen mask staged
+        # through (pinned, on CUDA) host buffers, and the sampling arrays,
+        # refilled only when the active set's parameters change
         pin = self.device.type == "cuda"
-        b = max_batch
+        b, vocab = max_batch, config.vocab_size
         self._tokens_host = torch.zeros((b,), dtype=torch.int32,
                                         pin_memory=pin)
         self._active_host = torch.zeros((b,), dtype=torch.bool,
                                         pin_memory=pin)
+        self._seen_host = torch.zeros((b, vocab), dtype=torch.bool,
+                                      pin_memory=pin)
         self._tokens = torch.zeros((b,), dtype=torch.int32,
                                    device=self.device)
         self._active = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        self._seen = torch.zeros((b, vocab), dtype=torch.bool,
+                                 device=self.device)
         self._samp_static = SamplingArrays.build({}, b, device=self.device)
         self._samp_key = None
         self._graphs = (ChunkGraphs(self.device)
@@ -281,11 +396,38 @@ class DecodeEngine:
 
     # -- request management ---------------------------------------------
     def add_request(self, prompt_tokens,
-                    sampling: Optional[SamplingParams] = None) -> int:
+                    sampling: Optional[SamplingParams] = None,
+                    on_token: Optional[Callable[[int, int, bool], Any]] = None
+                    ) -> int:
+        """Queue a prompt. ``on_token(uid, token, done)`` is called for each
+        of its emissions as chunks are collected
+        (:meth:`generate_stream`)."""
         self._uid += 1
         self.waiting.append(Request(self._uid, [int(t) for t in prompt_tokens],
-                                    sampling or SamplingParams()))
+                                    sampling or SamplingParams(),
+                                    on_token=on_token))
         return self._uid
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request by uid (a client that went away). A waiting
+        request never runs; an active or prefilling one is retired on the
+        host, and what the device still emits for its slot in the current
+        chunk is dropped as ``_collect_chunk`` drops a finished slot's. The
+        slot's KV is garbage until the next prefill overwrites it. Returns
+        True if the uid was found unfinished."""
+        for i, req in enumerate(self.waiting):
+            if req.uid == uid:
+                req.done = req.cancelled = True
+                self.finished.append(self.waiting.pop(i))
+                return True
+        for slot, req in list(self.active.items()):
+            if req.uid == uid:
+                req.done = req.cancelled = True
+                req.pending_first = None
+                del self.active[slot]
+                self.finished.append(req)
+                return True
+        return False
 
     def _free_slots(self) -> List[int]:
         return [s for s in range(self.max_batch) if s not in self.active]
@@ -309,8 +451,34 @@ class DecodeEngine:
             self._samp_key = key
         return self._samp_static
 
+    def _needs_seen_mask(self) -> bool:
+        return any(r.params.repetition_penalty != 1.0
+                   for r in self.active.values())
+
+    def _history_mask(self, rows: List[Optional[Request]]) -> np.ndarray:
+        """bool [len(rows), V]: each request's prompt and output tokens (the
+        repetition penalty's history); a None row has none."""
+        m = np.zeros((len(rows), self.config.vocab_size), bool)
+        for i, req in enumerate(rows):
+            if req is not None:
+                m[i, req.prompt] = True
+                m[i, req.generated] = True
+        return m
+
+    def _seen_mask(self) -> np.ndarray:
+        """bool [B, V]: each decoding slot's history, rebuilt on the host
+        for every chunk as the JAX package rebuilds it for every dispatch."""
+        return self._history_mask([
+            r if r is not None and not r.prefilling else None
+            for r in map(self.active.get, range(self.max_batch))])
+
     # -- admission --------------------------------------------------------
     def _admit(self):
+        """Admit waiting requests into free slots. Requests that want
+        logprobs, and prompts longer than ``prefill_chunk``, admit one at a
+        time (the batched prefill samples first tokens only, and a long
+        prompt goes in chunk by chunk); the rest group by length bucket
+        into one forward each."""
         free = self._free_slots()
         groups: Dict[int, list] = {}
         while free and self.waiting:
@@ -320,6 +488,11 @@ class DecodeEngine:
             if len(req.prompt) >= self.max_seq:
                 # keep the latest context that still leaves room to decode
                 req.prompt = req.prompt[-(self.max_seq - 1):]
+            if req.params.logprobs or (
+                    self.prefill_chunk is not None
+                    and len(req.prompt) > self.prefill_chunk):
+                self._admit_one(slot, req)
+                continue
             groups.setdefault(_bucket(len(req.prompt), self.max_seq),
                               []).append((slot, req))
         for s_pad, grp in sorted(groups.items()):
@@ -330,14 +503,18 @@ class DecodeEngine:
 
     def _admit_one(self, slot: int, req: Request):
         s = len(req.prompt)
+        if self.prefill_chunk is not None and s > self.prefill_chunk:
+            # the slot is taken now; _advance_prefill writes the prompt
+            req.prefilling = True
+            req.prefill_pos = 0
+            self.active[slot] = req
+            return
         toks = torch.zeros((1, _bucket(s, self.max_seq)), dtype=torch.int32)
         toks[0, :s] = torch.tensor(req.prompt, dtype=torch.int32)
         last_logits, self.cache = prefill_step(
             self.params, self.cache, toks.to(self.device), slot, s,
             self.config)
-        req.pending_first = sample_batched(
-            last_logits[None, :], self.generator,
-            self._samp({0: req.params}, 1))[0]
+        req.pending_first = self._sample_first(last_logits, req)
         self.active[slot] = req
 
     def _admit_group(self, s_pad: int, grp: list):
@@ -358,53 +535,107 @@ class DecodeEngine:
                             dtype=torch.int32, device=dev)
         samp = self._samp({i: req.params for i, (_, req) in enumerate(rows)},
                           r_pad)
+        mask = None
+        if any(req.params.repetition_penalty != 1.0 for _, req in grp):
+            mask = torch.from_numpy(
+                self._history_mask([req for _, req in rows])).to(dev)
         firsts, self.cache = prefill_batch(
             self.params, self.cache, torch.from_numpy(toks).to(dev), slots,
-            lens, self.generator, samp, self.config)
+            lens, self.generator, samp, self.config, seen_mask=mask)
         for i, (slot, req) in enumerate(grp):
             req.pending_first = firsts[i]
             self.active[slot] = req
 
+    def _sample_first(self, logits: torch.Tensor, req: Request):
+        """A request's first token from its prompt's last logits [V], with
+        its repetition penalty over the prompt; with ``logprobs`` its
+        logprob too (``pending_first_lp``). Both stay device scalars."""
+        mask = None
+        if req.params.repetition_penalty != 1.0:
+            mask = torch.from_numpy(self._history_mask([req])).to(self.device)
+        tok = sample(logits[None, :], self.generator, req.params, mask)[0]
+        if req.params.logprobs:
+            req.pending_first_lp = _token_logprob(logits, tok)
+        return tok
+
+    def _advance_prefill(self) -> bool:
+        """Run one chunk of the oldest chunked prefill. Its final chunk
+        takes the prompt's last logits (the lm_head once per admission),
+        samples the first token and makes the request decodable. Returns
+        True if a chunk ran."""
+        pre = [(slot, r) for slot, r in self.active.items() if r.prefilling]
+        if not pre:
+            return False
+        slot, req = min(pre, key=lambda sr: sr[1].uid)
+        c, n = self.prefill_chunk, len(req.prompt)
+        start = req.prefill_pos
+        end = min(start + c, n)
+        toks = torch.zeros((1, c), dtype=torch.int32)
+        toks[0, :end - start] = torch.tensor(req.prompt[start:end],
+                                             dtype=torch.int32)
+        x, self.cache = prefill_chunk_step(
+            self.params, self.cache, toks.to(self.device), slot, start, end,
+            self.config, attn_span=_chunk_span_bucket(start + c,
+                                                      self.max_seq))
+        req.prefill_pos = end
+        if end >= n:
+            logits = prefill_final_logits(self.params, x, n - 1 - start,
+                                          self.config)
+            req.pending_first = self._sample_first(logits, req)
+            req.prefilling = False
+        return True
+
     # -- decode -------------------------------------------------------------
     def _attn_span(self) -> int:
-        """Span bucket covering every active slot's position plus the
+        """Span bucket covering every decoding slot's position plus the
         chunk."""
         longest = max((len(r.prompt) + len(r.generated)
-                       for r in self.active.values()), default=0)
+                       for r in self.active.values() if not r.prefilling),
+                      default=0)
         return _span_bucket(longest + self.steps_per_sync, self.max_seq)
 
     def _host_inputs(self):
         """This chunk's (tokens [B], active [B]) from host bookkeeping,
-        consuming the first tokens that prefill produced."""
+        consuming the first tokens (and logprobs) that prefill produced.
+        Prefilling slots stay inactive."""
         tokens = np.zeros((self.max_batch,), np.int32)
         active = np.zeros((self.max_batch,), bool)
         for slot, req in list(self.active.items()):
+            if req.prefilling:
+                continue
             if req.pending_first is not None:
                 first = int(req.pending_first)
-                req.pending_first = None
-                self._collect(slot, req, first)
+                lp = (None if req.pending_first_lp is None
+                      else float(req.pending_first_lp))
+                req.pending_first = req.pending_first_lp = None
+                self._collect(slot, req, first, lp)
                 if req.done:
                     continue
             tokens[slot] = req.generated[-1]
             active[slot] = True
         return tokens, active
 
-    def _collect_chunk(self, toks_seq, act_seq) -> int:
+    def _collect_chunk(self, toks_seq, act_seq, lp_seq=None) -> int:
         toks_seq = toks_seq.cpu().numpy()
         act_seq = act_seq.cpu().numpy()
+        if lp_seq is not None:
+            lp_seq = lp_seq.cpu().numpy()
         emitted = 0
         for i in range(toks_seq.shape[0]):
             for slot in list(self.active.keys()):
                 req = self.active.get(slot)
                 if req is None or not act_seq[i, slot]:
                     continue
-                self._collect(slot, req, int(toks_seq[i, slot]))
+                self._collect(slot, req, int(toks_seq[i, slot]),
+                              None if lp_seq is None else lp_seq[i, slot])
                 emitted += 1
         return emitted
 
-    def _collect(self, slot: int, req: Request, token: int):
+    def _collect(self, slot: int, req: Request, token: int, lp=None):
         req.generated.append(token)
         sp = req.params
+        if sp.logprobs and lp is not None:
+            req.logprobs.append(float(lp))
         gen = req.generated
         out_of_room = len(req.prompt) + len(gen) >= self.max_seq - 1
         hit_stop = any(len(gen) >= len(st) and tuple(gen[-len(st):]) ==
@@ -414,34 +645,49 @@ class DecodeEngine:
             req.done = True
             self.finished.append(req)
             del self.active[slot]
+        if req.on_token is not None:
+            req.on_token(req.uid, token, req.done)
 
     def run_chunk(self, tokens: np.ndarray, active: np.ndarray, *,
-                  all_greedy: bool, attn_span: int):
+                  all_greedy: bool, attn_span: int,
+                  seen: Optional[np.ndarray] = None,
+                  want_logprobs: bool = False):
         """One decode chunk of ``steps_per_sync`` steps from host
         ``tokens`` int32 [B] and ``active`` bool [B], staged into the static
-        device inputs without a host sync. On CUDA (unless the engine was
-        built with ``cuda_graphs=False``) the chunk replays the graph of
-        ``(attn_span, steps_per_sync, all_greedy)``, captured at the key's
-        first use. Returns the device (tokens_seq, active_seq) [steps, B];
-        read them before the next chunk, which may overwrite them."""
+        device inputs without a host sync. ``seen`` bool [B, V]: the
+        repetition penalty's history, staged into the engine's static seen
+        mask, which the chunk then updates on the device; None runs without
+        a penalty. On CUDA (unless the engine was built with
+        ``cuda_graphs=False``) the chunk replays the graph of ``(attn_span,
+        steps_per_sync, all_greedy, penalty, want_logprobs)``, captured at
+        the key's first use. Returns the device (tokens_seq, active_seq,
+        logprobs_seq or None) [steps, B]; read them before the next chunk,
+        which may overwrite them."""
         n = self.steps_per_sync
         self._tokens_host.numpy()[:] = tokens
         self._active_host.numpy()[:] = active
         self._tokens.copy_(self._tokens_host, non_blocking=True)
         self._active.copy_(self._active_host, non_blocking=True)
+        penalty = seen is not None
+        if penalty:
+            self._seen_host.numpy()[:] = seen
+            self._seen.copy_(self._seen_host, non_blocking=True)
         samp = self._samp_arrays()
 
         def chunk():
-            toks_seq, act_seq, _, _, _ = decode_chunk(
+            toks_seq, act_seq, _, _, _, lp_seq, _ = decode_chunk(
                 self.params, self.cache, self._tokens, self._active,
                 self.generator, samp, self.config, n_steps=n,
-                all_greedy=all_greedy, attn_span=attn_span)
-            return toks_seq, act_seq
+                all_greedy=all_greedy, attn_span=attn_span,
+                seen_mask=self._seen if penalty else None,
+                want_logprobs=want_logprobs)
+            return toks_seq, act_seq, lp_seq
 
         if self._graphs is None:
             return chunk()
-        return self._graphs.run((attn_span, n, all_greedy), chunk,
-                                None if all_greedy else self.generator)
+        return self._graphs.run(
+            (attn_span, n, all_greedy, penalty, want_logprobs), chunk,
+            None if all_greedy else self.generator)
 
     def graph_stats(self) -> dict:
         """Graphs captured, seconds spent capturing them (their eager
@@ -452,46 +698,79 @@ class DecodeEngine:
         return {"graphs": len(g), "capture_s": g.capture_s,
                 "pool_bytes": g.pool_bytes()}
 
-    def graph_kernel_names(self, attn_span: int,
-                           all_greedy: bool = True) -> Counter[str]:
-        """The kernels one replay of the chunk graph of ``attn_span`` and
-        ``all_greedy`` launches, by demangled name, read from the graph."""
+    def graph_keys(self) -> List[tuple]:
+        """The keys of the chunk graphs captured so far: (attn_span,
+        n_steps, all_greedy, penalty, want_logprobs)."""
+        return [] if self._graphs is None else self._graphs.keys()
+
+    def graph_kernel_names(self, attn_span: int, all_greedy: bool = True,
+                           penalty: bool = False,
+                           want_logprobs: bool = False) -> Counter[str]:
+        """The kernels one replay of the chunk graph of that key launches,
+        by demangled name, read from the graph."""
         return self._graphs.kernel_names(
-            (attn_span, self.steps_per_sync, all_greedy))
+            (attn_span, self.steps_per_sync, all_greedy, penalty,
+             want_logprobs))
 
     def step(self) -> bool:
-        """One engine iteration: admit, then one decode chunk. Returns False
-        when no work remains."""
+        """One engine iteration: admit, one chunk of a chunked prefill,
+        then one decode chunk. Returns False when no work remains."""
         self._admit()
         if not self.active:
             return bool(self.waiting)
+        # one chunk of a chunked prefill runs before each decode chunk
+        self._advance_prefill()
         tokens, active = self._host_inputs()
         if not active.any():
             return bool(self.waiting or self.active)
         t0 = time.perf_counter()
         all_greedy = all(r.params.temperature <= 0
                          for r in self.active.values())
-        toks_seq, act_seq = self.run_chunk(tokens, active,
-                                           all_greedy=all_greedy,
-                                           attn_span=self._attn_span())
-        emitted = self._collect_chunk(toks_seq, act_seq)
+        want_lp = any(r.params.logprobs for r in self.active.values())
+        toks_seq, act_seq, lp_seq = self.run_chunk(
+            tokens, active, all_greedy=all_greedy,
+            attn_span=self._attn_span(),
+            seen=self._seen_mask() if self._needs_seen_mask() else None,
+            want_logprobs=want_lp)
+        emitted = self._collect_chunk(toks_seq, act_seq, lp_seq)
         self.metrics.record(emitted, time.perf_counter() - t0)
         return bool(self.waiting or self.active)
 
-    def generate(self, prompts: List[List[int]],
-                 sampling=None) -> List[List[int]]:
-        """Run every prompt to completion through :meth:`step`.
-        ``sampling``: one SamplingParams for all prompts, or one each."""
+    def _add_all(self, prompts, sampling, on_token=None) -> List[int]:
+        """Queue every prompt. ``sampling``: one SamplingParams for all
+        prompts, or one each."""
         if sampling is None or isinstance(sampling, SamplingParams):
             sampling = [sampling] * len(prompts)
         if len(sampling) != len(prompts):
             raise ValueError(f"{len(sampling)} sampling params for "
                              f"{len(prompts)} prompts")
-        uids = [self.add_request(p, sp) for p, sp in zip(prompts, sampling)]
+        return [self.add_request(p, sp, on_token)
+                for p, sp in zip(prompts, sampling)]
+
+    def generate(self, prompts: List[List[int]],
+                 sampling=None) -> List[List[int]]:
+        """Run every prompt to completion through :meth:`step`.
+        ``sampling``: one SamplingParams for all prompts, or one each."""
+        uids = self._add_all(prompts, sampling)
         while self.step():
             pass
         by_uid = {r.uid: r.generated for r in self.finished}
         return [by_uid[u] for u in uids]
+
+    def generate_stream(self, prompts: List[List[int]], sampling=None
+                        ) -> Iterator[tuple]:
+        """Yield ``(uid, token, done)`` in emission order as chunks are
+        collected (the tokens :meth:`generate` gives). The uids are the
+        generator's return value."""
+        events: List[tuple] = []
+        uids = self._add_all(prompts, sampling,
+                             lambda u, t, d: events.append((u, t, d)))
+        while self.step():
+            while events:
+                yield events.pop(0)
+        while events:
+            yield events.pop(0)
+        return uids
 
     @property
     def stats(self) -> dict:

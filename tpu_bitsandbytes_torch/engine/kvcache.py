@@ -1,11 +1,13 @@
-"""Int8 KV cache for the decode engine, updated in place.
+"""KV cache for the decode engine, updated in place: int8, or unquantized.
 
 Per-(token, head) absmax quantization of K and V in the JAX package's
 head-major layout: codes ``[L, B, H_kv, S, D]`` int8, scales
 ``[L, B, H_kv, S]`` f32 holding the absmax itself (a code times
-``absmax / 127`` is the value). Unlike the JAX package's immutable pytree,
-every write here mutates the cache's tensors in place and returns the cache
-itself, so ``cache = cache.write_decode(...)`` reads the same in both.
+``absmax / 127`` is the value). ``create(quantized=False)`` keeps K and V in
+the model's dtype with no scales (the JAX package's exact-attention mode).
+Unlike the JAX package's immutable pytree, every write here mutates the
+cache's tensors in place and returns the cache itself, so
+``cache = cache.write_decode(...)`` reads the same in both.
 
 Within a decode chunk, new tokens go to a per-chunk stage at one uniform
 index per step (:meth:`KVCache.begin_stage`), and attention reads the stage
@@ -13,7 +15,8 @@ as a second key block; :meth:`KVCache.flush_stage` moves the chunk's valid
 tokens into the main cache at the end of the chunk. The stage is allocated
 once per chunk length and reset in place, and the flush runs on the
 device without reading anything back, so a whole chunk can be captured in
-a CUDA graph.
+a CUDA graph. An unquantized cache has no stage (as in the JAX package):
+decode writes scatter into it.
 """
 
 from __future__ import annotations
@@ -41,10 +44,10 @@ class KVStage:
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor          # int8 [L, B, H, S, D]
+    k: torch.Tensor          # int8 [L, B, H, S, D] (the model dtype unquantized)
     v: torch.Tensor
-    k_scale: torch.Tensor    # f32 [L, B, H, S]
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor]    # f32 [L, B, H, S]; None unquantized
+    v_scale: Optional[torch.Tensor]
     lengths: torch.Tensor    # int32 [B]
     stage: Optional[KVStage] = None
     # chunk length -> its stage, allocated at the first begin_stage
@@ -53,14 +56,25 @@ class KVCache:
 
     @classmethod
     def create(cls, num_layers: int, batch: int, max_seq: int,
-               num_kv_heads: int, head_dim: int, *, device) -> "KVCache":
+               num_kv_heads: int, head_dim: int, *, quantized: bool = True,
+               dtype=torch.bfloat16, device) -> "KVCache":
+        """``quantized=False``: K and V in ``dtype``, no scales."""
         shape = (num_layers, batch, num_kv_heads, max_seq, head_dim)
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if not quantized:
+            return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       k_scale=None, v_scale=None, lengths=lengths)
         return cls(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
             k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
             v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
-            lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+            lengths=lengths)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def max_seq(self) -> int:
@@ -77,9 +91,10 @@ class KVCache:
         the cache length. The stage of each ``n_steps`` is allocated once
         and reused: beginning resets its step index to 0 and copies the
         lengths into ``len0`` in place, so every chunk works on the same
-        buffers (what a captured chunk needs)."""
+        buffers (what a captured chunk needs). A no-op for an unquantized
+        cache, as in the JAX package."""
         l, b, h, s, d = self.k.shape
-        if n_steps > s:
+        if n_steps > s or not self.quantized:
             return self
         st = self.stages.get(n_steps)
         if st is None:
@@ -165,27 +180,49 @@ class KVCache:
                       v_new: torch.Tensor) -> "KVCache":
         """Write [S_p, H, D] k/v of one slot at positions [0, S_p) (in
         place)."""
-        kq, ks = self._quant(k_new.transpose(0, 1))       # [H, S_p, D]
-        vq, vs = self._quant(v_new.transpose(0, 1))
+        k_hm, v_hm = k_new.transpose(0, 1), v_new.transpose(0, 1)  # [H, S_p, D]
         sl = slice(0, k_new.shape[0])
+        if not self.quantized:
+            self.k[layer, slot, :, sl] = k_hm.to(self.k.dtype)
+            self.v[layer, slot, :, sl] = v_hm.to(self.v.dtype)
+            return self
+        kq, ks = self._quant(k_hm)
+        vq, vs = self._quant(v_hm)
         self.k[layer, slot, :, sl] = kq
         self.v[layer, slot, :, sl] = vq
         self.k_scale[layer, slot, :, sl] = ks
         self.v_scale[layer, slot, :, sl] = vs
         return self
 
+    def _inside(self, pos: torch.Tensor):
+        """Write positions [R, S] past the cache, dropped as the JAX
+        package's scatter drops them, with no read back to the host: each
+        such entry is sent to its row's last position inside the cache and
+        writes that entry's values, so the colliding writes are equal.
+        Every row has a position inside (a prefill chunk starts inside its
+        prompt). Returns (positions, take [R, S]: the entry whose values
+        each writes)."""
+        inside = pos < self.max_seq
+        j = torch.arange(pos.shape[1], device=pos.device)
+        last = torch.where(inside, pos, -1).argmax(dim=-1, keepdim=True)
+        take = torch.where(inside, j, last)
+        return pos.gather(1, take), take
+
     def write_decode(self, layer: int, k_new: torch.Tensor,
                      v_new: torch.Tensor, positions: torch.Tensor,
-                     slots: Optional[torch.Tensor] = None) -> "KVCache":
+                     slots=None) -> "KVCache":
         """Write k_new/v_new [B, S, H, D] at ``positions`` ([B] with S == 1,
         or [B, S]) in place. Inside a decode chunk (``slots`` None, S == 1)
-        the tokens go to the stage at its uniform step index. ``slots`` [R]
-        sends row r to cache slot ``slots[r]`` (batched prefill); duplicate
-        slots must carry identical rows."""
-        kq, ks = self._quant(k_new.transpose(1, 2))        # [B, H, S, D]
-        vq, vs = self._quant(v_new.transpose(1, 2))
+        an int8 cache takes the tokens into the stage at its uniform step
+        index. ``slots`` (int32 [R], or one slot as an int) sends row r to
+        cache slot ``slots[r]`` (batched and chunked prefill); duplicate
+        slots must carry identical rows. Positions at or past ``max_seq``
+        are dropped (a final prefill chunk's padding)."""
+        k_hm, v_hm = k_new.transpose(1, 2), v_new.transpose(1, 2)  # [B,H,S,D]
         st = self.stage
         if st is not None and slots is None and k_new.shape[1] == 1:
+            kq, ks = self._quant(k_hm)
+            vq, vs = self._quant(v_hm)
             st.k[layer, :, :, st.step] = kq[:, :, 0]
             st.v[layer, :, :, st.step] = vq[:, :, 0]
             st.k_scale[layer, :, :, st.step] = ks[:, :, 0]
@@ -195,24 +232,59 @@ class KVCache:
             positions = positions[:, None]
         b = k_new.shape[0]
         dev = self.k.device
-        b_idx = (torch.arange(b, device=dev) if slots is None
-                 else slots.long())[:, None, None]
+        if slots is None:
+            rows = torch.arange(b, device=dev)
+        elif isinstance(slots, int):
+            rows = torch.full((b,), slots, device=dev)
+        else:
+            rows = slots.long()
+        b_idx = rows[:, None, None]
         h_idx = torch.arange(self.num_kv_heads, device=dev)[None, :, None]
-        pos = positions.long()[:, None, :]
-        self.k[layer, b_idx, h_idx, pos] = kq
-        self.v[layer, b_idx, h_idx, pos] = vq
-        self.k_scale[layer, b_idx, h_idx, pos] = ks
-        self.v_scale[layer, b_idx, h_idx, pos] = vs
+        pos = positions.long()
+        if self.quantized:
+            (kq, ks), (vq, vs) = self._quant(k_hm), self._quant(v_hm)
+            writes = ((self.k, kq), (self.v, vq), (self.k_scale, ks),
+                      (self.v_scale, vs))
+        else:
+            writes = ((self.k, k_hm.to(self.k.dtype)),
+                      (self.v, v_hm.to(self.v.dtype)))
+        take = None
+        if pos.shape[1] > 1:
+            # one decode token per slot stays below max_seq: only a
+            # prefill's padding can reach past it
+            pos, take = self._inside(pos)
+        pos = pos[:, None, :]
+        for buf, new in writes:
+            if take is not None:
+                tail = (1,) * (new.dim() - 3)
+                new = new.gather(2, take.reshape(take.shape[0], 1, -1, *tail)
+                                 .expand_as(new))
+            buf[layer, b_idx, h_idx, pos] = new
         return self
 
     def read_raw(self, layer: int, span: Optional[int] = None):
         """Views (no copy) of a layer's first ``span`` positions: codes
         [B, H, span, D] and scales [B, H, span], as (k, k_scale, v,
-        v_scale)."""
+        v_scale); the scales are None when unquantized."""
+        return self._read(layer, slice(None), span)
+
+    def read_raw_slot(self, layer: int, slot: int,
+                      span: Optional[int] = None):
+        """:meth:`read_raw` of one slot (views [1, H, span, D] and
+        [1, H, span]): a prefill chunk's queries attend to their own slot's
+        history only."""
+        return self._read(layer, slice(slot, slot + 1), span)
+
+    def _read(self, layer: int, rows: slice, span: Optional[int]):
         sl = slice(0, span)
-        return (self.k[layer, :, :, sl], self.k_scale[layer, :, :, sl],
-                self.v[layer, :, :, sl], self.v_scale[layer, :, :, sl])
+
+        def view(buf):
+            return None if buf is None else buf[layer, rows, :, sl]
+
+        return (view(self.k), view(self.k_scale), view(self.v),
+                view(self.v_scale))
 
     def bytes_per_token(self) -> int:
         l, _, h, _, d = self.k.shape
-        return l * (2 * h * d + 2 * h * 4)
+        scales = 2 * h * 4 if self.quantized else 0
+        return l * (2 * h * d * self.k.element_size() + scales)

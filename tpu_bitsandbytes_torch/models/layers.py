@@ -289,17 +289,51 @@ def gqa_attention(q, k, v, *, causal_offset=None, scale=None
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _half(dtype) -> bool:
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+def gqa_attention_hm(q, k, v, *, causal_offset=None, scale=None
+                     ) -> torch.Tensor:
+    """GQA over head-major unquantized K/V (the bf16 KV cache's layout).
+
+    q [B, S, H, D]; k/v [B, H_kv, T, D]. The JAX package's dtype policy:
+    half-precision q contracts half-precision operands with f32
+    accumulation (here: f32 products of the half values, which are exact)
+    and rounds the probabilities to q's dtype before the PV product; f32
+    stays f32. ``causal_offset`` [B, S]: the queries' absolute positions.
+    """
+    b, s, h, d = q.shape
+    h_kv, t = k.shape[1], k.shape[2]
+    rep = h // h_kv
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    f32 = torch.float32
+    cd = q.dtype if _half(q.dtype) else f32
+    qg = q.reshape(b, s, h_kv, rep, d).to(f32)
+    logits = torch.einsum("bshrd,bhtd->bhrst", qg,
+                          k.to(cd).to(f32)) * scale
+    mask = _causal_mask(s, t, causal_offset, device=q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(cd).to(f32)
+    out = torch.einsum("bhrst,bhtd->bshrd", probs, v.to(cd).to(f32))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
 def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
                            causal_offset=None, scale=None, window=None,
                            softcap=None, kpos_start: int = 0, staged=None):
-    """GQA directly over int8 head-major KV codes, computed in f32.
+    """GQA directly over int8 head-major KV codes, accumulated in f32.
 
     q [B, S, H, D]; k_q/v_q int8 [B, H_kv, T, D]; k_scale/v_scale f32
     [B, H_kv, T] absmax scales. ``k_scale`` folds into the logits after
     QK^T and ``v_scale`` into the probabilities before PV, so no dequantized
-    K/V is materialized. ``staged``: ``(st_k, st_ks, st_v, st_vs, step)``,
-    the decode chunk's staged block (``KVCache.read_stage``), joined as a
-    second key block: the main block is cut at the chunk start
+    K/V is materialized. The JAX package's dtype policy: with half-precision
+    q the operands are in q's dtype (int8 codes are exact there) and the
+    scale-folded probabilities are rounded to it before the PV product;
+    f32 q computes in f32. ``staged``: ``(st_k, st_ks, st_v, st_vs,
+    step)``, the decode chunk's staged block (``KVCache.read_stage``),
+    joined as a second key block: the main block is cut at the chunk start
     (``kpos <= off - step - 1``), staged key j counts when ``j <= step``,
     and one softmax covers both. Requires S == 1.
     """
@@ -309,6 +343,12 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     f32 = torch.float32
+    cd = q.dtype if _half(q.dtype) else f32
+
+    def rounded(pv):
+        """The PV operand as the JAX package feeds it: in q's dtype."""
+        return pv.to(cd).to(f32)
+
     qg = q.reshape(b, s, h_kv, rep, d).to(f32)
     logits = torch.einsum("bshrd,bhtd->bhrst", qg, k_q.to(f32))
     logits = logits * (k_scale * (scale / 127.0))[:, :, None, None, :]
@@ -341,8 +381,10 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
                  + pst.sum(dim=-1, keepdim=True))
         vs = (v_scale / 127.0)[:, :, None, None, :]
         stvs = (st_vs / 127.0)[:, :, None, None, :]
-        out = (torch.einsum("bhrst,bhtd->bshrd", pm * vs, v_q.to(f32))
-               + torch.einsum("bhrst,bhtd->bshrd", pst * stvs, st_v.to(f32)))
+        out = (torch.einsum("bhrst,bhtd->bshrd", rounded(pm * vs),
+                            v_q.to(f32))
+               + torch.einsum("bhrst,bhtd->bshrd", rounded(pst * stvs),
+                              st_v.to(f32)))
         out = out / denom.permute(0, 3, 1, 2, 4)
         return out.reshape(b, s, h, d).to(q.dtype)
     if softcap is not None:
@@ -350,6 +392,6 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
     mask = _causal_mask(s, t, causal_offset, window, kpos_start, q.device)
     logits = torch.where(mask, logits, neg)
     probs = torch.softmax(logits, dim=-1)
-    pv = probs * (v_scale / 127.0)[:, :, None, None, :]
+    pv = rounded(probs * (v_scale / 127.0)[:, :, None, None, :])
     out = torch.einsum("bhrst,bhtd->bshrd", pv, v_q.to(f32))
     return out.reshape(b, s, h, d).to(q.dtype)

@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.flash_decode import flash_decode_attention
-from .layers import (QLinear4, apply_rope, gqa_attention,
+from .layers import (QLinear4, apply_rope, gqa_attention, gqa_attention_hm,
                      gqa_attention_kv_quant, linear_apply, rms_norm,
                      rope_table)
 
@@ -255,36 +255,53 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
 
 
 def decode_layer(layer, x, cos, sin, positions, cache, li: int,
-                 config: LlamaConfig, *, attn_span: Optional[int] = None):
-    """One transformer layer of the cached single-token decode step.
+                 config: LlamaConfig, *, attn_span: Optional[int] = None,
+                 slot: Optional[int] = None):
+    """One transformer layer of the cached decode step.
 
-    x [B, 1, H]; ``positions`` [B] int32, each slot's write position. The
-    new token's K/V is written into ``cache`` (in place) before attention.
-    Half-precision configs attend through kernel K2
+    x [B, 1, H] with ``positions`` [B] int32, each slot's write position;
+    or, with ``slot`` (chunked prefill), one request's chunk x [1, C, H]
+    at ``positions`` [1, C], written into cache slot ``slot``, whose
+    queries attend to that slot's history only. The new tokens' K/V are
+    written into ``cache`` (in place) before attention. Routes as the JAX
+    package routes: one token per slot over an int8 cache in a
+    half-precision config attends through kernel K2
     (:func:`~tpu_bitsandbytes_torch.ops.flash_decode.flash_decode_attention`);
-    f32 configs through :func:`gqa_attention_kv_quant` (``staged=`` inside
-    a decode chunk), or over the dequantized cache outside one.
-    ``attn_span`` bounds the KV read to the first ``attn_span`` positions.
-    Returns (x, cache).
+    an f32 config through :func:`gqa_attention_kv_quant` (``staged=``
+    inside a decode chunk), or over the dequantized cache outside one; a
+    slot's chunk through :func:`gqa_attention_kv_quant` in half precision;
+    an unquantized cache through :func:`gqa_attention_hm`. ``attn_span``
+    bounds the KV read to the first ``attn_span`` positions. Returns
+    (x, cache).
     """
     b, s, _ = x.shape
-    if s != 1:
-        raise ValueError("decode_layer takes one token per slot")
-    pos2d = positions[:, None]
+    if s != 1 and slot is None:
+        raise ValueError("decode_layer takes one token per slot, or a "
+                         "chunk of one slot")
+    pos2d = positions if positions.dim() == 2 else positions[:, None]
     h = _norm(x, layer["input_norm"], config)
     q, k, v = _qkv(layer, h, config)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache = cache.write_decode(li, k, v, positions)
-    kq, ks, vq, vs = cache.read_raw(li, attn_span)
+    half = config.dtype in (torch.bfloat16, torch.float16)
+    if slot is None:
+        cache = cache.write_decode(li, k, v, positions)
+        kq, ks, vq, vs = cache.read_raw(li, attn_span)
+    else:
+        cache = cache.write_decode(li, k, v, pos2d, slots=slot)
+        kq, ks, vq, vs = cache.read_raw_slot(li, slot, attn_span)
     staged = cache.read_stage(li) if cache.stage is not None else None
-    if config.dtype in (torch.bfloat16, torch.float16):
+    if not cache.quantized:
+        attn = gqa_attention_hm(q, kq, vq, causal_offset=pos2d)
+    elif half and slot is None:
         attn = flash_decode_attention(
             q[:, 0], kq, ks, vq, vs, positions,
             staged=staged)[:, None].to(q.dtype)
     elif staged is not None:
         attn = gqa_attention_kv_quant(q, kq, ks, vq, vs, causal_offset=pos2d,
                                       staged=staged)
+    elif half:
+        attn = gqa_attention_kv_quant(q, kq, ks, vq, vs, causal_offset=pos2d)
     else:
         k_all = (kq.to(torch.float32) * (ks[..., None] / 127.0)).to(
             config.dtype)
@@ -298,12 +315,18 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
 
 
 def decode_embed_and_rope(params, tokens, positions, config: LlamaConfig):
-    """Decode-step prologue: tokens/positions [B] -> x [B, 1, H] and cos/sin
-    [B, 1, D/2] at the positions."""
+    """Decode-step prologue: tokens/positions [B] (one token per slot) or
+    [B, S] (a prefill chunk) -> x [B, S, H] and cos/sin [B, S, D/2] at the
+    positions. A chunk's padding past the rope table takes the table's last
+    row: its rows are garbage no valid query attends to."""
     cos_full, sin_full = _rope(config, tokens.device)
-    pos2d = positions[:, None].long()
-    return (_embed_tokens(params, tokens[:, None], config),
-            cos_full[pos2d], sin_full[pos2d])
+    if tokens.dim() == 1:
+        tokens, positions = tokens[:, None], positions[:, None]
+    else:
+        positions = positions.clamp(max=cos_full.shape[0] - 1)
+    pos2d = positions.long()
+    return (_embed_tokens(params, tokens, config), cos_full[pos2d],
+            sin_full[pos2d])
 
 
 def count_params(config: LlamaConfig) -> int:
