@@ -81,6 +81,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -194,9 +195,12 @@ def row_err(got, ref):
 K1_DECODE = [("qkv", 12288, 4096, 32), ("o", 4096, 4096, 32),
              ("gateup", 22016, 4096, 32), ("down", 4096, 11008, 32),
              ("lm_head", 32000, 4096, 1)]
-# (M, N, K): other decode widths, a prefill-sized M, prime and odd N, K=384
+# (M, N, K): other decode widths, a prefill-sized M, prime and odd N, K=384,
+# and a speculative verify step's M = B x (gamma + 1) = 40
 K1_EXTRA = [(1, 4096, 4096), (3, 4099, 4096), (64, 4096, 4096),
-            (8, 2053, 11008), (3, 1013, 384), (13, 127, 384)]
+            (8, 2053, 11008), (3, 1013, 384), (13, 127, 384),
+            (40, 4096, 4096)]
+VERIFY_M = 40       # phase 7's verify step: B = 8 slots x (gamma + 1 = 5)
 
 
 def k1_inputs(m, n, k, gen, dev, copies=1):
@@ -223,7 +227,8 @@ def k1_bound_ms(m, n, kp, bw, int8_peak):
 def phase_kernels_k1(K1, gen, dev, bw, int8_peak):
     worst = [0.0, 0.0]
     rows = []
-    for m, n, k in K1_EXTRA + [(8, n, k) for _, n, k, _ in K1_DECODE]:
+    for m, n, k in K1_EXTRA + [(mm, n, k) for _, n, k, _ in K1_DECODE
+                               for mm in (8, VERIFY_M)]:
         xq, s_x, ((w, sc),) = k1_inputs(m, n, k, gen, dev)
         got = K1.int4_mm(xq, w, sc, s_x)
         ref = K1.int4_mm_plain(xq, w, sc, s_x)
@@ -232,23 +237,30 @@ def phase_kernels_k1(K1, gen, dev, bw, int8_peak):
         if not (r <= K1_TOL and torch.isfinite(got).all()):
             raise AssertionError(f"K1 M={m} N={n} K={k}: rel err {r}")
         worst = [max(worst[0], a), max(worst[1], r)]
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for name, n, k, per_step in K1_DECODE:
-        w_bytes = n * k // 2
-        copies = max(2, math.ceil(200e6 / w_bytes))
-        xq, s_x, ws = k1_inputs(8, n, k, gen, dev, copies)
-        kern = time_graph_ms([lambda w=w, sc=sc: K1.int4_mm(xq, w, sc, s_x)
-                              for w, sc in ws], iters=max(40, 2 * copies))
-        plain = time_ms([lambda: K1.int4_mm_plain(xq, *ws[0], s_x)], iters=3)
-        bound, by = k1_bound_ms(8, n, k, bw, int8_peak)
-        rows.append({"shape": f"{name} M=8 N={n} K={k}", "kernel_ms": kern,
-                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "per_step": per_step})
-        total["ms"] += per_step * kern
-        total["plain_ms"] += per_step * plain
-        total["bound_ms"] += per_step * bound
-        del ws
+    # one decode step (M = 8) and one verify step (M = 40) at Llama-2-7B
+    total = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+             for m in (8, VERIFY_M)}
+    for m in (8, VERIFY_M):
+        for name, n, k, per_step in K1_DECODE:
+            w_bytes = n * k // 2
+            copies = max(2, math.ceil(200e6 / w_bytes))
+            xq, s_x, ws = k1_inputs(m, n, k, gen, dev, copies)
+            kern = time_graph_ms([lambda w=w, sc=sc: K1.int4_mm(xq, w, sc,
+                                                                s_x)
+                                  for w, sc in ws], iters=max(40, 2 * copies))
+            plain = time_ms([lambda: K1.int4_mm_plain(xq, *ws[0], s_x)],
+                            iters=3)
+            bound, by = k1_bound_ms(m, n, k, bw, int8_peak)
+            rows.append({"shape": f"{name} M={m} N={n} K={k}",
+                         "kernel_ms": kern, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": by,
+                         "per_step": per_step})
+            for key, v in (("ms", kern), ("plain_ms", plain),
+                           ("bound_ms", bound)):
+                total[m][key] += per_step * v
+            del ws
     emit({"phase": "kernels", "kernel": "K1_int4_matmul", "shapes": rows})
+    verify, total = total[VERIFY_M], total[8]
     return {
         "name": "K1_int4_matmul", "route": "cuda",
         "source": "tpu_bitsandbytes_torch/csrc/int4_matmul.cu",
@@ -259,7 +271,12 @@ def phase_kernels_k1(K1, gen, dev, bw, int8_peak):
         "max_abs_err": worst[0], "max_rel_err": worst[1],
         "ms": total["ms"], "kernel_ms": total["ms"],
         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}
+        "bound_by": "bytes", "library_ms": None,
+        "verify_step": {
+            "shape": f"one speculative verify step at Llama-2-7B, "
+                     f"M={VERIFY_M} (B=8, gamma=4): the same 129 matmuls",
+            # phase 7 puts its verify graph's K1 launches here
+            "launches_per_step": None, **verify, "bound_by": "bytes"}}
 
 
 def k2_inputs(gen, dev, *, layers, b, h, h_kv, d, s, span, c, start=0):
@@ -1063,21 +1080,23 @@ def step_breakdown(restore, run_chunk, steps, counters):
     which cover the kernels of a graph replay too) and ``idle_share``, 1 -
     busy / host; CUDA events around a chunk (``device_span_ms``, the
     stream's time from the chunk's first operation to its last); and the
-    launches of a chunk by the kernels' counters."""
-    def chunk():
+    launches of a chunk by the kernels' counters. ``restore()`` runs, and
+    the device finishes its work, outside every measured window."""
+    def restored():
         restore()
         torch.cuda.synchronize()
-        run_chunk()
 
-    chunk()
-    torch.cuda.synchronize()
+    restored()
+    run_chunk()
+    restored()
     t0 = time.perf_counter()
-    chunk()
+    run_chunk()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    restored()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        chunk()
+        run_chunk()
         torch.cuda.synchronize()
     ops = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
                  reverse=True)
@@ -1147,7 +1166,8 @@ def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
         reset(counters, plains)
         with pass_ctx() as extra:
             t0 = time.perf_counter()
-            outs = engine.generate(prompts, sp)
+            # the step loop, as in every PR before the pipelined default
+            outs = engine.generate(prompts, sp, pipeline_depth=1)
             torch.cuda.synchronize()
             gen_s = time.perf_counter() - t0
         hist = engine.metrics.history
@@ -1279,9 +1299,11 @@ def free_memory():
     torch.cuda.empty_cache()
 
 
-def phase_serve(dev, counters, plains):
-    """4: Llama-2-7B, 32 layers, int4 runtime cache, eager and graphed.
-    Returns the eager pass's launches (equal to the graphed pass's)."""
+def llama7b_workload(dev):
+    """Phase 4's model and requests: (cfg, params, prompts, sampling,
+    engine keywords) for Llama-2-7B at its 32 layers, random NF4 weights
+    from a seed (the engine builds the int4 cache), B=8, ``max_seq`` 512,
+    32-step chunks, 8 prompts of 16-200 tokens, 64 greedy new tokens."""
     from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig
     cfg = LlamaConfig.llama2_7b()
@@ -1295,9 +1317,16 @@ def phase_serve(dev, counters, plains):
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in rng.integers(16, 201, 8)]
-    sp = SamplingParams(max_new_tokens=64)
     kw = dict(max_batch=8, max_seq=512, steps_per_sync=32,
               runtime_cache="int4")
+    return cfg, params, prompts, SamplingParams(max_new_tokens=64), kw
+
+
+def phase_serve(dev, counters, plains):
+    """4: Llama-2-7B, 32 layers, int4 runtime cache, eager and graphed.
+    Returns the eager pass's launches (equal to the graphed pass's) and
+    the graphed engine's greedy tokens (an engine not warmed up)."""
+    cfg, params, prompts, sp, kw = llama7b_workload(dev)
     want = {"K1_int4_matmul": 129, "K2_flash_decode": 32,
             "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
     results = {}
@@ -1318,8 +1347,7 @@ def phase_serve(dev, counters, plains):
             # int4_matmul), and the packed path's quantize_a8 alone
             from tpu_bitsandbytes_torch.ops import int4cache, w4a8
             lin = engine.params["layers"][0]["o_proj"]
-            x = torch.randn((8, cfg.hidden_size), generator=gen,
-                            device=dev).to(cfg.dtype)
+            x = torch.randn((8, cfg.hidden_size), device=dev).to(cfg.dtype)
             per_matmul = {
                 "qlinear4_int4_cache": kernel_launches(lambda: lin(x)),
                 "int4_matmul": kernel_launches(lambda: int4cache.int4_matmul(
@@ -1336,7 +1364,8 @@ def phase_serve(dev, counters, plains):
     serve_lines("llama2_7b", results, {
         "layers": cfg.num_layers, "batch": 8, "steps_per_sync": 32,
         "prompt_lens": [len(p) for p in prompts], "new_tokens": 64})
-    return results["eager"]["passes"][-1]["launches"]
+    return (results["eager"]["passes"][-1]["launches"],
+            results["graphed"]["passes"][-1]["outs"])
 
 
 PACKED_PROMPTS = [24, 60, 100, 200, 700, 1100, 1500, 1800]
@@ -1918,6 +1947,445 @@ def phase_requests(dev, counters, plains, workload):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the engine's lifecycle at Llama-2-7B width (footprint, warm-up,
+# snapshot and restore, pipelined dispatch, speculative decoding)
+# ---------------------------------------------------------------------------
+
+# new tokens per request of the snapshot and the pipelined timing: three
+# chunks, the requests mid-flight after two steps, within phase 4's spans
+LIFECYCLE_NEW = 96
+SPEC_GAMMA = 4
+# the verify check's slots with wrong drafts: slot -> its first wrong draft
+# (1 .. gamma), so that one slot accepts none and one accepts two
+SPEC_WRONG = {2: 1, 5: 3}
+# least share of the speculative engine's greedy tokens equal to plain
+# greedy's at bf16: a flipped near-tie forks only its own slot's stream
+# (PERF.md); a verify that broke acceptance would fork every slot
+SPEC_SAME_FLOOR = 0.75
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every distinct tensor in a parameter tree (dicts, lists,
+    dataclasses such as QLinear4), counted by walking the tree itself."""
+    seen, total = set(), 0
+
+    def visit(t):
+        nonlocal total
+        if isinstance(t, torch.Tensor):
+            key = (t.data_ptr(), t.numel(), t.dtype)
+            if key not in seen:
+                seen.add(key)
+                total += t.numel() * t.element_size()
+        elif isinstance(t, dict):
+            for v in t.values():
+                visit(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                visit(v)
+        elif dataclasses.is_dataclass(t) and not isinstance(t, type):
+            for f in dataclasses.fields(t):
+                visit(getattr(t, f.name))
+
+    visit(tree)
+    return total
+
+
+def no_plain_calls(plains, what):
+    n = sum(f.cuda_calls for f in plains)
+    if n:
+        raise AssertionError(f"{what}: {n} plain-version calls on CUDA "
+                             "tensors")
+
+
+def graph_nodes(names):
+    """Launches per counter in a graph's kernel census."""
+    return {k: sum(c for nm, c in names.items() if re.search(rx, nm))
+            for k, rx in KERNEL_RE.items()}
+
+
+def verify_against_decode_steps(eng, outs, counters, cfg, dev, E, S):
+    """One verify step from the speculative engine's cache state after
+    serving ``outs`` (each slot's last token its first input), held against
+    sequential decode steps from the same state. The
+    drafts are each slot's greedy tokens, except in ``SPEC_WRONG``'s slots,
+    whose drafts from the one named on are the decode step's least likely
+    token. (a) The eager verify's logits at all gamma + 1 positions against
+    gamma + 1 decode steps fed the same tokens, within E2E_TOL; its launches
+    by the counters. (b) A replay of the verify graph: its launches by the
+    counters and by the graph's kernel nodes (129 K1, no K2); its emitted
+    tokens and counts those of the greedy rule on (a)'s logits, each wrong
+    draft rejected. (c) Two decode steps after that replay, which leaves the
+    rejected drafts' KV behind the lengths, fed each slot's accepted tokens'
+    greedy continuation, against decode steps fed the same tokens from the
+    first state, within E2E_TOL. Returns the readings, the graph's key, the
+    state's lengths and the verify's tokens."""
+    g1 = SPEC_GAMMA + 1
+    cache = eng.cache
+    lengths = cache.lengths.clone()
+    b = lengths.shape[0]
+    ones = torch.ones((b,), dtype=torch.bool, device=dev)
+    active = np.ones((b,), bool)
+    span = E._span_bucket(int(lengths.max()) + g1 + 3, eng.max_seq)
+    wrong_from = torch.tensor([SPEC_WRONG.get(i, g1) for i in range(b)],
+                              device=dev)
+
+    def decode_steps(first, pick, n):
+        """``n`` decode steps from ``lengths``, step j fed column j of the
+        returned tokens [B, n]: ``first``, then ``pick(j, logits of step
+        j - 1)``; and the steps' logits [B, n, V]."""
+        cache.lengths.copy_(lengths)
+        toks, logits = [first], []
+        for j in range(1, n + 1):
+            lg = E.decode_step(eng.params, cache, toks[-1], ones, cfg,
+                               attn_span=span)[0]
+            logits.append(lg)
+            toks.append(pick(j, lg).to(torch.int32))
+        cache.lengths.copy_(lengths)
+        return torch.stack(toks[:n], 1), torch.stack(logits, 1)
+
+    last = torch.tensor([o[-1] for o in outs], dtype=torch.int32,
+                        device=dev)
+    vt, ref1 = decode_steps(
+        last, lambda j, lg: torch.where(j >= wrong_from, lg.argmin(-1),
+                                        lg.argmax(-1)), g1)
+    # (a) the eager verify against the decode steps, at every position
+    before = counts(counters)
+    v_logits = S.verify_logits(eng.params, cache, vt, cfg, attn_span=span)
+    torch.cuda.synchronize()
+    eager = {k: n - before[k] for k, n in counts(counters).items()}
+    cache.lengths.copy_(lengths)
+    logit_err = err(v_logits, ref1)[1]
+    pos0_err = err(v_logits[:, 0], ref1[:, 0])[1]
+    preds = v_logits.argmax(-1).to(torch.int32)
+    n_acc = torch.cumprod((preds[:, :-1] == vt[:, 1:]).to(torch.int32),
+                          dim=1).sum(1)
+    want_emit = torch.where(
+        torch.arange(g1, device=dev)[None, :] < n_acc[:, None],
+        torch.cat([vt[:, 1:], vt[:, :1]], 1), preds.gather(1, n_acc[:, None]))
+    # each slot's accepted tokens, then its greedy continuation
+    tok2, ref2 = decode_steps(
+        last, lambda j, lg: torch.where(j <= n_acc, vt[:, min(j, g1 - 1)],
+                                        lg.argmax(-1)), g1 + 2)
+    # (b) the verify graph, captured at the key's first use
+    key = ("verify", span, SPEC_GAMMA, True)
+    vt_np = vt.cpu().numpy()
+    if key not in eng.graph_keys():
+        eng.run_verify(vt_np, active, all_greedy=True, attn_span=span)
+        cache.lengths.copy_(lengths)
+    before = counts(counters)
+    emitted, cnt = (t.clone() for t in eng.run_verify(
+        vt_np, active, all_greedy=True, attn_span=span))
+    torch.cuda.synchronize()
+    replay = {k: n - before[k] for k, n in counts(counters).items()}
+    nodes = graph_nodes(eng.verify_kernel_names(span, True))
+    upto = torch.arange(g1, device=dev)[None, :] <= n_acc[:, None]
+    rule_ok = (torch.equal(cnt, (n_acc + 1).to(cnt.dtype))
+               and bool(((emitted == want_emit) | ~upto).all()))
+    # (c) two decode steps over the stale draft KV
+    cont_err = 0.0
+    for c in range(2):
+        at = (cnt.long() + c)[:, None]
+        lg = E.decode_step(eng.params, cache, tok2.gather(1, at)[:, 0], ones,
+                           cfg, attn_span=span)[0]
+        want = ref2.gather(1, at[..., None].expand(b, 1, ref2.shape[-1]))
+        cont_err = max(cont_err, err(lg, want[:, 0])[1])
+    cache.lengths.copy_(lengths)
+    want_v = {k: 0 for k in KERNEL_RE}
+    want_v["K1_int4_matmul"] = 4 * cfg.num_layers + 1
+    rejected = all(int(n_acc[i]) < w for i, w in SPEC_WRONG.items())
+    if (eager != want_v or replay != want_v or nodes != want_v
+            or not logit_err <= E2E_TOL or not cont_err <= E2E_TOL
+            or not rule_ok or not rejected
+            or not torch.isfinite(v_logits).all()):
+        raise AssertionError(
+            f"verify step: launches eager {eager}, replay {replay}, graph "
+            f"nodes {nodes} (want {want_v}); logits {logit_err} and after "
+            f"rejection {cont_err} of max|ref| from decode steps' (tol "
+            f"{E2E_TOL}); accepted {n_acc.tolist()} (wrong drafts from "
+            f"{SPEC_WRONG}), replay counts {cnt.tolist()}, rule held "
+            f"{rule_ok}")
+    plain_next = tok2[:, 1:]
+    return {"key": key, "lengths": lengths, "tokens": vt_np,
+            "verify_launches_eager": eager, "verify_launches_replay": replay,
+            "verify_graph_nodes": nodes,
+            "verify_vs_decode_logits_rel_err": logit_err,
+            "verify_vs_decode_pos0_rel_err": pos0_err,
+            "after_rejection_vs_decode_logits_rel_err": cont_err,
+            "wrong_drafts_from": SPEC_WRONG,
+            "accepted_drafts_per_slot": n_acc.tolist(),
+            "emitted_equal_to_plain_greedy": bool(
+                ((emitted == plain_next[:, :g1]) | ~upto).all())}
+
+
+def phase_lifecycle(dev, counters, plains, unwarmed_outs):
+    """7: the engine's lifecycle on phase 4's model, prompts and seed
+    (Llama-2-7B, 32 layers, int4 cache, B=8, ``max_seq`` 512, 32-step
+    chunks), the int4 parameters built once and shared by every engine.
+    (1) ``footprint()`` against the real allocations. (2) ``warmup`` of
+    phase 4's prompt lengths with the sampled variant on a fresh graphed
+    engine: the graphs captured are the plan's keys; then phase 4's
+    workload, whose greedy tokens must equal ``unwarmed_outs`` (phase 4's
+    graphed engine). (3) Snapshot after 2 steps; the run finished, the
+    cache and lengths zeroed, the snapshot loaded into that engine, whose
+    graphs predate the load: its tokens equal the uninterrupted run's.
+    (4) ``generate`` pipelined (the default) against the step loop on that
+    engine, phase 4's prompts with ``LIFECYCLE_NEW`` new tokens: tokens
+    identical; ``step_breakdown`` of each decode loop from the state after
+    the admission. (5) ``speculative="ngram"``, gamma 4: phase 4's
+    workload served graphed, at least ``SPEC_SAME_FLOOR`` of its greedy
+    tokens equal to ``unwarmed_outs``; a verify step held against decode
+    steps (:func:`verify_against_decode_steps`). Then the path's launches,
+    counted by the wrappers in an eager drive of the pipelined
+    ``generate`` and of the speculative engine (whose tokens must equal
+    the graphed ones). Returns them and the verify graph's K1 launches."""
+    import tempfile
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.engine import speculative as S
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    from tpu_bitsandbytes_torch.utils.metrics import (MetricsLogger,
+                                                      format_footprint)
+    t_phase = time.perf_counter()
+    cfg, params, prompts, sp, kw = llama7b_workload(dev)
+    lens = [len(p) for p in prompts]
+    common = {"model": "llama2_7b", "layers": cfg.num_layers, "batch": 8,
+              "max_seq": 512, "steps_per_sync": 32, "prompt_lens": lens}
+    reset(counters, plains)
+
+    # (1) the footprint against the allocations
+    free_memory()
+    engine = E.DecodeEngine(params, cfg, device=dev, **kw)
+    fp = engine.footprint()
+    shared = engine.params
+    del params
+    c = engine.cache
+    kv = sum(t.numel() * t.element_size()
+             for t in (c.k, c.v, c.k_scale, c.v_scale))
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    qlin = [w for layer in shared["layers"] for w in layer.values()
+            if isinstance(w, QLinear4)] + [shared["lm_head"]]
+    got = {"params": fp["packed"] + fp["exec_cache"] + fp["fp"],
+           "kv": fp["kv"], "budget": fp["budget"]}
+    want = {"params": tensor_bytes(shared), "kv": kv, "budget": total_mem}
+    if got != want or not fp["fits"] or not fp["packed"] or not all(
+            w.packed is not None and w.w_cache is not None for w in qlin):
+        raise AssertionError(f"footprint {fp}: {got} against the "
+                             f"allocations {want}; the codes must be kept")
+    emit({"phase": "lifecycle", "step": "footprint", **common,
+          "footprint": fp, "allocated": want,
+          "mem_get_info_total": torch.cuda.mem_get_info(dev)[1],
+          "table": format_footprint(fp).splitlines(),
+          "t_s": time.perf_counter() - t_phase})
+    del engine, c
+    kw = dict(kw, runtime_cache=None)       # the shared params carry it
+
+    # (2) warm-up, then phase 4's workload
+    free_memory()
+    eng_a = E.DecodeEngine(shared, cfg, device=dev, **kw)
+    plan = eng_a.warmup(prompt_lengths=lens, features=("sampled",))
+    keys = eng_a.graph_keys()
+    if keys != eng_a.plan_graph_keys(plan):
+        raise AssertionError(f"warm-up captured {keys}, the plan's keys "
+                             f"are {eng_a.plan_graph_keys(plan)}")
+    if eng_a.cache.lengths.any():
+        raise AssertionError("warm-up left lengths behind")
+    warm = eng_a.graph_stats()
+    t0 = time.perf_counter()
+    outs = eng_a.generate(prompts, sp, pipeline_depth=1)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if outs != unwarmed_outs:
+        differ = [i for i, (a, b) in enumerate(zip(outs, unwarmed_outs))
+                  if a != b]
+        raise AssertionError(f"warmed engine: requests {differ} differ from "
+                             "the unwarmed engine's greedy tokens")
+    emit({"phase": "lifecycle", "step": "warmup", **common,
+          "features": ["sampled"],
+          "plan": {k: v for k, v in plan.items() if k != "variants"},
+          "variants": plan["variants"], "seconds": plan["seconds"],
+          "graphs_captured": warm["graphs"], "graph_keys": keys,
+          "capture_s": warm["capture_s"],
+          "graph_pool_mib": warm["pool_bytes"] / 2 ** 20,
+          "served_generate_s": serve_s,
+          "served_decode_step_ms": eng_a.metrics.summary()["mean_step_ms"]
+          / 32,
+          "keys_serving_captured": eng_a.graph_keys()[len(keys):],
+          "greedy_tokens_identical_to_unwarmed": True,
+          "t_s": time.perf_counter() - t_phase})
+    no_plain_calls(plains, "warm-up")
+
+    # (3) snapshot after 2 steps, the run finished uninterrupted, then the
+    # snapshot loaded back into the same engine: every graph it replays
+    # (warm-up's) predates the load, and the cache and lengths are zeroed
+    # first, so only a load into the captured tensors restores them;
+    # LIFECYCLE_NEW tokens, so that the requests are mid-flight
+    sp_long = dataclasses.replace(sp, max_new_tokens=LIFECYCLE_NEW)
+    first = eng_a._uid + 1
+    for p in prompts:
+        eng_a.add_request(p, sp_long)
+    for _ in range(2):
+        eng_a.step()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/engine_state.npz"
+        t0 = time.perf_counter()
+        eng_a.save_state(path)
+        save_s = time.perf_counter() - t0
+        snap_bytes = os.path.getsize(path)
+        while eng_a.step():
+            pass
+        ref = {r.uid: r.generated for r in eng_a.finished if r.uid >= first}
+        keys_b = eng_a.graph_keys()
+        c = eng_a.cache
+        for t in (c.k, c.v, c.k_scale, c.v_scale, c.lengths):
+            t.zero_()
+        eng_a.finished.clear()
+        t0 = time.perf_counter()
+        eng_a.load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    while eng_a.step():
+        pass
+    got = {r.uid: r.generated for r in eng_a.finished if r.uid >= first}
+    if got != ref or len(got) != len(prompts):
+        raise AssertionError("restored engine: tokens differ from the "
+                             "uninterrupted run's")
+    if eng_a.graph_keys() != keys_b:
+        raise AssertionError(f"restored engine captured "
+                             f"{eng_a.graph_keys()[len(keys_b):]} after the "
+                             f"load; it had {keys_b}")
+    emit({"phase": "lifecycle", "step": "snapshot", **common,
+          "new_tokens": LIFECYCLE_NEW, "steps_before_save": 2,
+          "snapshot_bytes": snap_bytes,
+          "save_s": save_s, "load_s": load_s,
+          "graphs_captured_before_load": len(keys_b),
+          "keys_captured_after_load": eng_a.graph_keys()[len(keys_b):],
+          "tokens_identical_to_uninterrupted": True,
+          "t_s": time.perf_counter() - t_phase})
+    no_plain_calls(plains, "snapshot")
+
+    # (4) pipelined (the default) against the step loop, one engine: the
+    # tokens of generate, then each decode loop timed from the state after
+    # the admission (the prefills run in restore, outside the windows)
+    steps = 32 * -(-(LIFECYCLE_NEW - 1) // 32)
+    outs = {depth: eng_a.generate(prompts, sp_long, pipeline_depth=depth)
+            for depth in (2, 1)}
+    if outs[2] != outs[1]:
+        raise AssertionError("pipelined and step-loop greedy tokens differ")
+
+    def restore():
+        eng_a.finished.clear()
+        eng_a.cache.lengths.zero_()
+        for p in prompts:
+            eng_a.add_request(p, sp_long)
+        eng_a._admit()
+        eng_a.metrics = MetricsLogger()
+
+    def step_loop():
+        while eng_a.step():
+            pass
+
+    runs = {}
+    for depth, loop in ((2, lambda: eng_a.run_pipelined(2)), (1, step_loop)):
+        bd = runs[depth] = step_breakdown(restore, loop, steps, counters)
+        got = [r.generated for r in sorted(eng_a.finished,
+                                           key=lambda r: r.uid)]
+        if got != outs[1]:
+            raise AssertionError(f"depth {depth}: decode-loop tokens differ "
+                                 "from generate's")
+        bd["chunks_collected"] = len(eng_a.metrics.history)
+        bd["decode_step_ms"] = eng_a.metrics.summary()["mean_step_ms"] / 32
+        emit({"phase": "lifecycle", "step": "pipelined", **common,
+              "pipeline_depth": depth, "new_tokens": LIFECYCLE_NEW,
+              "steps_per_request": steps,
+              **{k: v for k, v in bd.items() if k != "top_device_ops"},
+          "t_s": time.perf_counter() - t_phase})
+    emit({"phase": "lifecycle", "step": "pipelined_compare",
+          "tokens_identical": True,
+          **{key: {d: runs[d][key] for d in runs}
+             for key in ("host_ms_per_step", "device_idle_share")}})
+    no_plain_calls(plains, "pipelined")
+    del eng_a
+    free_memory()
+
+    # (5) speculative decoding, gamma 4, graphed
+    eng_s = E.DecodeEngine(shared, cfg, device=dev, speculative="ngram",
+                           spec_gamma=SPEC_GAMMA, **kw)
+    t0 = time.perf_counter()
+    spec_outs = eng_s.generate(prompts, sp)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    stats = dict(eng_s.spec_stats)
+    hist = eng_s.metrics.history
+    same = sum(a == b for o, u in zip(spec_outs, unwarmed_outs)
+               for a, b in zip(o, u))
+    same_share = same / sum(len(u) for u in unwarmed_outs)
+    verify = verify_against_decode_steps(eng_s, spec_outs, counters, cfg,
+                                         dev, E, S)
+    verify_k1 = verify["verify_launches_replay"]["K1_int4_matmul"]
+    vkey, lengths, vt = verify.pop("key"), verify.pop("lengths"), verify.pop(
+        "tokens")
+    active = np.ones((8,), bool)
+    # one verify step's host and device time, replayed from that state
+    vbd = step_breakdown(
+        lambda: eng_s.cache.lengths.copy_(lengths),
+        lambda: eng_s.run_verify(vt, active, all_greedy=vkey[3],
+                                 attn_span=vkey[1]),
+        1, counters)
+    eng_s.cache.lengths.copy_(lengths)
+    if not same_share >= SPEC_SAME_FLOOR:
+        raise AssertionError(f"speculative greedy tokens: {same_share} of "
+                             f"plain greedy's, floor {SPEC_SAME_FLOOR}")
+    verify_ms = [m.wall_s * 1e3 for m in hist]
+    emit({"phase": "lifecycle", "step": "speculative", **common,
+          "spec_gamma": SPEC_GAMMA, "generate_s": spec_s,
+          "spec_stats": stats,
+          "tokens_per_verify_step": sum(m.tokens for m in hist)
+          / max(1, stats["verify_steps"]),
+          # drafts are gamma per active slot and verify step
+          "tokens_per_slot_per_verify_step":
+              1 + stats["accepted"] * SPEC_GAMMA / max(1, stats["drafted"]),
+          "verify_ms_mean": sum(verify_ms) / len(verify_ms),
+          "verify_ms_min": min(verify_ms),
+          "graph_keys": eng_s.graph_keys(),
+          "graphs": eng_s.graph_stats()["graphs"],
+          "greedy_tokens_equal_to_plain_share": same_share,
+          "greedy_share_floor": SPEC_SAME_FLOOR, **verify,
+          "verify_step_breakdown": {k: v for k, v in vbd.items()
+                                    if k != "launches_per_step"},
+          "tol": E2E_TOL, "t_s": time.perf_counter() - t_phase})
+    no_plain_calls(plains, "speculative")
+    del eng_s
+    free_memory()
+
+    # the path's launches: an eager drive of the pipelined generate and of
+    # the speculative engine, each wrapper counting its own launches
+    reset(counters, plains)
+    eager = E.DecodeEngine(shared, cfg, device=dev, cuda_graphs=False, **kw)
+    eager_outs = eager.generate(prompts, sp)
+    del eager
+    free_memory()
+    eager_s = E.DecodeEngine(shared, cfg, device=dev, cuda_graphs=False,
+                             speculative="ngram", spec_gamma=SPEC_GAMMA, **kw)
+    eager_spec = eager_s.generate(prompts, sp)
+    torch.cuda.synchronize()
+    launches = counts(counters)
+    no_plain_calls(plains, "eager drive")
+    if eager_outs != unwarmed_outs or eager_spec != spec_outs:
+        raise AssertionError("eager pipelined or speculative tokens differ "
+                             "from the graphed engines'")
+    if not launches["K1_int4_matmul"] or not launches["K2_flash_decode"]:
+        raise AssertionError(f"eager drive launches {launches}")
+    emit({"phase": "lifecycle", "step": "eager_drive", **common,
+          "launches": launches,
+          "verify_steps": eager_s.spec_stats["verify_steps"],
+          "tokens_identical_to_graphed": True,
+          "t_s": time.perf_counter() - t_phase})
+    del eager_s, shared
+    free_memory()
+    emit({"phase": "lifecycle_wall", "seconds": time.perf_counter() - t_phase})
+    return launches, verify_k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1930,6 +2398,7 @@ def main() -> int:
     from tpu_bitsandbytes_torch.ops import matmul4bit as K5
     from tpu_bitsandbytes_torch.ops import w4a8 as K4
 
+    t_script = time.perf_counter()
     # 1. header
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1982,7 +2451,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. Llama-2-7B through the int4 cache
-    by_path = {"llama2_7b_int4": phase_serve(dev, counters, plains)}
+    by_path = {}
+    by_path["llama2_7b_int4"], outs_7b = phase_serve(dev, counters, plains)
     torch.cuda.empty_cache()
 
     # 5. Llama-2-13B off the packed bytes
@@ -1996,6 +2466,11 @@ def main() -> int:
                                                     workload)
     del workload
     free_memory()
+
+    # 7. the engine's lifecycle on phase 4's model
+    by_path["llama2_7b_lifecycle"], verify_k1 = phase_lifecycle(
+        dev, counters, plains, outs_7b)
+    kernels[0]["verify_step"]["launches_per_step"] = verify_k1
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     for k in kernels:
@@ -2003,6 +2478,7 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
+    emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script})
     emit({"kernels": kernels})
     # one card: the run uses device 0 alone
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

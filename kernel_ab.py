@@ -72,13 +72,17 @@ def prefill_worker(root: Path) -> dict:
     modes = {"default": {}}
     if "cuda_graphs" in inspect.signature(E.DecodeEngine).parameters:
         modes["cuda_graphs=False"] = {"cuda_graphs": False}
+    # the step loop on every tree (the pipelined default came later)
+    gen_kw = ({"pipeline_depth": 1} if "pipeline_depth"
+              in inspect.signature(E.DecodeEngine.generate).parameters
+              else {})
     rows = {}
     for mode, extra in modes.items():
         engine = E.DecodeEngine(params, cfg, device=dev, **kw, **extra)
         for _ in range(2):
             engine.metrics = MetricsLogger()
             with C.timed_prefills({}) as groups:
-                engine.generate(prompts, sp)
+                engine.generate(prompts, sp, **gen_kw)
                 torch.cuda.synchronize()
         for g in sorted(groups, key=lambda g: g["bucket"]):
             rows[f"{mode}: prefill, bucket {g['bucket']}, {g['rows']} "

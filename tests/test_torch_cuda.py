@@ -72,7 +72,9 @@ def row_rel_err(got, ref) -> float:
 
 @pytest.mark.parametrize("m,n,k", [
     (8, 12288, 4096), (1, 4096, 4096), (64, 4096, 4096), (3, 4099, 384),
-    (8, 2053, 11008), (13, 127, 384)])
+    (8, 2053, 11008), (13, 127, 384),
+    # a speculative verify step at B=8, gamma=4: M = 40
+    (40, 12288, 4096), (40, 4096, 11008)])
 def test_int4_mm_matches_plain(cuda, m, n, k):
     rng = np.random.default_rng(m * n + k)
     kp = -(-k // 128) * 128
@@ -1200,3 +1202,131 @@ def test_chunked_prefill_card_matches_cpu(cuda, quantized):
                          **kw).generate(prompts, sp)
     assert K1.int4_mm.launches > k1
     assert got == ref
+
+
+# ---------------------------------------------------------------------------
+# the engine's lifecycle: warm-up, snapshot and restore, pipelined dispatch,
+# the speculative verify step
+# ---------------------------------------------------------------------------
+
+def test_warmup_captures_the_plans_keys(cuda):
+    """Warm-up builds every kernel and captures exactly the plan's graph
+    keys, leaves every length at zero, and serving the prompt lengths it
+    was given then captures nothing more and emits an unwarmed engine's
+    greedy tokens."""
+    cfg, params = _graph_model(False)
+    prompts = _prompts([100, 20, 60], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=40)
+    want = _engine(cfg, params, cuda, True).generate(prompts, sp,
+                                                     pipeline_depth=1)
+    eng = _engine(cfg, params, cuda, True)
+    plan = eng.warmup(prompt_lengths=[len(p) for p in prompts],
+                      features=("sampled",))
+    keys = eng.plan_graph_keys(plan)
+    assert eng.graph_keys() == keys and len(keys) == 4
+    assert all(_build.loaded().values())
+    assert eng.cache.lengths.tolist() == [0] * 4
+    assert eng.generate(prompts, sp, pipeline_depth=1) == want
+    assert eng.graph_keys() == keys
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_load_state_into_a_warmed_graphed_engine(cuda, tmp_path,
+                                                 temperature):
+    """A snapshot loaded into a graphed engine whose graphs were captured
+    before the load (by warm-up) replays them against the restored cache
+    and generator: greedy and sampled requests finish with the tokens of
+    the run that was not interrupted."""
+    cfg, params = _graph_model(False)
+    prompts = _prompts([30, 9, 50, 12, 20], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=40, temperature=temperature, top_k=20)
+    a = _engine(cfg, params, cuda, True)
+    for p in prompts:
+        a.add_request(p, sp)
+    for _ in range(3):
+        a.step()
+    assert a.waiting and a.active
+    path = str(tmp_path / "snap.npz")
+    a.save_state(path)
+    while a.step():
+        pass
+    ref = {r.uid: r.generated for r in a.finished}
+    b = _engine(cfg, params, cuda, True)
+    b.warmup(prompt_lengths=[len(p) for p in prompts], features=("sampled",))
+    keys = b.graph_keys()
+    b.load_state(path)
+    while b.step():
+        pass
+    assert {r.uid: r.generated for r in b.finished} == ref
+    assert b.graph_keys() == keys           # every chunk replayed
+
+
+def test_pipelined_and_step_loop_tokens_match(cuda):
+    """``generate``'s pipelined default gives the step loop's greedy
+    tokens, graphed and eager: slot turnover, requests retiring
+    mid-pipeline, a repetition penalty and logprobs carried across the
+    pipelined chunks on the device."""
+    cfg, params = _graph_model(False)
+    prompts = _prompts([100, 20, 60, 9, 33], cfg.vocab_size)
+    sps = [SamplingParams(max_new_tokens=40),
+           SamplingParams(max_new_tokens=12, repetition_penalty=1.3),
+           SamplingParams(max_new_tokens=30, logprobs=True),
+           SamplingParams(max_new_tokens=5),
+           SamplingParams(max_new_tokens=40)]
+    want = _engine(cfg, params, cuda, False).generate(prompts, sps,
+                                                      pipeline_depth=1)
+    for graphs in (False, True):
+        assert _engine(cfg, params, cuda, graphs).generate(prompts,
+                                                           sps) == want
+
+
+def test_verify_graph_holds_k1_and_no_k2(cuda):
+    """A verify step launches 4 * layers + 1 K1 (M = B * (gamma + 1)) and
+    no K2, by the counters of an eager verify and of a graphed one and by
+    the kernel nodes of its graph; graphed and eager speculative engines
+    emit the same greedy tokens."""
+    cfg, params = _graph_model(False)
+    prompts = [p * 3 for p in _prompts([8, 8, 8], cfg.vocab_size)]
+    sp = SamplingParams(max_new_tokens=24)
+    want = {"K1": 4 * cfg.num_layers + 1, "K2": 0, "K4": 0}
+    toks = np.ones((4, 5), np.int32)
+    active = np.array([True, True, True, False])
+    outs = {}
+    for graphs in (False, True):
+        eng = E.DecodeEngine(llama.to_device(params, cuda), cfg, max_batch=4,
+                             steps_per_sync=8, device=cuda,
+                             cuda_graphs=graphs, speculative="ngram",
+                             spec_gamma=4)
+        outs[graphs] = eng.generate(prompts, sp)
+        assert eng.spec_stats["verify_steps"] > 0
+        eng.run_verify(toks, active, all_greedy=True, attn_span=128)
+        before = _launches()
+        eng.run_verify(toks, active, all_greedy=True, attn_span=128)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in _launches().items()} == want
+        if graphs:
+            assert ("verify", 128, 4, True) in eng.graph_keys()
+            names = eng.verify_kernel_names(128)
+            nodes = {k: sum(c for nm, c in names.items() if re.search(rx, nm))
+                     for k, rx in (("K1", r"tc_kernel<[^,]*\bInt4,"),
+                                   ("K2", r"flash_decode_kernel<"),
+                                   ("K4", r"tc_kernel<[^,]*\bNf4,"))}
+            assert nodes == want
+    assert outs[True] == outs[False]
+
+
+def test_speculative_f32_tokens_card_match_cpu(cuda):
+    """f32: the speculative engine on the card emits the CPU's tokens,
+    which are plain greedy's."""
+    cfg, params = _tiny(torch.float32)
+    pat = _prompts([4], cfg.vocab_size)[0]
+    prompts = [pat * 4, _prompts([12], cfg.vocab_size)[0]]
+    sp = SamplingParams(max_new_tokens=12)
+    kw = dict(max_batch=2, steps_per_sync=4, quantized_kv=False)
+    plain = E.DecodeEngine(params, cfg, device="cpu", **kw).generate(prompts,
+                                                                    sp)
+    ref = E.DecodeEngine(params, cfg, device="cpu", speculative="ngram",
+                         **kw).generate(prompts, sp)
+    got = E.DecodeEngine(llama.to_device(params, cuda), cfg, device=cuda,
+                         speculative="ngram", **kw).generate(prompts, sp)
+    assert got == ref == plain

@@ -13,12 +13,23 @@ prefill; with ``prefill_chunk`` a long prompt is written into its slot one
 chunk per engine step, between decode chunks (chunked prefill). Requests
 may ask for a repetition penalty and for logprobs, may be cancelled, and
 may stream their tokens (``on_token``, :meth:`DecodeEngine.generate_stream`).
+
+The engine's lifecycle: :meth:`DecodeEngine.footprint` budgets the device's
+memory (``drop_packed="auto"`` frees the NF4 codes where they would not fit
+beside the runtime cache), :meth:`DecodeEngine.warmup` captures the graphs
+serving will meet before the first request, :meth:`DecodeEngine.save_state`
+and :meth:`DecodeEngine.load_state` snapshot and restart the engine
+token-identically, :meth:`DecodeEngine.run_pipelined` keeps two chunks in
+flight so the host's read-back hides under the device's work, and
+``speculative="ngram"`` scores prompt-lookup drafts in one verify step.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Counter, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -27,7 +38,11 @@ import torch
 from ..models import llama
 from ..ops import _build
 from ..utils import graph_census
-from ..utils.metrics import MetricsLogger
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.metrics import (MetricsLogger, device_memory_bytes,
+                             kv_cache_bytes, param_footprint,
+                             serving_act_bytes)
+from . import speculative as spec
 from .kvcache import KVCache
 from .sampler import SamplingArrays, SamplingParams, sample, sample_batched
 
@@ -237,9 +252,10 @@ def _chunk_span_bucket(need: int, max_seq: int) -> int:
 
 
 class ChunkGraphs:
-    """CUDA graphs of the decode chunk, one per static key, in one memory
-    pool: the counterpart of the JAX package's ``decode_chunk``, which jit
-    compiles at first use for each set of static arguments.
+    """CUDA graphs of the decode chunk (and of the speculative verify step),
+    one per static key, in one memory pool: the counterpart of the JAX
+    package's ``decode_chunk``, which jit compiles at first use for each
+    set of static arguments.
 
     A key's first chunk runs eagerly on the capture stream, which builds
     what must exist before a capture (the rope table, K2's cluster plan, the
@@ -335,7 +351,9 @@ class DecodeEngine:
                  quantized_kv: bool = True, seed: int = 0,
                  steps_per_sync: int = 8,
                  runtime_cache: Optional[str] = None,
+                 speculative: Optional[str] = None, spec_gamma: int = 4,
                  prefill_chunk: Optional[int] = None,
+                 drop_packed="auto",
                  device="cuda", cuda_graphs: bool = True):
         """``params`` must live on ``device``. ``quantized_kv``: an int8 KV
         cache (staged within a decode chunk); False keeps K/V in the
@@ -343,25 +361,65 @@ class DecodeEngine:
         ``steps_per_sync``: decode steps per host read-back (one decode
         chunk). ``runtime_cache``: "int4" attaches the int4 execution cache
         to every NF4 weight (which kernel K1 streams); None serves the
-        params as they are. ``prefill_chunk``: chunked prefill, at least
+        params as they are. The JAX package's "int8", "bf16" and "auto"
+        raise ``NotImplementedError``: those caches are not ported yet.
+        ``drop_packed``: with ``runtime_cache``, free the packed NF4 codes
+        once the cache is built. "auto" (the default) drops them only where
+        the footprint with them (packed + cache + fp + KV + the serving
+        activation estimate) exceeds 0.92 of the device's memory
+        (:meth:`footprint`), decided before the cache is built; True and
+        False force either way. ``speculative``: "ngram" decodes
+        all-greedy and sampled batches by prompt-lookup speculation
+        (:mod:`.speculative`), ``spec_gamma`` drafts per verify step; greedy
+        output stays that of plain greedy decoding (exactly in f32). A
+        batch with a repetition penalty, logprobs, a prefill in flight or
+        no room for gamma + 1 more tokens falls back to the decode chunk.
+        ``prefill_chunk``: chunked prefill, at least
         16: a prompt longer than this is written into its slot
         ``prefill_chunk`` tokens per engine step, between decode chunks, so
         one long admission cannot stall every running stream for a whole
         prompt's forward. ``cuda_graphs``: on a CUDA device, run each decode
         chunk as a CUDA graph replay (:class:`ChunkGraphs`, one graph per
         span bucket, chunk length, all-greedy flag, penalty flag and
-        logprobs flag, captured at first use); False runs the same chunk
-        eagerly there. CPU devices run it eagerly."""
+        logprobs flag, captured at first use; a verify step, one graph per
+        span bucket and all-greedy flag); False runs the same chunk eagerly
+        there. CPU devices run it eagerly."""
         if prefill_chunk is not None and prefill_chunk < 16:
             raise ValueError("prefill_chunk must be >= 16")
+        if speculative not in (None, "ngram"):
+            raise ValueError(f"unknown speculative mode: {speculative!r}")
+        if int(spec_gamma) < 1:
+            raise ValueError("spec_gamma must be >= 1")
+        if runtime_cache not in (None, "int4"):
+            raise NotImplementedError(
+                f"runtime_cache={runtime_cache!r}: only 'int4' is ported "
+                "(the int8 and bf16 caches, and 'auto', are still to come)")
         self.config = config
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq or config.max_seq_len
         self.steps_per_sync = max(1, int(steps_per_sync))
         self.prefill_chunk = prefill_chunk
+        self.speculative = speculative
+        self.spec_gamma = int(spec_gamma)
+        self.spec_stats = {"verify_steps": 0, "drafted": 0, "accepted": 0}
         if runtime_cache is not None:
-            params = llama.build_runtime_cache(params, runtime_cache)
+            drop = drop_packed
+            if drop == "auto":
+                # from the hypothetical footprint, before the cache exists
+                # (building it and then dropping the codes would hold both)
+                est = self._footprint_est(params, runtime_cache,
+                                          quantized_kv)
+                drop = not est["fits"]
+                if drop:
+                    warnings.warn(
+                        "tpu-bitsandbytes: dropping packed NF4 codes — "
+                        f"retaining them needs {est['total'] / 2**30:.1f} "
+                        f"GiB > {0.92 * est['budget'] / 2**30:.1f} GiB HBM "
+                        "budget (pass drop_packed=False to force-retain; "
+                        "a dropped engine cannot re-checkpoint NF4)")
+            params = llama.build_runtime_cache(params, runtime_cache,
+                                               drop_packed=bool(drop))
         self.params = params
         self.cache = KVCache.create(config.num_layers, max_batch,
                                     self.max_seq, config.num_kv_heads,
@@ -386,6 +444,14 @@ class DecodeEngine:
                                  device=self.device)
         self._samp_static = SamplingArrays.build({}, b, device=self.device)
         self._samp_key = None
+        # a verify step's static tokens [B, gamma + 1], staged alike
+        g1 = self.spec_gamma + 1
+        self._vtokens_host = torch.zeros((b, g1), dtype=torch.int32,
+                                         pin_memory=pin)
+        self._vtokens = torch.zeros((b, g1), dtype=torch.int32,
+                                    device=self.device)
+        # pinned host copies of the chunks in flight (run_pipelined)
+        self._out_ring: List[tuple] = []
         self._graphs = (ChunkGraphs(self.device)
                         if cuda_graphs and pin else None)
         self._uid = 0
@@ -393,6 +459,49 @@ class DecodeEngine:
         self.active: Dict[int, Request] = {}   # slot -> request
         self.finished: List[Request] = []
         self.metrics = MetricsLogger()
+
+    # -- device-memory budget ---------------------------------------------
+    def _footprint_from(self, pf: dict, quantized_kv: bool,
+                        kv_bytes_actual: Optional[int] = None) -> dict:
+        """The footprint table from parameter-category bytes: the KV cache
+        (its allocation, or what one would take), the serving activation
+        estimate, their total, the device's memory as the budget, and
+        whether the total fits 0.92 of it."""
+        cfg = self.config
+        kv = kv_bytes_actual
+        if kv is None:
+            kv = kv_cache_bytes(cfg.num_layers, self.max_batch, self.max_seq,
+                                cfg.num_kv_heads, cfg.hd, quantized_kv)
+        act = serving_act_bytes(cfg, self.max_batch,
+                                _bucket(self.max_seq - 1, self.max_seq),
+                                self.steps_per_sync)
+        out = {"packed": pf["packed"], "exec_cache": pf["exec_cache"],
+               "fp": pf["fp"], "kv": kv, "activations_est": act}
+        out["total"] = sum(out.values())
+        out["budget"] = device_memory_bytes(self.device)
+        out["fits"] = out["total"] <= 0.92 * out["budget"]
+        return out
+
+    def _footprint_est(self, params, runtime_cache: Optional[str],
+                       quantized_kv: bool) -> dict:
+        """The footprint before the runtime cache is built (what
+        ``drop_packed="auto"`` decides from)."""
+        return self._footprint_from(
+            param_footprint(params, runtime_cache=runtime_cache),
+            quantized_kv)
+
+    def footprint(self) -> dict:
+        """Device memory by category, in bytes: the packed NF4 codes, the
+        runtime cache, the fp parameters, the KV cache as allocated, a
+        serving activation estimate; their ``total``, the device's memory
+        (``budget``: a card's total memory, the host's RAM for a CPU
+        engine) and ``fits`` (total within 0.92 of it). Render it with
+        :func:`~tpu_bitsandbytes_torch.utils.metrics.format_footprint`."""
+        c = self.cache
+        kv = sum(t.numel() * t.element_size()
+                 for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)
+        return self._footprint_from(param_footprint(self.params),
+                                    c.quantized, kv_bytes_actual=kv)
 
     # -- request management ---------------------------------------------
     def add_request(self, prompt_tokens,
@@ -586,13 +695,15 @@ class DecodeEngine:
         return True
 
     # -- decode -------------------------------------------------------------
-    def _attn_span(self) -> int:
+    def _attn_span(self, extra_steps: int = 0) -> int:
         """Span bucket covering every decoding slot's position plus the
-        chunk."""
+        chunk. ``extra_steps``: steps dispatched but not yet collected (a
+        pipeline's host bookkeeping lags the device by that many)."""
         longest = max((len(r.prompt) + len(r.generated)
                        for r in self.active.values() if not r.prefilling),
                       default=0)
-        return _span_bucket(longest + self.steps_per_sync, self.max_seq)
+        return _span_bucket(longest + extra_steps + self.steps_per_sync,
+                            self.max_seq)
 
     def _host_inputs(self):
         """This chunk's (tokens [B], active [B]) from host bookkeeping,
@@ -663,24 +774,36 @@ class DecodeEngine:
         the key's first use. Returns the device (tokens_seq, active_seq,
         logprobs_seq or None) [steps, B]; read them before the next chunk,
         which may overwrite them."""
-        n = self.steps_per_sync
         self._tokens_host.numpy()[:] = tokens
         self._active_host.numpy()[:] = active
         self._tokens.copy_(self._tokens_host, non_blocking=True)
         self._active.copy_(self._active_host, non_blocking=True)
-        penalty = seen is not None
-        if penalty:
+        if seen is not None:
             self._seen_host.numpy()[:] = seen
             self._seen.copy_(self._seen_host, non_blocking=True)
-        samp = self._samp_arrays()
+        self._samp_arrays()
+        return self._dispatch(all_greedy=all_greedy, attn_span=attn_span,
+                              penalty=seen is not None,
+                              want_logprobs=want_logprobs)
+
+    def _dispatch(self, *, all_greedy: bool, attn_span: int, penalty: bool,
+                  want_logprobs: bool):
+        """One decode chunk from the static device inputs as they stand
+        (tokens, active, seen mask, sampling arrays). The chunk leaves its
+        last tokens and active flags in the static tokens and active, so a
+        pipeline's next chunk continues from them on the device."""
+        n = self.steps_per_sync
+        samp = self._samp_static
 
         def chunk():
-            toks_seq, act_seq, _, _, _, lp_seq, _ = decode_chunk(
+            toks_seq, act_seq, _, last, live, lp_seq, _ = decode_chunk(
                 self.params, self.cache, self._tokens, self._active,
                 self.generator, samp, self.config, n_steps=n,
                 all_greedy=all_greedy, attn_span=attn_span,
                 seen_mask=self._seen if penalty else None,
                 want_logprobs=want_logprobs)
+            self._tokens.copy_(last)
+            self._active.copy_(live)
             return toks_seq, act_seq, lp_seq
 
         if self._graphs is None:
@@ -688,6 +811,34 @@ class DecodeEngine:
         return self._graphs.run(
             (attn_span, n, all_greedy, penalty, want_logprobs), chunk,
             None if all_greedy else self.generator)
+
+    def run_verify(self, tokens: np.ndarray, active: np.ndarray, *,
+                   all_greedy: bool, attn_span: int):
+        """One speculative verify step from host ``tokens`` int32 [B,
+        gamma + 1] (each slot's last token and its drafts) and ``active``
+        bool [B], staged like :meth:`run_chunk`'s inputs. On CUDA (unless
+        ``cuda_graphs=False``) it replays the graph of ``("verify",
+        attn_span, gamma, all_greedy)``, captured at the key's first use.
+        Returns the device (emitted [B, gamma + 1], counts [B]) of
+        :func:`~.speculative.verify_step`; the lengths advance in place."""
+        self._vtokens_host.numpy()[:] = tokens
+        self._active_host.numpy()[:] = active
+        self._vtokens.copy_(self._vtokens_host, non_blocking=True)
+        self._active.copy_(self._active_host, non_blocking=True)
+        samp = self._samp_arrays()
+        gen = None if all_greedy else self.generator
+
+        def verify():
+            emitted, counts, _ = spec.verify_step(
+                self.params, self.cache, self._vtokens, self._active, gen,
+                samp, self.config, attn_span=attn_span,
+                all_greedy=all_greedy)
+            return emitted, counts
+
+        if self._graphs is None:
+            return verify()
+        return self._graphs.run(
+            ("verify", attn_span, self.spec_gamma, all_greedy), verify, gen)
 
     def graph_stats(self) -> dict:
         """Graphs captured, seconds spent capturing them (their eager
@@ -699,8 +850,10 @@ class DecodeEngine:
                 "pool_bytes": g.pool_bytes()}
 
     def graph_keys(self) -> List[tuple]:
-        """The keys of the chunk graphs captured so far: (attn_span,
-        n_steps, all_greedy, penalty, want_logprobs)."""
+        """The keys of the graphs captured so far, in capture order: a
+        decode chunk's (attn_span, n_steps, all_greedy, penalty,
+        want_logprobs), a verify step's ("verify", attn_span, gamma,
+        all_greedy)."""
         return [] if self._graphs is None else self._graphs.keys()
 
     def graph_kernel_names(self, attn_span: int, all_greedy: bool = True,
@@ -712,9 +865,17 @@ class DecodeEngine:
             (attn_span, self.steps_per_sync, all_greedy, penalty,
              want_logprobs))
 
+    def verify_kernel_names(self, attn_span: int,
+                            all_greedy: bool = True) -> Counter[str]:
+        """The kernels one replay of the verify graph of that key launches,
+        by demangled name, read from the graph."""
+        return self._graphs.kernel_names(
+            ("verify", attn_span, self.spec_gamma, all_greedy))
+
     def step(self) -> bool:
         """One engine iteration: admit, one chunk of a chunked prefill,
-        then one decode chunk. Returns False when no work remains."""
+        then one decode chunk (or, speculative, one verify step). Returns
+        False when no work remains."""
         self._admit()
         if not self.active:
             return bool(self.waiting)
@@ -727,6 +888,25 @@ class DecodeEngine:
         all_greedy = all(r.params.temperature <= 0
                          for r in self.active.values())
         want_lp = any(r.params.logprobs for r in self.active.values())
+        reqs = self.active.values()
+        if (self.speculative == "ngram" and not self._needs_seen_mask()
+                and not want_lp and not any(r.prefilling for r in reqs)
+                and max(len(r.prompt) + len(r.generated) for r in reqs)
+                + self.spec_gamma + 1 < self.max_seq - 1):
+            emitted, counts = self._speculative_step(tokens, active,
+                                                     all_greedy)
+            n_emit = 0
+            for slot in list(self.active.keys()):
+                if not active[slot]:
+                    continue
+                for j in range(int(counts[slot])):
+                    req = self.active.get(slot)
+                    if req is None:
+                        break
+                    self._collect(slot, req, int(emitted[slot, j]))
+                    n_emit += 1
+            self.metrics.record(n_emit, time.perf_counter() - t0)
+            return bool(self.waiting or self.active)
         toks_seq, act_seq, lp_seq = self.run_chunk(
             tokens, active, all_greedy=all_greedy,
             attn_span=self._attn_span(),
@@ -735,6 +915,342 @@ class DecodeEngine:
         emitted = self._collect_chunk(toks_seq, act_seq, lp_seq)
         self.metrics.record(emitted, time.perf_counter() - t0)
         return bool(self.waiting or self.active)
+
+    def _speculative_step(self, tokens: np.ndarray, active: np.ndarray,
+                          all_greedy: bool):
+        """One prompt-lookup verify: drafts proposed per slot on the host,
+        scored in one verify step. Returns host (emitted [B, gamma + 1],
+        counts [B])."""
+        g = self.spec_gamma
+        drafts = np.zeros((self.max_batch, g), np.int32)
+        for slot, req in self.active.items():
+            hist = req.prompt + req.generated
+            prop = spec.propose_ngram(hist, g)
+            # padded with self-repeats (cheap to reject) to keep the shape;
+            # the padding is fed to the verifier and can be accepted, so it
+            # counts as drafted
+            self.spec_stats["drafted"] += g
+            drafts[slot] = prop + [hist[-1]] * (g - len(prop))
+        toks = np.concatenate([tokens[:, None], drafts], axis=1)
+        longest = max(len(r.prompt) + len(r.generated)
+                      for r in self.active.values())
+        emitted, counts = self.run_verify(
+            toks, active, all_greedy=all_greedy,
+            attn_span=_span_bucket(longest + g + 1, self.max_seq))
+        emitted, counts = emitted.cpu().numpy(), counts.cpu().numpy()
+        self.spec_stats["verify_steps"] += 1
+        self.spec_stats["accepted"] += int(np.clip(counts - 1, 0, None).sum())
+        return emitted, counts
+
+    # -- warm-up: the graphs and shapes serving will meet -------------------
+    def warmup_plan(self, prompt_lengths: Optional[List[int]] = None,
+                    group_sizes: tuple = (), features: tuple = ()) -> dict:
+        """What :meth:`warmup` will run, in the JAX package's terms:
+        {"prefill_buckets", "group_sizes", "chunk_pairs" ((span, start) of
+        each chunked-prefill step), "decode_windows" ((start, span) of each
+        decode chunk), "variants", "n_compiles"}. Each decode window and
+        variant is one decode-chunk graph (:meth:`plan_graph_keys`);
+        ``n_compiles`` counts those graphs and the prefill and chunk shapes
+        warm-up runs once, so a caller can bound warm-up before paying for
+        it. Chunk spans bucket geometrically above 2048
+        (:func:`_chunk_span_bucket`), which bounds the pairs."""
+        buckets = sorted({_bucket(s, self.max_seq)
+                          for s in (prompt_lengths
+                                    or [16, self.max_seq - 1])})
+        plan = {"prefill_buckets": buckets,
+                "group_sizes": tuple(group_sizes)}
+        if self.prefill_chunk is not None:
+            c = self.prefill_chunk
+            plan["chunk_pairs"] = sorted(
+                {(_chunk_span_bucket(st + c, self.max_seq), 0)
+                 for b in buckets for st in range(0, b, c)})
+        else:
+            plan["chunk_pairs"] = []
+        plan["decode_windows"] = sorted(
+            {(0, _span_bucket(b + self.steps_per_sync, self.max_seq))
+             for b in buckets} | {(0, 128)})
+        variants = [dict(all_greedy=True)]
+        if "sampled" in features:
+            variants.append(dict(all_greedy=False))
+        if "logprobs" in features:
+            variants.append(dict(all_greedy=True, want_logprobs=True))
+        if "penalty" in features:
+            variants.append(dict(all_greedy=True, seen_mask="mask"))
+        plan["variants"] = variants
+        plan["n_compiles"] = (
+            len(buckets) * (1 + len(group_sizes))
+            + len(plan["chunk_pairs"])
+            + (1 if self.prefill_chunk is not None else 0)  # final logits
+            + len(plan["decode_windows"]) * len(variants))
+        return plan
+
+    def plan_graph_keys(self, plan: dict) -> List[tuple]:
+        """The decode-chunk graph keys (attn_span, n_steps, all_greedy,
+        penalty, want_logprobs) of a :meth:`warmup_plan`: its decode
+        windows times its variants, in warm-up order ("sampled" is
+        ``all_greedy=False``, "penalty" a seen mask, "logprobs"
+        ``want_logprobs``)."""
+        return [(span, self.steps_per_sync, var["all_greedy"],
+                 "seen_mask" in var, var.get("want_logprobs", False))
+                for _, span in plan["decode_windows"]
+                for var in plan["variants"]]
+
+    def warmup(self, prompt_lengths: Optional[List[int]] = None,
+               group_sizes: tuple = (), features: tuple = ()) -> dict:
+        """Run, ahead of the first request, what serving would otherwise
+        pay for at first use: on a card, build and load every kernel and
+        capture the decode-chunk graph of every key the given prompt
+        lengths reach (default: the buckets up to ``max_seq``); run the
+        prefill of each bucket (and, batched, of each padded
+        ``group_sizes`` entry), each chunked-prefill step and its final
+        logits once. ``features``: a subset of {"sampled", "logprobs",
+        "penalty"}, each a variant of every decode graph. The exact set is
+        :meth:`warmup_plan`.
+
+        Runs on the engine's own cache and static inputs, so the graphs
+        replay against them; afterwards every slot's length is zero again
+        and the generator is in the state it was. Refuses an engine that
+        holds requests. Returns the plan with ``"seconds"``, the warm-up's
+        wall time."""
+        if self.waiting or self.active:
+            raise RuntimeError("warmup needs an engine without requests")
+        t0 = time.perf_counter()
+        plan = self.warmup_plan(prompt_lengths, group_sizes, features)
+        if self.device.type == "cuda":
+            _build.load_all()
+        rng_state = self.generator.get_state()
+        dev, b = self.device, self.max_batch
+        for s_pad in plan["prefill_buckets"]:
+            toks = torch.zeros((1, s_pad), dtype=torch.int32, device=dev)
+            prefill_step(self.params, self.cache, toks, 0, 1, self.config)
+            for r_pad in group_sizes:       # batched-admission shapes
+                prefill_batch(
+                    self.params, self.cache,
+                    torch.zeros((r_pad, s_pad), dtype=torch.int32,
+                                device=dev),
+                    torch.zeros((r_pad,), dtype=torch.int32, device=dev),
+                    torch.ones((r_pad,), dtype=torch.int32, device=dev),
+                    self.generator, self._samp({}, r_pad), self.config)
+        if self.prefill_chunk is not None:
+            toks = torch.zeros((1, self.prefill_chunk), dtype=torch.int32,
+                               device=dev)
+            for span, _ in plan["chunk_pairs"]:
+                x, _ = prefill_chunk_step(self.params, self.cache, toks, 0,
+                                          0, 1, self.config, attn_span=span)
+            prefill_final_logits(self.params, x, 0, self.config)
+        zeros = np.zeros((b,), np.int32)
+        ones = np.ones((b,), bool)
+        for span, _, greedy, penalty, want_lp in self.plan_graph_keys(plan):
+            # each chunk from empty slots, so span covers every position
+            self.cache.lengths.zero_()
+            self.run_chunk(
+                zeros, ones, all_greedy=greedy, attn_span=span,
+                seen=(np.zeros((b, self.config.vocab_size), bool)
+                      if penalty else None),
+                want_logprobs=want_lp)
+        self.cache.lengths.zero_()
+        self.generator.set_state(rng_state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        plan["seconds"] = time.perf_counter() - t0
+        return plan
+
+    # -- failure recovery: snapshot and restart ---------------------------
+    def save_state(self, path: str) -> None:
+        """Snapshot what a token-identical restart needs, in the JAX
+        package's file format (:mod:`~..utils.checkpoint`): the KV cache
+        (codes, scales, lengths), the generator's state (the JAX engine's
+        PRNG key), the uid counter and every waiting, active and finished
+        request with its bookkeeping (prefill position, logprobs, a first
+        token not yet emitted). The parameters are not included, nor
+        ``on_token`` callbacks."""
+        def enc_req(r: Request) -> dict:
+            return {"uid": r.uid, "prompt": list(r.prompt),
+                    "sampling": dataclasses.asdict(r.params),
+                    "generated": list(r.generated), "slot": r.slot,
+                    "done": r.done, "cancelled": r.cancelled,
+                    "prefilling": r.prefilling, "prefill_pos": r.prefill_pos,
+                    "logprobs": list(r.logprobs),
+                    "pending_first": None if r.pending_first is None
+                    else int(r.pending_first),
+                    "pending_first_lp": None if r.pending_first_lp is None
+                    else float(r.pending_first_lp)}
+
+        c = self.cache
+        dtype = c.k.dtype if not c.quantized else self.config.dtype
+        save_checkpoint(path, {
+            "cache": {"k": c.k, "v": c.v, "k_scale": c.k_scale,
+                      "v_scale": c.v_scale, "lengths": c.lengths,
+                      "quantized": c.quantized, "ring": False,
+                      "max_positions": None,
+                      "dtype": str(dtype).replace("torch.", "")},
+            "generator": self.generator.get_state(), "uid": self._uid,
+            "waiting": [enc_req(r) for r in self.waiting],
+            "active": {str(s): enc_req(r) for s, r in self.active.items()},
+            "finished": [enc_req(r) for r in self.finished],
+        })
+
+    def load_state(self, path: str) -> None:
+        """Restore a :meth:`save_state` snapshot into this engine (same
+        model, batch, ``max_seq`` and cache mode); decoding resumes
+        token-identically. The snapshot is copied into the engine's own
+        cache tensors and generator, so graphs captured before the load
+        replay against the restored state."""
+        def dec_req(d: dict) -> Request:
+            sd = dict(d["sampling"])
+            sd["stop"] = tuple(tuple(st) for st in sd.get("stop", ()))
+            return Request(uid=int(d["uid"]), prompt=list(d["prompt"]),
+                           params=SamplingParams(**sd),
+                           generated=list(d["generated"]), slot=d["slot"],
+                           done=bool(d["done"]),
+                           cancelled=bool(d["cancelled"]),
+                           prefilling=bool(d["prefilling"]),
+                           prefill_pos=int(d["prefill_pos"]),
+                           logprobs=list(d["logprobs"]),
+                           pending_first=d["pending_first"],
+                           pending_first_lp=d["pending_first_lp"])
+
+        st = load_checkpoint(path)
+        snap, c = st["cache"], self.cache
+        if bool(snap["quantized"]) != c.quantized or snap["ring"]:
+            raise ValueError("load_state: the snapshot's cache mode differs "
+                             "from this engine's")
+        for name in ("k", "v", "k_scale", "v_scale", "lengths"):
+            dst, src = getattr(c, name), snap[name]
+            if dst is None:
+                continue
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(f"load_state: cache {name} "
+                                 f"{tuple(src.shape)} {src.dtype}, this "
+                                 f"engine's {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+        self.generator.set_state(st["generator"])
+        self._uid = int(st["uid"])
+        self.waiting = [dec_req(d) for d in st["waiting"]]
+        self.active = {int(s): dec_req(d) for s, d in st["active"].items()}
+        self.finished = [dec_req(d) for d in st["finished"]]
+        self._samp_key = None
+
+    # -- pipelined dispatch -------------------------------------------------
+    def _to_host(self, outs, i: int):
+        """A chunk's outputs (tokens_seq, active_seq, logprobs_seq or None),
+        to be read on the host without blocking the next dispatch: on a
+        card, copied into the ``i``-th set of pinned buffers on the current
+        stream (ahead of the next replay, which overwrites a graph's
+        outputs), with the event that marks the copy's end; on the CPU as
+        they are."""
+        if self.device.type != "cuda":
+            return outs, None
+        while len(self._out_ring) <= i:
+            self._out_ring.append(tuple(
+                torch.empty((self.steps_per_sync, self.max_batch),
+                            dtype=dt, pin_memory=True)
+                for dt in (torch.int32, torch.bool, torch.float32)))
+        host = self._out_ring[i]
+        for dst, src in zip(host, outs):
+            if src is not None:
+                dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return (host[0], host[1], None if outs[2] is None else host[2]), event
+
+    def run_pipelined(self, depth: int = 2) -> None:
+        """Drive all queued work to completion with up to ``depth`` decode
+        chunks in flight.
+
+        :meth:`step` waits for each chunk before it stages the next, so the
+        host's read-back and bookkeeping take turns with the device. Here
+        chunk k+1 is dispatched from chunk k's carry on the device (the
+        cache, the static tokens and active flags, the seen mask and the
+        generator never come back to the host), then chunk k's outputs,
+        copied to pinned host buffers, are collected while the device works.
+
+        The pipeline drains, and the host admits, when a request finishes
+        while others wait for a slot, and to advance a chunked prefill: the
+        delay to admission is bounded by ``depth`` chunks. No chunk is
+        dispatched once the chunks in flight reach every active request's
+        token budget (the JAX package's loop dispatches one more, whose
+        tokens are all dropped). A slot whose
+        request the host retires mid-flight (``max_new_tokens``, a stop
+        sequence) keeps decoding on the device until the drain; its
+        emissions are dropped and its KV is overwritten by the next prefill
+        into the slot. Token-identical to the :meth:`step` loop for greedy
+        requests. A speculative engine runs the step loop.
+        """
+        if self.speculative:
+            while self.step():
+                pass
+            return
+        n = self.steps_per_sync
+        while True:
+            self._admit()
+            if not self.active:
+                if not self.waiting:
+                    return
+                continue
+            self._advance_prefill()
+            tokens, active = self._host_inputs()
+            if not active.any():
+                if not (self.waiting or self.active):
+                    return
+                continue
+            reqs = self.active.values()
+            all_greedy = all(r.params.temperature <= 0 for r in reqs)
+            want_lp = any(r.params.logprobs for r in reqs)
+            seen = self._seen_mask() if self._needs_seen_mask() else None
+            inflight: collections.deque = collections.deque()
+            dispatched = 0          # steps in flight, not yet collected
+            k = 0                   # chunks dispatched in this burst
+            t0 = time.perf_counter()
+            while True:
+                if dispatched and all(
+                        self._steps_left(r) <= dispatched
+                        for r in self.active.values()):
+                    break       # the chunks in flight end every request
+                span = self._attn_span(extra_steps=dispatched)
+                if k == 0:
+                    outs = self.run_chunk(tokens, active,
+                                          all_greedy=all_greedy,
+                                          attn_span=span, seen=seen,
+                                          want_logprobs=want_lp)
+                else:
+                    outs = self._dispatch(all_greedy=all_greedy,
+                                          attn_span=span,
+                                          penalty=seen is not None,
+                                          want_logprobs=want_lp)
+                inflight.append(self._to_host(outs, k % depth))
+                k += 1
+                dispatched += n
+                if len(inflight) < depth:
+                    continue
+                emitted = self._collect_host(*inflight.popleft())
+                dispatched -= n
+                self.metrics.record(emitted, time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                # re-admit when a slot is free (a request can also retire
+                # at _host_inputs, before any chunk finishes it), and
+                # advance a chunked prefill
+                if not self.active or (self.waiting and
+                                       len(self.active) < self.max_batch):
+                    break
+                if any(r.prefilling for r in self.active.values()):
+                    break
+            while inflight:
+                emitted = self._collect_host(*inflight.popleft())
+                self.metrics.record(emitted, time.perf_counter() - t0)
+                t0 = time.perf_counter()
+
+    def _steps_left(self, req: Request) -> int:
+        """Decode steps after which ``req`` ends at the latest (its token
+        budget, or the cache's room)."""
+        used = len(req.generated)
+        return min(req.params.max_new_tokens - used,
+                   self.max_seq - 1 - len(req.prompt) - used)
+
+    def _collect_host(self, outs, event) -> int:
+        if event is not None:
+            event.synchronize()
+        return self._collect_chunk(*outs)
 
     def _add_all(self, prompts, sampling, on_token=None) -> List[int]:
         """Queue every prompt. ``sampling``: one SamplingParams for all
@@ -747,13 +1263,18 @@ class DecodeEngine:
         return [self.add_request(p, sp, on_token)
                 for p, sp in zip(prompts, sampling)]
 
-    def generate(self, prompts: List[List[int]],
-                 sampling=None) -> List[List[int]]:
-        """Run every prompt to completion through :meth:`step`.
-        ``sampling``: one SamplingParams for all prompts, or one each."""
+    def generate(self, prompts: List[List[int]], sampling=None,
+                 pipeline_depth: int = 2) -> List[List[int]]:
+        """Run every prompt to completion: through :meth:`run_pipelined`
+        with ``pipeline_depth`` chunks in flight, or with
+        ``pipeline_depth=1`` through the :meth:`step` loop. ``sampling``:
+        one SamplingParams for all prompts, or one each."""
         uids = self._add_all(prompts, sampling)
-        while self.step():
-            pass
+        if pipeline_depth > 1:
+            self.run_pipelined(pipeline_depth)
+        else:
+            while self.step():
+                pass
         by_uid = {r.uid: r.generated for r in self.finished}
         return [by_uid[u] for u in uids]
 
@@ -774,7 +1295,10 @@ class DecodeEngine:
 
     @property
     def stats(self) -> dict:
-        return {"active": len(self.active), "waiting": len(self.waiting),
-                "finished": len(self.finished),
-                "kv_bytes_per_token": self.cache.bytes_per_token(),
-                **self.metrics.summary()}
+        out = {"active": len(self.active), "waiting": len(self.waiting),
+               "finished": len(self.finished),
+               "kv_bytes_per_token": self.cache.bytes_per_token(),
+               **self.metrics.summary()}
+        if self.speculative:
+            out["speculative"] = dict(self.spec_stats)
+        return out

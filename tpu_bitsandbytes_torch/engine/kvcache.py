@@ -200,7 +200,7 @@ class KVCache:
         such entry is sent to its row's last position inside the cache and
         writes that entry's values, so the colliding writes are equal.
         Every row has a position inside (a prefill chunk starts inside its
-        prompt). Returns (positions, take [R, S]: the entry whose values
+        prompt, a verify step at a slot's length). Returns (positions, take [R, S]: the entry whose values
         each writes)."""
         inside = pos < self.max_seq
         j = torch.arange(pos.shape[1], device=pos.device)
@@ -217,7 +217,8 @@ class KVCache:
         index. ``slots`` (int32 [R], or one slot as an int) sends row r to
         cache slot ``slots[r]`` (batched and chunked prefill); duplicate
         slots must carry identical rows. Positions at or past ``max_seq``
-        are dropped (a final prefill chunk's padding)."""
+        are dropped (a final prefill chunk's padding, a verify step's
+        drafts past the end)."""
         k_hm, v_hm = k_new.transpose(1, 2), v_new.transpose(1, 2)  # [B,H,S,D]
         st = self.stage
         if st is not None and slots is None and k_new.shape[1] == 1:

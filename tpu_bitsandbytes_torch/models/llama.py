@@ -260,24 +260,24 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     """One transformer layer of the cached decode step.
 
     x [B, 1, H] with ``positions`` [B] int32, each slot's write position;
-    or, with ``slot`` (chunked prefill), one request's chunk x [1, C, H]
-    at ``positions`` [1, C], written into cache slot ``slot``, whose
-    queries attend to that slot's history only. The new tokens' K/V are
-    written into ``cache`` (in place) before attention. Routes as the JAX
-    package routes: one token per slot over an int8 cache in a
-    half-precision config attends through kernel K2
+    or x [B, S, H] with ``positions`` [B, S], S tokens per slot (the
+    speculative verify step), whose queries each see the keys up to their
+    own position; or, with ``slot`` (chunked prefill), one request's chunk
+    x [1, C, H] at ``positions`` [1, C], written into cache slot ``slot``,
+    whose queries attend to that slot's history only. The new tokens' K/V
+    are written into ``cache`` (in place) before attention; positions past
+    ``max_seq`` are dropped. Routes as the JAX package routes: one token
+    per slot over an int8 cache in a half-precision config attends through
+    kernel K2
     (:func:`~tpu_bitsandbytes_torch.ops.flash_decode.flash_decode_attention`);
     an f32 config through :func:`gqa_attention_kv_quant` (``staged=``
-    inside a decode chunk), or over the dequantized cache outside one; a
-    slot's chunk through :func:`gqa_attention_kv_quant` in half precision;
-    an unquantized cache through :func:`gqa_attention_hm`. ``attn_span``
-    bounds the KV read to the first ``attn_span`` positions. Returns
-    (x, cache).
+    inside a decode chunk), or over the dequantized cache outside one;
+    several queries per slot (a verify step, a slot's chunk) through
+    :func:`gqa_attention_kv_quant` in half precision; an unquantized cache
+    through :func:`gqa_attention_hm`. ``attn_span`` bounds the KV read to
+    the first ``attn_span`` positions. Returns (x, cache).
     """
     b, s, _ = x.shape
-    if s != 1 and slot is None:
-        raise ValueError("decode_layer takes one token per slot, or a "
-                         "chunk of one slot")
     pos2d = positions if positions.dim() == 2 else positions[:, None]
     h = _norm(x, layer["input_norm"], config)
     q, k, v = _qkv(layer, h, config)
@@ -293,7 +293,7 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     staged = cache.read_stage(li) if cache.stage is not None else None
     if not cache.quantized:
         attn = gqa_attention_hm(q, kq, vq, causal_offset=pos2d)
-    elif half and slot is None:
+    elif half and slot is None and s == 1:
         attn = flash_decode_attention(
             q[:, 0], kq, ks, vq, vs, positions,
             staged=staged)[:, None].to(q.dtype)

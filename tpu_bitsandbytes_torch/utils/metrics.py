@@ -1,9 +1,14 @@
-"""Rolling per-step engine metrics."""
+"""Rolling per-step engine metrics, and the device-memory footprint of a
+served model (the JAX package's ``utils/metrics.py``, budgeted against the
+device's own memory)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+import os
+from typing import Any, Dict, List, Optional
+
+import torch
 
 
 @dataclasses.dataclass
@@ -42,3 +47,103 @@ class MetricsLogger:
             "tokens_per_s": toks / secs if secs else 0.0,
             "mean_step_ms": secs / len(self.history) * 1e3,
         }
+
+
+# -- device-memory budget accounting (the JAX package's utils/metrics.py) --
+
+def device_memory_bytes(device) -> int:
+    """The memory a footprint is budgeted against: a CUDA device's total
+    memory, or the host's RAM for a CPU device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def param_footprint(params, runtime_cache: Optional[str] = None
+                    ) -> Dict[str, int]:
+    """Bytes by category of a (quantized) parameter tree.
+
+    ``runtime_cache="int4"``: count a hypothetical int4 execution cache for
+    :class:`QLinear4` leaves that carry none yet, as the JAX package counts
+    it; the engine decides ``drop_packed`` from this before it builds the
+    cache (building it and then dropping the codes would hold both at
+    once). The int8 and bf16 caches are not ported.
+
+    Returns {"packed": NF4 codes + absmax, "exec_cache": the runtime cache,
+    "fp": everything else}.
+    """
+    if runtime_cache not in (None, "int4"):
+        raise NotImplementedError(
+            f"runtime_cache={runtime_cache!r}: only 'int4' is ported")
+    from ..models.layers import QLinear4
+    from ..ops.int4cache import INT4_BLOCK
+    out = {"packed": 0, "exec_cache": 0, "fp": 0}
+
+    def visit(w):
+        if isinstance(w, QLinear4):
+            pk = (_nbytes(w.packed) + _nbytes(w.absmax)
+                  + _nbytes(w.absmax_q))
+            if w.absmax_state is not None:
+                pk += _nbytes(w.absmax_state.absmax)
+            ex = _nbytes(w.w_cache) + _nbytes(w.cache_scale)
+            if ex == 0 and runtime_cache == "int4":
+                n, k = w.shape
+                ex = n * k // 2 + n * (k // INT4_BLOCK) * 4
+            out["packed"] += pk
+            out["exec_cache"] += ex
+            out["fp"] += _nbytes(w.bias)
+        elif isinstance(w, dict):
+            for v in w.values():
+                visit(v)
+        elif isinstance(w, (list, tuple)):
+            for v in w:
+                visit(v)
+        elif isinstance(w, torch.Tensor):
+            out["fp"] += _nbytes(w)
+
+    visit(params)
+    return out
+
+
+def kv_cache_bytes(num_layers: int, batch: int, s_axis: int, kv_heads: int,
+                   head_dim: int, quantized: bool = True,
+                   dtype_bytes: int = 2) -> int:
+    """Bytes of a KV cache allocation (codes and scales when quantized)."""
+    per = 2 * num_layers * batch * kv_heads * s_axis
+    if quantized:
+        return per * head_dim + per * 4
+    return per * head_dim * dtype_bytes
+
+
+def serving_act_bytes(config, max_batch: int, prefill_bucket: int,
+                      steps_per_sync: int = 8) -> int:
+    """The JAX package's rough bound on serving's transient memory: a
+    prefill at ``prefill_bucket`` keeps a few S x max(4H, 2I) planes live,
+    decode keeps B x (H + V) hidden and logits plus the chunk's KV stage.
+    An estimate, not a measurement."""
+    h, i, v = (config.hidden_size, config.intermediate_size,
+               config.vocab_size)
+    act = 2  # bf16 planes
+    prefill = prefill_bucket * max(4 * h, 2 * i) * act * 2
+    stage = (2 * config.num_layers * max_batch * config.num_kv_heads
+             * steps_per_sync * (config.hd + 4))
+    decode = max_batch * (h * act + v * 4) + stage
+    return int(max(prefill, decode))
+
+
+def format_footprint(fp: Dict[str, Any]) -> str:
+    """A footprint table (``DecodeEngine.footprint()``) as text."""
+    gib = 1024 ** 3
+    lines = ["Device memory footprint:"]
+    for key in ("packed", "exec_cache", "fp", "kv", "activations_est"):
+        if key in fp:
+            lines.append(f"  {key:<16} {fp[key] / gib:8.3f} GiB")
+    lines.append(f"  {'total':<16} {fp['total'] / gib:8.3f} GiB"
+                 f" / {fp['budget'] / gib:.1f} GiB"
+                 f" ({'fits' if fp['fits'] else 'OVER BUDGET'})")
+    return "\n".join(lines)
