@@ -40,10 +40,10 @@ Phases (any failure raises: traceback, nonzero exit):
      tokens each: K4 for decode and the 32/64 buckets, K5 for 128/256, K3
      and the plain GEMM for 1024/2048; each admission group's prefill timed.
      Phases 4 and 5 serve each workload twice on an engine whose decode
-     chunks are CUDA graph replays (``cuda_graphs=True``, the default), and
-     twice on one that launches the same chunks from the host; the first
-     pass captures the graphs, the second is timed. Greedy tokens must be
-     identical between the two, request by request. Each mode then runs
+     chunks are CUDA graph replays (``cuda_graphs=True``, the default; the
+     first pass captures the graphs, the second is timed), then once on
+     one that launches the same chunks from the host. Greedy tokens must
+     be identical between the two, request by request. Each mode then runs
      one more 32-step chunk at the slots' final positions: host ms per
      step, device busy ms per step (profiler kernel records, graph
      replays included) and idle share, the device's span (CUDA events),
@@ -61,16 +61,45 @@ Phases (any failure raises: traceback, nonzero exit):
      requests (phase 5's prompts and a queued 300-token one) with
      repetition penalties, logprobs, a sampled request and a cancel,
      streamed through ``generate_stream`` on a graphed engine (pass A); the
-     same prompts all greedy on an eager and a graphed engine (pass B:
+     same prompts all greedy on that engine and on an eager one (pass B:
      tokens identical, logprobs within 1e-5, 161 K4 + 40 K2 per step of a
      penalty-and-logprobs chunk by the counters and by its graph's nodes);
      five of them on a bf16 KV cache (pass C: no K2, 161 K4 per step,
-     tokens identical between modes); every 256-token chunk 160 K5
-     launches on the wgmma kernel and every final chunk 1 K4; then the
+     served once eager and twice graphed, tokens identical to eager);
+     every 256-token chunk 160 K5 launches on the wgmma kernel and every
+     final chunk 1 K4; then the
      1800-token prompt chunked against one bucket-2048 ``prefill_step``
      (K3) in both cache modes. Each pass prints its chunk ms, decode step
      ms beside and without a prefill chunk, graph keys, capture seconds,
      pool MiB and peak memory.
+  7. The engine's lifecycle on phase 4's model: ``footprint()`` against
+     the allocations, ``warmup`` (the graphs captured are the plan's keys;
+     phase 4's tokens after it), a snapshot after 2 steps loaded back into
+     the warmed engine (tokens equal the uninterrupted run's), pipelined
+     ``generate`` against the step loop (64 new tokens), and
+     ``speculative="ngram"`` (a verify step held at every position
+     against decode steps fed the same tokens); the path's launches from
+     an eager drive.
+  8. ``runtime_cache="auto"`` on phase 5's model and prompts: "auto" must
+     pick the int8 cache (``footprint()``), keep the packed codes, and
+     serve graphed and eager, as phases 4-5, with
+     identical tokens, 40 K2 and no K1, K4
+     or K5 launch per decode step (counters and graph nodes), K3 for the
+     1024/2048 buckets; then one graphed serving of the prompts of at
+     most 256 tokens through the bf16 cache. Phase 2 times the int8 and
+     bf16 caches' product (plain torch, not a TPU kernel: an XLA fusion in
+     JAX) for one 7B and one 13B decode step against its bound
+     (``cache_dots``); phase 3d builds both caches for 3b's model on the
+     card and the CPU (bit-identical) and holds the logits of a prefill
+     and 8 decode steps at E2E_TOL.
+  9. The bitsandbytes-style API at Llama-2-7B widths, from one numpy
+     seed: ``quantize_model`` (NF4 with double quantization, then int8) of
+     one decoder layer's seven projections and the embedding (converted,
+     cosine > 0.95 to the dense model, not equal to it); Linear4bit (nf4,
+     fp4) at M = 1, 8, 128 (one K5 launch each) and 512 (none); Linear8bit,
+     LinearFP8, OutlierAwareLinear and the 4-bit and int8 embeddings
+     against their CPU twins; SwitchBackLinear's gradients equal to a
+     dense Linear's; a ``state_dict`` round trip.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -724,6 +753,75 @@ def phase_kernels_k3(K3, gen, dev, bw, bf16_peak):
             "bound_by", "tflops")}}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 2, not a TPU kernel: the int8 and bf16 runtime caches' product
+# ---------------------------------------------------------------------------
+
+def phase_cache_dots(dev, gen, bw):
+    """The int8 and bf16 runtime caches' product (``layers.cache_matmul``:
+    the cache widened to bf16, one GEMM with an f32 output, the row scale
+    and the cast; an XLA fusion in the JAX package, no Pallas kernel, so
+    plain torch in the port) at M = 8 over one decode step's matmuls: 129
+    at Llama-2-7B (K1's shapes) and 161 at Llama-2-13B (K4's), timed from
+    a CUDA graph, beside the bound: the cache's bytes (and scales), x and
+    the output once, over HBM bandwidth. Each shape is checked against an
+    f32 product on the card (bf16 output: one ulp of 2^-8)."""
+    from tpu_bitsandbytes_torch.models.layers import cache_matmul
+    rows, totals = [], {}
+    for model, table in (("llama2_7b", K1_DECODE), ("llama2_13b", K4_DECODE)):
+        for fmt in ("int8", "bf16"):
+            tot = totals.setdefault(f"{model}_{fmt}",
+                                    {"ms": 0.0, "bound_ms": 0.0,
+                                     "launches_per_step": 0})
+            for name, n, k, per_step in table:
+                wb = n * k * (1 if fmt == "int8" else 2)
+                copies = max(2, math.ceil(200e6 / wb))
+                x = (torch.randn((8, k), generator=gen, device=dev)
+                     ).to(torch.bfloat16)
+                ws = []
+                for _ in range(copies):
+                    if fmt == "int8":
+                        w = torch.randint(-127, 128, (n, k), generator=gen,
+                                          device=dev, dtype=torch.int16
+                                          ).to(torch.int8)
+                        sc = torch.rand((n,), generator=gen,
+                                        device=dev) * 0.01 + 1e-3
+                    else:
+                        w = (torch.randn((n, k), generator=gen, device=dev)
+                             * 0.02).to(torch.bfloat16)
+                        sc = None
+                    ws.append((w, sc))
+                w, sc = ws[0]
+                got = cache_matmul(x, w, sc, None, torch.bfloat16)
+                ref = x.float() @ w.float().t()
+                if sc is not None:
+                    ref = ref * sc[None, :]
+                a, r = err(got, ref)
+                if not (r <= 1e-2 and torch.isfinite(got).all()):
+                    raise AssertionError(f"{fmt} cache dot {name}: {r}")
+                ms = time_graph_ms(
+                    [lambda w=w, sc=sc: cache_matmul(x, w, sc, None,
+                                                     torch.bfloat16)
+                     for w, sc in ws], iters=max(20, 2 * copies))
+                nbytes = wb + (4 * n if fmt == "int8" else 0) + 2 * 8 * (k + n)
+                bound = nbytes / bw * 1e3
+                rows.append({"model": model, "cache": fmt,
+                             "shape": f"{name} M=8 N={n} K={k}", "ms": ms,
+                             "bound_ms": bound, "per_step": per_step,
+                             "max_rel_err": r})
+                tot["ms"] += per_step * ms
+                tot["bound_ms"] += per_step * bound
+                tot["launches_per_step"] += per_step
+                del ws, w, sc, got, ref
+            torch.cuda.empty_cache()
+    emit({"phase": "cache_dots", "not_a_tpu_kernel":
+          "JAX: XLA fusion (tpu_bitsandbytes/models/layers.py:199-209)",
+          "route": "torch (cache.to(bf16), mm out_dtype=f32, scale, cast)",
+          "totals_per_decode_step": totals, "shapes": rows})
+    return totals
+
+
 # ---------------------------------------------------------------------------
 # model builders
 # ---------------------------------------------------------------------------
@@ -874,20 +972,13 @@ def phase_full_width(dev):
     t0 = time.perf_counter()
     ref_pre, ref_steps, fed = run_prefill_decode(cpu_params, cfg, "cpu",
                                                  prompts, None)
-    # the CPU's own bf16-vs-f32 gap, beside phase 3b's
-    f32_pre, f32_steps, _ = run_prefill_decode(
-        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
-        "cpu", prompts, fed)
     cpu_s = time.perf_counter() - t0
     got_pre, got_steps, _ = run_prefill_decode(params, cfg, dev, prompts,
                                                fed)
     worst = compare_card_cpu("full width", got_pre, ref_pre, got_steps,
                              ref_steps)
     emit({"phase": "full_width", "layers": 2, "hidden": cfg.hidden_size,
-          "logit_rel_err_by_slot": worst, "tol": E2E_TOL,
-          "cpu_bf16_vs_f32_by_slot": slot_gaps(ref_pre, f32_pre, ref_steps,
-                                               f32_steps),
-          "cpu_s": cpu_s})
+          "logit_rel_err_by_slot": worst, "tol": E2E_TOL, "cpu_s": cpu_s})
 
 
 def normal_nf4_params(cfg, rng, dev):
@@ -1034,6 +1125,66 @@ def phase_full_width_packed(dev, counters):
           "own_codes_logit_rel_err_by_slot": own_gap,
           "cpu_bf16_vs_f32_by_slot": bf16_gap, "own_codes_tol": own_tol,
           "cpu_s": cpu_s, "launches": launches})
+    return params, cpu_params
+
+
+def qlinears(params):
+    """The :class:`QLinear4` weights of a Llama params tree, in order."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    return [w for layer in params["layers"] for w in layer.values()
+            if isinstance(w, QLinear4)] + [params["lm_head"]]
+
+
+def phase_full_width_caches(dev, counters, params, cpu_params):
+    """3d: 3b's Llama-2-13B-width model (2 layers) with the int8 runtime
+    cache, then the bf16 one, each built on the card and on the CPU from
+    the same NF4 weights: the caches bit-identical (the int8 codes and
+    row scales are one division and one rounding per weight, with no
+    reciprocal on the card: ``div_exact``); then prompts of 40 and 100
+    tokens and 8 staged decode steps on both, logits within E2E_TOL. The
+    cache products are plain torch (no K1, K4 or K5); decode runs K2."""
+    from tpu_bitsandbytes_torch.models.llama import (LlamaConfig,
+                                                     build_runtime_cache)
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
+    rng = np.random.default_rng(3579)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (40, 100)]
+    for fmt in ("int8", "bf16"):
+        t0 = time.perf_counter()
+        card = build_runtime_cache(params, fmt)
+        cpu = build_runtime_cache(cpu_params, fmt)
+        pairs = list(zip(qlinears(card), qlinears(cpu)))
+        if len(pairs) != 4 * cfg.num_layers + 1:
+            raise AssertionError(f"{fmt} cache: {len(pairs)} layers")
+        for c, h in pairs:
+            same = torch.equal(c.w_cache.cpu(), h.w_cache) and (
+                (c.cache_scale is None and h.cache_scale is None)
+                or torch.equal(c.cache_scale.cpu(), h.cache_scale))
+            if not same or c.w_cache.dtype != {"int8": torch.int8,
+                                               "bf16": torch.bfloat16}[fmt]:
+                raise AssertionError(f"{fmt} cache {c.shape}: card and CPU "
+                                     "caches differ")
+        ref_pre, ref_steps, fed = run_prefill_decode(cpu, cfg, "cpu",
+                                                     prompts, None)
+        cpu_s = time.perf_counter() - t0
+        before = counts(counters)
+        got_pre, got_steps, _ = run_prefill_decode(card, cfg, dev, prompts,
+                                                   fed)
+        launches = {k: n - before[k] for k, n in counts(counters).items()}
+        if (launches["K2_flash_decode"] != 8 * cfg.num_layers
+                or any(launches[k] for k in ("K1_int4_matmul",
+                                             "K4_w4a8_matmul",
+                                             "K5_matmul4bit"))):
+            raise AssertionError(f"{fmt} cache launches {launches}")
+        worst = compare_card_cpu(f"full width, {fmt} cache", got_pre,
+                                 ref_pre, got_steps, ref_steps)
+        emit({"phase": "full_width_cache", "cache": fmt, "layers": 2,
+              "hidden": cfg.hidden_size,
+              "prompt_lens": [len(p) for p in prompts],
+              "caches_identical_card_cpu": True,
+              "logit_rel_err_by_slot": worst, "tol": E2E_TOL,
+              "cpu_s": cpu_s, "launches": launches})
+        del card, cpu
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1081,11 +1232,14 @@ def step_breakdown(restore, run_chunk, steps, counters):
     busy / host; CUDA events around a chunk (``device_span_ms``, the
     stream's time from the chunk's first operation to its last); and the
     launches of a chunk by the kernels' counters. ``restore()`` runs, and
-    the device finishes its work, outside every measured window."""
+    the device finishes its work, outside every measured window. Also the
+    breakdown's own cost: the profiled chunk with the profiler's
+    processing (``profiler_s``) and the whole (``seconds``)."""
     def restored():
         restore()
         torch.cuda.synchronize()
 
+    t_bd = time.perf_counter()
     restored()
     run_chunk()
     restored()
@@ -1094,13 +1248,15 @@ def step_breakdown(restore, run_chunk, steps, counters):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     restored()
+    t_prof = time.perf_counter()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run_chunk()
         torch.cuda.synchronize()
-    ops = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
-                 reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    ops = device_ops(prof)
+    profiler_s = time.perf_counter() - t_prof
+    busy_ms = sum(ms for ms, _ in ops.values())
+    top = sorted(ops.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     restore()
     before = counts(counters)
     start = torch.cuda.Event(enable_timing=True)
@@ -1116,10 +1272,54 @@ def step_breakdown(restore, run_chunk, steps, counters):
             "device_span_ms_per_step": start.elapsed_time(end) / steps,
             "launches_per_step": {k: (n - before[k]) / steps
                                   for k, n in counts(counters).items()},
+            "profiler_s": profiler_s, "seconds": time.perf_counter() - t_bd,
             "top_device_ops": [
-                {"op": e.key[:60], "ms_per_step":
-                 e.self_device_time_total / 1e3 / steps,
-                 "calls_per_step": e.count / steps} for e in ops[:10]]}
+                {"op": name[:60], "ms_per_step": ms / steps,
+                 "calls_per_step": n / steps} for name, (ms, n) in top]}
+
+
+def device_ops(prof):
+    """{name: (ms, count)} of the device's records (kernels, copies and
+    fills, a graph replay's included) in a finished profile, read from the
+    raw trace: building the profiler's event tree (``key_averages``) took
+    8-23 s per 32- or 64-step chunk on the H100 machine's host."""
+    from torch.autograd import DeviceType
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms, n = ops.get(e.name(), (0.0, 0))
+            ops[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return ops
+
+
+def profiler_check(dev):
+    """The device time :func:`device_ops` reads against the profiler's
+    ``key_averages`` on a small trace: three bf16 GEMMs launched from the
+    host and a CUDA graph of three more, replayed. Reported, not a gate."""
+    a = torch.randn((2048, 2048), device=dev, dtype=torch.bfloat16)
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            a @ a
+        with torch.cuda.graph(g):
+            for _ in range(3):
+                a @ a
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            a @ a
+        g.replay()
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    emit({"phase": "profiler_check", "calls": 6,
+          "raw_trace_ms": sum(ms for ms, _ in ops.values()),
+          "raw_trace_calls": sum(n for _, n in ops.values()),
+          "key_averages_ms": sum(e.self_device_time_total
+                                 for e in prof.key_averages()) / 1e3})
 
 
 def kernel_launches(fn):
@@ -1135,15 +1335,18 @@ def kernel_launches(fn):
             if e.self_device_time_total > 0}
 
 
-MODES = ("eager", "graphed")
+# graphed first: its engine serves twice (the first pass captures the
+# graphs), then eager serves once (nothing to capture) on a warm card
+MODES = ("graphed", "eager")
 
 
 def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
                plains, want_per_step, pass_ctx=contextlib.nullcontext):
-    """Serve ``prompts`` twice on one engine built for ``mode`` (graphed:
-    each decode chunk a CUDA graph replay; eager: the same chunk launched
-    from the host), the first pass capturing the graphs (as the JAX engine
-    compiles at first use), the second timed; then the step breakdown of
+    """Serve ``prompts`` on one engine built for ``mode``: graphed (each
+    decode chunk a CUDA graph replay) twice, the first pass capturing the
+    graphs (as the JAX engine compiles at first use), the second timed;
+    eager (the same chunks launched from the host) once, as it has nothing
+    to capture; then the step breakdown of
     one more chunk of the served length at the slots' final positions,
     whose launches per step, by the counters and (graphed) by the kernel
     nodes of its graph, must equal ``want_per_step``; then one eager decode step from there,
@@ -1161,7 +1364,7 @@ def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
                             cuda_graphs=mode == "graphed", **engine_kw)
     torch.cuda.synchronize()
     res = {"mode": mode, "build_s": time.perf_counter() - t0, "passes": []}
-    for _ in range(2):
+    for _ in range(2 if mode == "graphed" else 1):
         engine.metrics = MetricsLogger()
         reset(counters, plains)
         with pass_ctx() as extra:
@@ -1240,18 +1443,21 @@ def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
 def serve_lines(model, results, common):
     """Emit each mode's ``serve`` line and the modes' comparison; the
     greedy tokens of the two modes must be identical, request by
-    request, in both passes."""
+    request, in every pass (a mode served once is held in its one pass
+    against each pass of the other)."""
     for mode in MODES:
         r = results[mode]
-        p1, p2 = r["passes"]
+        p1, p2 = r["passes"][0], r["passes"][-1]
         graphs = r["graphs"]
+        first = ({"first_pass_generate_s": p1["generate_s"],
+                  "first_pass_decode_step_ms": p1["decode_step_ms"]}
+                 if len(r["passes"]) > 1 else {})
         emit({"phase": "serve", "model": model, "mode": mode, **common,
+              "passes": len(r["passes"]),
               "build_s": r["build_s"], "generate_s": p2["generate_s"],
-              "first_pass_generate_s": p1["generate_s"],
               "decode_steps": p2["decode_steps"],
               "decode_step_ms": p2["decode_step_ms"],
-              "decode_tokens_per_s": p2["decode_tokens_per_s"],
-              "first_pass_decode_step_ms": p1["decode_step_ms"],
+              "decode_tokens_per_s": p2["decode_tokens_per_s"], **first,
               **{k: v for k, v in r["step_breakdown"].items()
                  if k != "top_device_ops"},
               "graphs_captured": graphs["graphs"],
@@ -1268,12 +1474,14 @@ def serve_lines(model, results, common):
     e, g = results["eager"], results["graphed"]
     # the eager pass's launches, counted by the wrappers, and the graphed
     # pass's, counted at capture and added per replay
-    if e["passes"][1]["launches"] != g["passes"][1]["launches"]:
+    if e["passes"][-1]["launches"] != g["passes"][-1]["launches"]:
         raise AssertionError(f"{model}: the graphed pass counted "
-                             f"{g['passes'][1]['launches']} launches, the "
-                             f"eager pass {e['passes'][1]['launches']}")
-    for i in range(2):
-        eo, go = e["passes"][i]["outs"], g["passes"][i]["outs"]
+                             f"{g['passes'][-1]['launches']} launches, the "
+                             f"eager pass {e['passes'][-1]['launches']}")
+    n = max(len(e["passes"]), len(g["passes"]))
+    for i in range(n):
+        eo = e["passes"][min(i, len(e["passes"]) - 1)]["outs"]
+        go = g["passes"][min(i, len(g["passes"]) - 1)]["outs"]
         differ = [j for j, (a, b) in enumerate(zip(eo, go)) if a != b]
         if differ or len(eo) != len(go):
             raise AssertionError(f"{model}: pass {i + 1}: greedy tokens of "
@@ -1281,10 +1489,10 @@ def serve_lines(model, results, common):
                                  "eager and the graphed chunks")
     emit({"phase": "serve_compare", "model": model,
           "greedy_tokens_identical": True,
-          "decode_step_ms": {m: results[m]["passes"][1]["decode_step_ms"]
+          "decode_step_ms": {m: results[m]["passes"][-1]["decode_step_ms"]
                              for m in MODES},
-          "speedup": e["passes"][1]["decode_step_ms"]
-          / g["passes"][1]["decode_step_ms"],
+          "speedup": e["passes"][-1]["decode_step_ms"]
+          / g["passes"][-1]["decode_step_ms"],
           "peak_allocated_gib_delta": g["max_memory_allocated_gib"]
           - e["max_memory_allocated_gib"],
           "peak_reserved_gib_delta": g["max_memory_reserved_gib"]
@@ -1768,12 +1976,13 @@ def phase_requests(dev, counters, plains, workload):
     300-token one, queued until request 6's slot frees. Pass A (graphed,
     through ``generate_stream``): greedy, penalties, logprobs, a sampled
     request and request 6 cancelled after its first streamed token. Pass B
-    (eager and graphed): the same prompts all greedy, penalties and
-    logprobs kept; tokens identical and logprobs within 1e-5, 161 K4 + 40
-    K2 per step of a penalty-and-logprobs chunk by the counters and the
-    graph's nodes. Pass C (bf16 KV, eager and graphed): requests 0-3 and
-    7, 16 greedy tokens, served twice on one engine (the second serving
-    replays the graphs the first captured); tokens identical, no K2, 161
+    (graphed on pass A's engine, eager on a fresh one): the same prompts
+    all greedy, penalties and logprobs kept; tokens identical and logprobs
+    within 1e-5, 161 K4 + 40 K2 per step of a penalty-and-logprobs chunk
+    by the counters and the graph's nodes. Pass C (bf16 KV): requests 0-3 and 7, 16 greedy
+    tokens, served once eager and twice on one graphed engine (the second
+    serving replays the graphs the first captured); both graphed servings'
+    tokens identical to the eager one's, no K2, 161
     K4 per step, finite logits of a decode step at the end. Every graphed
     serving but pass C's first must replay a graph. Then, on fresh caches, the
     1800-token prompt chunked against one bucket-2048 ``prefill_step``
@@ -1799,12 +2008,11 @@ def phase_requests(dev, counters, plains, workload):
                     K2_flash_decode=float(cfg.num_layers))
 
     # pass A: graphed, the full mix
-    engine = new_engine(dev, params, cfg, kw, "graphed")
+    engine_a = new_engine(dev, params, cfg, kw, "graphed")
     res_a = serve_stream(
-        engine, "graphed", prompts,
+        engine_a, "graphed", prompts,
         [greedy, greedy, pen, lp, both, hot, greedy, greedy, greedy],
         counters, plains, cancel=6)
-    del engine
     reqs = res_a["reqs"]
     if not (reqs[7].cancelled and len(reqs[7].generated) < 48
             and all(len(reqs[u].generated) == 48 for u in reqs if u != 7)):
@@ -1816,11 +2024,16 @@ def phase_requests(dev, counters, plains, workload):
           "logprobs_per_request": {u: len(r.logprobs) for u, r in reqs.items()
                                    if r.params.logprobs}})
 
-    # pass B: eager and graphed, all greedy, penalties and logprobs kept
+    # pass B: all greedy, penalties and logprobs kept; graphed on pass A's
+    # engine (the keys both mixes reach replay A's graphs), then eager on a
+    # fresh engine
     sps_b = [greedy, greedy, pen, lp, both, greedy, greedy, greedy, greedy]
     res_b, steps_b = {}, {}
     for mode in MODES:
-        engine = new_engine(dev, params, cfg, kw, mode)
+        if mode == "graphed":
+            engine, engine_a = engine_a, None
+        else:
+            engine = new_engine(dev, params, cfg, kw, mode)
         res = serve_stream(engine, mode, prompts, sps_b, counters, plains)
         keys = [k for k in res["graph_keys"] if k[3] and k[4]]
         key = keys[0] if keys else (256, 32, True, True, True)
@@ -1842,16 +2055,18 @@ def phase_requests(dev, counters, plains, workload):
     for k in ("K2_flash_decode", "K4_w4a8_matmul", "K5_matmul4bit"):
         if not launches[k]:
             raise AssertionError(f"pass B: {k} never launched")
-    e_reqs, g_reqs = res_b["eager"]["reqs"], res_b["graphed"]["reqs"]
+    # request by request, in order (the graphed engine's uids follow pass
+    # A's)
+    e_reqs, g_reqs = ([res_b[m]["reqs"][u] for u in res_b[m]["uids"]]
+                      for m in ("eager", "graphed"))
     lp_gap = 0.0
-    for u in e_reqs:
-        if e_reqs[u].generated != g_reqs[u].generated:
-            raise AssertionError(f"pass B: request {u}'s tokens differ "
+    for i, (e, g) in enumerate(zip(e_reqs, g_reqs)):
+        if e.generated != g.generated:
+            raise AssertionError(f"pass B: request {i}'s tokens differ "
                                  "between eager and graphed chunks")
-        if e_reqs[u].logprobs:
+        if e.logprobs:
             lp_gap = max(lp_gap, float(np.abs(
-                np.array(e_reqs[u].logprobs)
-                - np.array(g_reqs[u].logprobs)).max()))
+                np.array(e.logprobs) - np.array(g.logprobs)).max()))
     if not lp_gap <= 1e-5:
         raise AssertionError(f"pass B: logprobs eager vs graphed {lp_gap}")
     for mode in MODES:
@@ -1863,8 +2078,9 @@ def phase_requests(dev, counters, plains, workload):
           "decode_step_ms_alone": {
               m: res_b[m]["decode_step_ms_alone"] for m in MODES}})
 
-    # pass C: bf16 KV, eager and graphed, the prompts served twice on one
-    # engine: the first time captures each key's graph, the second replays
+    # pass C: bf16 KV, eager once and graphed twice on one engine: the
+    # first graphed serving captures each key's graph, the second replays;
+    # both are held to the eager serving
     kw_c = dict(kw, quantized_kv=False)
     pick = [0, 1, 2, 3, 7]
     sp_c = dataclasses.replace(greedy, max_new_tokens=16)
@@ -1874,7 +2090,8 @@ def phase_requests(dev, counters, plains, workload):
         engine = new_engine(dev, params, cfg, kw_c, mode)
         res_c[mode] = [serve_stream(engine, mode, [prompts[i] for i in pick],
                                     [sp_c] * len(pick), counters, plains,
-                                    must_replay=i > 0) for i in range(2)]
+                                    must_replay=i > 0)
+                       for i in range(2 if mode == "graphed" else 1)]
         lengths = engine.cache.lengths.clone()
         span = E._span_bucket(int(lengths.max()) + 32, 2048)
         steps_c[mode] = chunk_launches(engine, (span, 32, True, False, False),
@@ -1896,8 +2113,8 @@ def phase_requests(dev, counters, plains, workload):
             raise AssertionError(f"pass C {mode}: decode-step logits not "
                                  "finite")
         del engine, logits
-    for i in range(2):
-        e, g = res_c["eager"][i], res_c["graphed"][i]
+    e = res_c["eager"][0]
+    for i, g in enumerate(res_c["graphed"]):
         if ([e["reqs"][u].generated for u in e["uids"]]
                 != [g["reqs"][u].generated for u in g["uids"]]):
             raise AssertionError(f"pass C, serving {i + 1}: tokens differ "
@@ -1947,6 +2164,100 @@ def phase_requests(dev, counters, plains, workload):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: runtime_cache="auto" at Llama-2-13B (the int8 cache on 80 GB)
+# ---------------------------------------------------------------------------
+
+def phase_auto(dev, counters, plains, workload):
+    """8: phase 5's model, prompts and 48 greedy tokens served through
+    ``runtime_cache="auto"``, graphed and eager (:func:`serve_mode`):
+    "auto" must pick the int8 cache (its cache-only total
+    fits 0.92 of the card) and keep the packed codes (their total fits
+    too); tokens identical between the modes; every decode step 40 K2 and
+    no K1, K4 or K5 launch, by the counters and the graph's nodes; K3 for
+    the 1024 and 2048 buckets; no K1, K4 or K5 anywhere in the pass. Then
+    one graphed serving of the prompts of at most 256 tokens through the
+    bf16 cache, with the same launches per step. Returns the eager pass's
+    launches."""
+    from tpu_bitsandbytes_torch.utils.metrics import format_footprint
+    t_phase = time.perf_counter()
+    cfg, params, prompts, sp, kw = workload
+    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    no_matmul_kernels = ("K1_int4_matmul", "K4_w4a8_matmul", "K5_matmul4bit")
+    kw = dict(kw, runtime_cache="auto")
+    results, footprint = {}, None
+    for mode in MODES:
+        res, engine = serve_mode(dev, params, cfg, kw, mode, prompts, sp,
+                                 counters, plains, want,
+                                 lambda: timed_prefills(counters))
+        fp = engine.footprint()
+        if (engine.runtime_cache != "int8" or not fp["packed"]
+                or not fp["fits"] or not all(
+                    w.packed is not None and w.w_cache.dtype == torch.int8
+                    for w in qlinears(engine.params))):
+            raise AssertionError(f"auto picked {engine.runtime_cache}, "
+                                 f"footprint {fp}: expected the int8 cache "
+                                 "with the packed codes kept")
+        footprint = fp
+        last = res["passes"][-1]
+        launches = last["launches"]
+        if (not launches["K3_flash_prefill"]
+                or any(launches[k] for k in no_matmul_kernels)
+                or launches["K2_flash_decode"]
+                != cfg.num_layers * last["decode_steps"]):
+            raise AssertionError(f"auto {mode}: launches {launches}")
+        last["extra"] = sorted(last["extra"], key=lambda g: g["bucket"])
+        results[mode] = res
+        del engine
+        free_memory()
+    emit({"phase": "auto", "model": "llama2_13b", "picked": "int8",
+          "footprint": footprint,
+          "footprint_gib": {k: footprint[k] / 2 ** 30
+                            for k in ("packed", "exec_cache", "fp", "kv",
+                                      "activations_est", "total",
+                                      "budget")},
+          "table": format_footprint(footprint).splitlines()})
+    serve_lines("llama2_13b_auto_int8", results, {
+        "runtime_cache": "auto -> int8", "layers": cfg.num_layers,
+        "batch": 8, "max_seq": 2048, "steps_per_sync": 32,
+        "prompt_lens": PACKED_PROMPTS, "new_tokens": sp.max_new_tokens})
+
+    # the bf16 cache, graphed, the prompts of at most 256 tokens
+    short = [p for p in prompts if len(p) <= 256]
+    kw_bf16 = dict(kw, runtime_cache="bf16", max_seq=512,
+                   max_batch=len(short))
+    res, engine = serve_mode(dev, params, cfg, kw_bf16, "graphed", short, sp,
+                             counters, plains, want)
+    launches = res["passes"][-1]["launches"]
+    if (any(launches[k] for k in no_matmul_kernels) or not all(
+            w.w_cache.dtype == torch.bfloat16
+            for w in qlinears(engine.params))):
+        raise AssertionError(f"bf16 cache: launches {launches}")
+    p2 = res["passes"][-1]
+    emit({"phase": "serve", "model": "llama2_13b_bf16_cache",
+          "mode": "graphed", "runtime_cache": "bf16", "layers": cfg.num_layers,
+          "batch": len(short), "max_seq": 512,
+          "prompt_lens": [len(p) for p in short],
+          "new_tokens": sp.max_new_tokens,
+          "decode_step_ms": p2["decode_step_ms"],
+          "decode_tokens_per_s": p2["decode_tokens_per_s"],
+          **{k: v for k, v in res["step_breakdown"].items()
+             if k != "top_device_ops"},
+          "graph_pool_mib": res["graphs"]["pool_bytes"] / 2 ** 20,
+          "capture_s": res["graphs"]["capture_s"],
+          "max_memory_allocated_gib": res["max_memory_allocated_gib"],
+          "max_memory_reserved_gib": res["max_memory_reserved_gib"],
+          "footprint_gib": {k: v / 2 ** 30 for k, v in engine.footprint(
+          ).items() if k not in ("fits",)},
+          "launches": launches})
+    del engine
+    free_memory()
+    emit({"phase": "auto_wall", "seconds": time.perf_counter() - t_phase})
+    return results["eager"]["passes"][-1]["launches"]
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the engine's lifecycle at Llama-2-7B width (footprint, warm-up,
 # snapshot and restore, pipelined dispatch, speculative decoding)
@@ -1955,6 +2266,9 @@ def phase_requests(dev, counters, plains, workload):
 # new tokens per request of the snapshot and the pipelined timing: three
 # chunks, the requests mid-flight after two steps, within phase 4's spans
 LIFECYCLE_NEW = 96
+# the pipelined comparison's new tokens: two chunks, within the script's
+# time with phases 8-9
+PIPELINED_NEW = 64
 SPEC_GAMMA = 4
 # the verify check's slots with wrong drafts: slot -> its first wrong draft
 # (1 .. gamma), so that one slot accepts none and one accepts two
@@ -2129,11 +2443,11 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
     graphed engine). (3) Snapshot after 2 steps; the run finished, the
     cache and lengths zeroed, the snapshot loaded into that engine, whose
     graphs predate the load: its tokens equal the uninterrupted run's.
-    (4) ``generate`` pipelined (the default) against the step loop on that
-    engine, phase 4's prompts with ``LIFECYCLE_NEW`` new tokens: tokens
-    identical; ``step_breakdown`` of each decode loop from the state after
-    the admission. (5) ``speculative="ngram"``, gamma 4: phase 4's
-    workload served graphed, at least ``SPEC_SAME_FLOOR`` of its greedy
+    (4) the pipelined decode loop (``generate``'s default) against the
+    step loop on that engine, phase 4's prompts with ``PIPELINED_NEW`` new
+    tokens: ``step_breakdown`` of each loop from the state after the
+    admission, the two loops' tokens identical. (5) ``speculative=
+    "ngram"``, gamma 4: phase 4's workload served graphed, at least ``SPEC_SAME_FLOOR`` of its greedy
     tokens equal to ``unwarmed_outs``; a verify step held against decode
     steps (:func:`verify_against_decode_steps`). Then the path's launches,
     counted by the wrappers in an eager drive of the pipelined
@@ -2263,20 +2577,17 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
           "t_s": time.perf_counter() - t_phase})
     no_plain_calls(plains, "snapshot")
 
-    # (4) pipelined (the default) against the step loop, one engine: the
-    # tokens of generate, then each decode loop timed from the state after
-    # the admission (the prefills run in restore, outside the windows)
-    steps = 32 * -(-(LIFECYCLE_NEW - 1) // 32)
-    outs = {depth: eng_a.generate(prompts, sp_long, pipeline_depth=depth)
-            for depth in (2, 1)}
-    if outs[2] != outs[1]:
-        raise AssertionError("pipelined and step-loop greedy tokens differ")
+    # (4) pipelined (the default) against the step loop, one engine: each
+    # decode loop timed from the state after the admission (the prefills
+    # run in restore, outside the windows), their tokens compared
+    sp_pipe = dataclasses.replace(sp, max_new_tokens=PIPELINED_NEW)
+    steps = 32 * -(-(PIPELINED_NEW - 1) // 32)
 
     def restore():
         eng_a.finished.clear()
         eng_a.cache.lengths.zero_()
         for p in prompts:
-            eng_a.add_request(p, sp_long)
+            eng_a.add_request(p, sp_pipe)
         eng_a._admit()
         eng_a.metrics = MetricsLogger()
 
@@ -2284,21 +2595,23 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
         while eng_a.step():
             pass
 
-    runs = {}
+    runs, outs = {}, {}
     for depth, loop in ((2, lambda: eng_a.run_pipelined(2)), (1, step_loop)):
         bd = runs[depth] = step_breakdown(restore, loop, steps, counters)
-        got = [r.generated for r in sorted(eng_a.finished,
-                                           key=lambda r: r.uid)]
-        if got != outs[1]:
-            raise AssertionError(f"depth {depth}: decode-loop tokens differ "
-                                 "from generate's")
+        outs[depth] = [r.generated for r in sorted(eng_a.finished,
+                                                   key=lambda r: r.uid)]
+        if len(outs[depth]) != len(prompts) or any(
+                len(o) != PIPELINED_NEW for o in outs[depth]):
+            raise AssertionError(f"depth {depth}: token counts")
         bd["chunks_collected"] = len(eng_a.metrics.history)
         bd["decode_step_ms"] = eng_a.metrics.summary()["mean_step_ms"] / 32
         emit({"phase": "lifecycle", "step": "pipelined", **common,
-              "pipeline_depth": depth, "new_tokens": LIFECYCLE_NEW,
+              "pipeline_depth": depth, "new_tokens": PIPELINED_NEW,
               "steps_per_request": steps,
               **{k: v for k, v in bd.items() if k != "top_device_ops"},
           "t_s": time.perf_counter() - t_phase})
+    if outs[2] != outs[1]:
+        raise AssertionError("pipelined and step-loop greedy tokens differ")
     emit({"phase": "lifecycle", "step": "pipelined_compare",
           "tokens_identical": True,
           **{key: {d: runs[d][key] for d in runs}
@@ -2386,6 +2699,210 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
     return launches, verify_k1
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the bitsandbytes-style API at Llama-2-7B widths
+# ---------------------------------------------------------------------------
+
+LIB_M = (1, 8, 128, 512)   # K5 up to M = 256, dequantize + matmul at 512
+# Llama-2-7B: hidden, intermediate and vocabulary widths
+LIB_H, LIB_I, LIB_VOCAB = 4096, 11008, 32000
+# bf16 outputs, card against the CPU twin, of max|ref|: one bf16 ulp of an
+# output (2^-8) after another f32 sum order
+LIB_TOL = 1e-2
+# quantized model against the dense one (the verify flow's bound)
+LIB_COSINE = 0.95
+
+
+class DecoderLinears(torch.nn.Module):
+    """One Llama-2-7B decoder layer's seven projections (bias-free bf16
+    ``torch.nn.Linear``) and the 32000 x 4096 embedding, composed so that
+    every module runs: the attention projections summed and projected
+    back, the SiLU-gated MLP, and the residual."""
+
+    def __init__(self, rng, dev):
+        super().__init__()
+        h, i, vocab = LIB_H, LIB_I, LIB_VOCAB
+
+        def lin(k, n):
+            m = torch.nn.Linear(k, n, bias=False, device=dev,
+                                dtype=torch.bfloat16)
+            with torch.no_grad():
+                m.weight.copy_(torch.from_numpy(rng.standard_normal(
+                    (n, k), dtype=np.float32) * 0.02))
+            return m
+
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            setattr(self, name, lin(h, h))
+        self.gate_proj, self.up_proj = lin(h, i), lin(h, i)
+        self.down_proj = lin(i, h)
+        self.embed = torch.nn.Embedding(vocab, h, device=dev,
+                                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            self.embed.weight.copy_(torch.from_numpy(rng.standard_normal(
+                (vocab, h), dtype=np.float32)))
+
+    def forward(self, ids):
+        x = self.embed(ids)
+        a = self.o_proj(self.q_proj(x) + self.k_proj(x) + self.v_proj(x))
+        m = self.down_proj(torch.nn.functional.silu(self.gate_proj(x))
+                           * self.up_proj(x))
+        return x + a + m
+
+
+def cosine(a, b):
+    a, b = a.float().reshape(-1), b.float().reshape(-1)
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_library(dev, counters, plains):
+    """9: the bitsandbytes-style API at Llama-2-7B widths, from one numpy
+    seed. ``quantize_model`` of :class:`DecoderLinears` with NF4 and
+    double quantization, then with int8: every projection converted, the
+    output changed and within cosine 0.95 of the dense model's. Linear4bit
+    (nf4, fp4) at M = 1, 8, 128, 512: one K5 launch per call up to M = 256
+    (on its wgmma kernel), none at 512; Linear8bit, LinearFP8,
+    OutlierAwareLinear (planted outlier columns; its int8 product through
+    ``torch._int_mm``) and the 4-bit and int8 embeddings: each held to
+    its twin on the CPU. SwitchBackLinear forward and backward: gradients
+    equal to a dense ``torch.nn.Linear`` whose weight is the master weight.
+    A Linear4bit ``state_dict`` round trip. No plain version of K1-K5 runs
+    on a CUDA tensor. Returns the phase's launches."""
+    import copy
+    import tpu_bitsandbytes_torch as P
+    t_phase = time.perf_counter()
+    h, i, vocab = LIB_H, LIB_I, LIB_VOCAB
+    rng = np.random.default_rng(4242)
+    dense = DecoderLinears(rng, dev)
+    ids = torch.from_numpy(rng.integers(0, vocab, (2, 64))).to(dev)
+    xs = {m: torch.from_numpy(rng.standard_normal((m, h),
+                                                  dtype=np.float32)
+                              ).to(dev, torch.bfloat16) for m in LIB_M}
+    reset(counters, plains)
+    k5 = counters["K5_matmul4bit"]
+    with torch.no_grad():
+        ref = dense(ids)
+    lines = {}
+
+    # quantize_model, NF4 with double quantization, then int8
+    names = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+             "down_proj")
+    for bits, cfg in ((4, P.BitsAndBytesConfig(
+            load_in_4bit=True, bnb_4bit_quant_type="nf4",
+            bnb_4bit_use_double_quant=True)),
+                      (8, P.BitsAndBytesConfig(load_in_8bit=True))):
+        before = k5.launches
+        q = P.quantize_model(copy.deepcopy(dense), cfg)
+        cls = P.Linear4bit if bits == 4 else P.Linear8bit
+        if not all(isinstance(getattr(q, n), cls) for n in names):
+            raise AssertionError(f"quantize_model {bits}-bit: not converted")
+        with torch.no_grad():
+            out = q(ids)
+        cos = cosine(out, ref)
+        if torch.allclose(out, ref) or not cos > LIB_COSINE:
+            raise AssertionError(f"quantize_model {bits}-bit: cosine {cos}")
+        lines[f"quantize_model_{bits}bit"] = {
+            "cosine": cos, "k5_launches": k5.launches - before,
+            "footprint": P.get_memory_footprint(q)}
+        if bits == 4 and k5.launches - before != len(names):
+            raise AssertionError("quantize_model 4-bit: K5 launches "
+                                 f"{k5.launches - before}")
+        del q
+
+    # Linear4bit at M = 1 .. 512, against its CPU twin
+    def twin_err(mod, x):
+        """(card vs CPU twin error, the card call's K5 launches and wgmma
+        launches)."""
+        before = (k5.launches, k5.wgmma_launches)
+        with torch.no_grad():
+            got = mod(x)
+            n = (k5.launches - before[0], k5.wgmma_launches - before[1])
+            want = copy.deepcopy(mod).to("cpu")(x.cpu())
+        a, r = err(got.cpu(), want)
+        if not (r <= LIB_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{type(mod).__name__} M={x.shape[0]}: "
+                                 f"card vs CPU {r}")
+        return r, n
+
+    lin4 = {}
+    for qt in ("nf4", "fp4"):
+        mod = P.Linear4bit.from_linear(dense.q_proj, quant_type=qt)
+        per_m = {}
+        for m, x in xs.items():
+            r, n = twin_err(mod, x)
+            if n != ((1, 1) if m <= 256 else (0, 0)):
+                raise AssertionError(f"Linear4bit {qt} M={m}: K5 launches "
+                                     f"{n}")
+            per_m[m] = {"rel_err": r, "k5_launches": n[0]}
+        lin4[qt] = per_m
+    lines["linear4bit"] = lin4
+
+    # the other modules, against their CPU twins
+    planted = copy.deepcopy(dense.q_proj)
+    with torch.no_grad():
+        planted.weight[:, [17, h // 2 + 1]] *= 40.0
+    mods = {"Linear8bit": P.Linear8bit.from_linear(dense.gate_proj),
+            "LinearFP8": P.LinearFP8.from_linear(dense.down_proj),
+            "OutlierAwareLinear": P.OutlierAwareLinear.from_linear(planted)}
+    found = set(mods["OutlierAwareLinear"].outlier_indices.tolist())
+    if not {17, h // 2 + 1} <= found:
+        raise AssertionError(f"OutlierAwareLinear: outliers {found}, the "
+                             "planted columns missing")
+    others = {}
+    for name, mod in mods.items():
+        k = mod.in_features
+        others[name] = {m: twin_err(mod, (xs[m] if k == h else torch.cat(
+            [xs[m]] * 3, dim=1)[:, :k]))[0] for m in (8, 128)}
+    for name, mod in (("Embedding4bit", P.Embedding4bit.from_embedding(
+            dense.embed)), ("Embedding8bit", P.Embedding8bit.from_embedding(
+            dense.embed))):
+        got = mod(ids)
+        want = copy.deepcopy(mod).to("cpu")(ids.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: card and CPU lookups differ")
+        others[name] = {"identical": True, "cosine_to_dense": cosine(
+            got, dense.embed(ids).detach())}
+    lines["modules"] = others
+
+    # SwitchBackLinear: forward, and gradients against a dense Linear
+    sb = P.SwitchBackLinear.from_linear(dense.q_proj)
+    x = xs[128].clone().requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((128, h), dtype=np.float32)
+                         ).to(dev, torch.bfloat16)
+    out = sb(x)
+    out.backward(g)
+    ref_lin = torch.nn.Linear(h, h, bias=False, device=dev,
+                              dtype=torch.bfloat16)
+    with torch.no_grad():
+        ref_lin.weight.copy_(sb.weight_fp)
+    xr = xs[128].clone().requires_grad_(True)
+    ref_lin(xr).backward(g)
+    if not (torch.equal(x.grad, xr.grad)
+            and torch.equal(sb.weight_fp.grad, ref_lin.weight.grad)):
+        raise AssertionError("SwitchBackLinear: gradients differ from the "
+                             "dense Linear's")
+    lines["switchback"] = {"grads_equal_dense": True,
+                           "forward_cosine_to_dense": cosine(
+                               out.detach(), ref_lin(xs[128]).detach())}
+
+    # a state_dict round trip
+    src = P.Linear4bit.from_linear(dense.up_proj, compress_statistics=True)
+    fresh = P.Linear4bit(h, i, bias=False, device=dev)
+    fresh.load_state_dict(src.state_dict())
+    with torch.no_grad():
+        if not torch.equal(fresh(xs[8]), src(xs[8])):
+            raise AssertionError("Linear4bit state_dict round trip differs")
+    lines["state_dict_round_trip"] = True
+    launches = counts(counters)
+    no_plain_calls(plains, "library")
+    emit({"phase": "library", "widths": "Llama-2-7B", "m": list(LIB_M),
+          "tol": LIB_TOL, **lines, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    del dense, mods, sb, src, fresh
+    free_memory()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2399,6 +2916,11 @@ def main() -> int:
     from tpu_bitsandbytes_torch.ops import w4a8 as K4
 
     t_script = time.perf_counter()
+    ends = {}   # each phase's end, seconds from the script's start
+
+    def phase_end(name):
+        ends[name] = time.perf_counter() - t_script
+        emit({"phase": "phase_end", "name": name, "t_s": ends[name]})
     # 1. header
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2407,7 +2929,9 @@ def main() -> int:
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "header", "device": name, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host_cpus": os.cpu_count(),
+          "torch_threads": torch.get_num_threads()})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 GEMMs (the plain prefill product above M = 256) reduce in f32,
@@ -2433,6 +2957,10 @@ def main() -> int:
                phase_kernels_k4(K4, gen, dev, bw, int8_peak),
                phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak)]
     torch.cuda.empty_cache()
+    # not a TPU kernel: the int8 and bf16 runtime caches' product
+    phase_cache_dots(dev, gen, bw)
+    torch.cuda.empty_cache()
+    profiler_check(dev)
     counters = {"K1_int4_matmul": K1.int4_mm,
                 "K2_flash_decode": K2.flash_decode_attention,
                 "K3_flash_prefill": K3.flash_prefill_attention,
@@ -2442,35 +2970,53 @@ def main() -> int:
               K3.flash_prefill_plain, K4.w4a8_mm_plain,
               K5.matmul4bit_plain)
 
+    phase_end("2")
     # 3. full width against the CPU
     phase_full_width(dev)
     torch.cuda.empty_cache()
-    phase_full_width_packed(dev, counters)
+    packed_2l = phase_full_width_packed(dev, counters)
+    torch.cuda.empty_cache()
+    phase_full_width_caches(dev, counters, *packed_2l)
+    del packed_2l
     torch.cuda.empty_cache()
     phase_chunked_prefill(dev, counters)
     torch.cuda.empty_cache()
 
+    phase_end("3")
     # 4. Llama-2-7B through the int4 cache
     by_path = {}
     by_path["llama2_7b_int4"], outs_7b = phase_serve(dev, counters, plains)
     torch.cuda.empty_cache()
 
+    phase_end("4")
     # 5. Llama-2-13B off the packed bytes
     workload = packed_workload(dev)
     by_path["llama2_13b_packed"], k2_bound_13b = phase_serve_packed(
         dev, counters, plains, bw, int8_peak, workload)
     torch.cuda.empty_cache()
 
+    phase_end("5")
     # 6. the slice: the request API on the same model
     by_path["llama2_13b_requests"] = phase_requests(dev, counters, plains,
                                                     workload)
+    free_memory()
+
+    phase_end("6")
+    # 8. runtime_cache="auto" (the int8 cache) on the same model
+    by_path["llama2_13b_auto_int8"] = phase_auto(dev, counters, plains,
+                                                 workload)
     del workload
     free_memory()
 
+    phase_end("8")
     # 7. the engine's lifecycle on phase 4's model
     by_path["llama2_7b_lifecycle"], verify_k1 = phase_lifecycle(
         dev, counters, plains, outs_7b)
     kernels[0]["verify_step"]["launches_per_step"] = verify_k1
+
+    phase_end("7")
+    # 9. the bitsandbytes-style API at Llama-2-7B widths
+    by_path["bnb_api_7b"] = phase_library(dev, counters, plains)
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     for k in kernels:
@@ -2478,7 +3024,9 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
-    emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script})
+    phase_end("9")
+    emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script,
+          "seconds_at_end_of_phase": ends})
     emit({"kernels": kernels})
     # one card: the run uses device 0 alone
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1330,3 +1330,144 @@ def test_speculative_f32_tokens_card_match_cpu(cuda):
     got = E.DecodeEngine(llama.to_device(params, cuda), cfg, device=cuda,
                          speculative="ngram", **kw).generate(prompts, sp)
     assert got == ref == plain
+
+
+# ---------------------------------------------------------------------------
+# the int8 and bf16 runtime caches, "auto", and the bitsandbytes-style API
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", ["int8", "bf16"])
+def test_runtime_cache_card_matches_cpu(cuda, fmt):
+    """The int8 and bf16 caches built on the card equal the CPU's bit for
+    bit (the int8 scale is max|w| / 127 by ``div_exact``: a reciprocal
+    multiply would move codes), and the product on the card (one bf16
+    GEMM with an f32 output) is within one bf16 ulp of the largest output
+    (2^-7 of max|ref|) of the CPU's: both round f32 sums of 4096 terms in
+    another order, so an output near zero may differ by more than its own
+    ulp."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    rng = np.random.default_rng(31)
+    w = torch.from_numpy(rng.standard_normal((1000, 4096), dtype=np.float32))
+    q = QLinear4.quantize(w, dtype=torch.bfloat16)
+    cpu = q.with_runtime_cache(fmt)
+    card = dataclasses.replace(
+        q, packed=q.packed.to(cuda), absmax=q.absmax.to(cuda)
+    ).with_runtime_cache(fmt)
+    assert torch.equal(card.w_cache.cpu(), cpu.w_cache)
+    if fmt == "int8":
+        assert torch.equal(card.cache_scale.cpu(), cpu.cache_scale)
+    x = torch.from_numpy(rng.standard_normal((8, 4096), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    assert rel_err(card(x.to(cuda)), cpu(x)) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 300, 7),
+                                   (64, 11008, 4096), (17, 8, 16)])
+def test_int8_dot_int_mm_exact(cuda, m, k, n):
+    """``int8_dot`` on the card (``torch._int_mm``, padded to M > 16 and K,
+    N multiples of 8 where needed) equals the exact integer product."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    b = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    a[0], b[0] = 127, 127
+    got = TF.int8_dot(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64).T)
+
+
+def test_fp8_bits_card_match_cpu(cuda):
+    """E4M3 and E5M2 codes and scales on the card equal the CPU's, the
+    saturation included, and NaN where the CPU has NaN. A row with an inf
+    has an inf scale, and its inf / inf is a NaN whose sign is the
+    hardware's (set on x86, clear on the card); E5M2 keeps that sign, as
+    the JAX package's conversion does, so NaN codes are compared as NaN."""
+    rng = np.random.default_rng(32)
+    a = rng.standard_normal((64, 512), dtype=np.float32) * 50
+    a[1, 3], a[2, :3] = np.nan, [1e9, -1e9, np.inf]
+    t = torch.from_numpy(a)
+    for fn, fp8 in ((TF.quantize_fp8_e4m3, torch.float8_e4m3fn),
+                    (TF.quantize_fp8_e5m2, torch.float8_e5m2)):
+        (qc, sc), (qh, sh) = fn(t.to(cuda)), fn(t)
+        qc = qc.cpu()
+        nan = qh.view(fp8).float().isnan()
+        assert torch.equal(qc.view(fp8).float().isnan(), nan)
+        assert torch.equal(qc[~nan], qh[~nan])
+        # the NaN row's scale is NaN on both: compared as numpy, NaN == NaN
+        np.testing.assert_array_equal(sc.cpu().numpy(), sh.numpy())
+
+
+def test_linear4bit_launches_k5(cuda):
+    """Linear4bit's forward at M = 8 runs K5 (its wgmma kernel) once, at
+    M = 512 the dequantized product; both within 1e-2 of the CPU twin."""
+    import copy
+    import tpu_bitsandbytes_torch as P
+    rng = np.random.default_rng(33)
+    src = torch.nn.Linear(4096, 4096, bias=False, dtype=torch.bfloat16)
+    with torch.no_grad():
+        src.weight.copy_(torch.from_numpy(
+            rng.standard_normal((4096, 4096), dtype=np.float32) * 0.02))
+    mod = P.Linear4bit.from_linear(src.to(cuda),
+                                   compress_statistics=True)
+    twin = copy.deepcopy(mod).to("cpu")
+    for m, want in ((8, 1), (512, 0)):
+        x = torch.from_numpy(rng.standard_normal((m, 4096), dtype=np.float32)
+                             ).to(torch.bfloat16)
+        n = K5.matmul4bit_mm.launches, K5.matmul4bit_mm.wgmma_launches
+        got = mod(x.to(cuda))
+        assert (K5.matmul4bit_mm.launches - n[0],
+                K5.matmul4bit_mm.wgmma_launches - n[1]) == (want, want)
+        assert rel_err(got, twin(x)) <= 1e-2
+
+
+def test_auto_picks_int4_then_none_on_a_shrunk_budget(cuda, monkeypatch):
+    """``runtime_cache="auto"`` on the card: a budget between the int8 and
+    int4 cache-only totals picks the int4 cache (K1 in decode), one below
+    both the packed bytes (K4), each with the JAX engine's warning."""
+    cfg, params = _graph_model(True)
+    params = llama.to_device(params, cuda)
+    probe = E.DecodeEngine(params, cfg, max_batch=4, device=cuda)
+
+    def total(fmt):
+        est = probe._footprint_est(params, fmt, True)
+        return sum(est[k] for k in ("exec_cache", "fp", "kv",
+                                    "activations_est"))
+
+    prompts = _prompts([20, 9], cfg.vocab_size)
+    for budget, fmt, warn, kernel in (
+            (int((total("int8") + total("int4")) / 2 / 0.92), "int4",
+             "int4 execution cache", "K1"),
+            (1024, None, "W4A8", "K4")):
+        monkeypatch.setattr(E, "device_memory_bytes", lambda dev: budget)
+        with pytest.warns(UserWarning, match=warn):
+            eng = E.DecodeEngine(params, cfg, max_batch=4, steps_per_sync=8,
+                                 runtime_cache="auto", device=cuda)
+        assert eng.runtime_cache == fmt
+        before = _launches()
+        eng.generate(prompts, SamplingParams(max_new_tokens=10))
+        assert _launches()[kernel] > before[kernel]
+
+
+def test_int8_cache_graphed_chunk_matches_eager(cuda):
+    """A decode engine on the int8 cache ("auto" on the card) captures its
+    chunks as graphs: greedy tokens identical to the eager chunks', no K1
+    or K4 launch, K2 in every decode step; the graph's pool holds the
+    widened weights' temporaries."""
+    cfg, params = _graph_model(True)
+    prompts = _prompts([100, 20, 60, 9], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=24)
+    outs = {}
+    for graphs in (False, True):
+        eng = E.DecodeEngine(llama.to_device(params, cuda), cfg,
+                             max_batch=4, steps_per_sync=8,
+                             runtime_cache="auto", device=cuda,
+                             cuda_graphs=graphs)
+        assert eng.runtime_cache == "int8"
+        before = _launches()
+        outs[graphs] = eng.generate(prompts, sp)
+        after = _launches()
+        assert after["K1"] == before["K1"] and after["K4"] == before["K4"]
+        assert after["K2"] > before["K2"]
+        if graphs:
+            assert eng.graph_keys() and eng._graphs.pool_bytes() > 0
+    assert outs[True] == outs[False]

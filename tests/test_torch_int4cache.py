@@ -127,16 +127,16 @@ def test_qlinear_runtime_cache_matches():
 
 def test_no_cache_raises():
     """Without a runtime cache a QLinear4 runs off its packed bytes (here
-    K = 128 is off the K4 rule, so ``matmul_4bit``); what still raises is a
-    cache format that is not ported."""
+    K = 128 is off the K4 rule, so ``matmul_4bit``); what raises is a
+    cache format that neither package has (the JAX package's ValueError)."""
     q = QLinear4.quantize(torch.from_numpy(_w(128, 128, seed=6)),
                           dtype=torch.float32)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (3, 128)).astype(np.float32))
     ref = matmul_4bit(x, q.packed.reshape(-1), q.quant_state())
     assert torch.equal(q(x), ref)
-    with pytest.raises(NotImplementedError, match="int8"):
-        q.with_runtime_cache("int8")
+    with pytest.raises(ValueError, match="int3"):
+        q.with_runtime_cache("int3")
 
 
 def test_cpu_calls_take_the_plain_version():

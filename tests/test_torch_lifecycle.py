@@ -130,9 +130,11 @@ def test_drop_packed_auto_under_a_tiny_budget_warns_as_jax(tiny,
 
 @pytest.mark.parametrize("fmt", ["int8", "bf16", "auto"])
 def test_unported_runtime_caches_raise(tiny, fmt):
+    """Every runtime cache of the JAX package is ported; a format neither
+    package has (here each one's upper-case spelling) raises."""
     cfg, tcfg, models = tiny
-    with pytest.raises(NotImplementedError, match="only 'int4'"):
-        TE.DecodeEngine(models["q"][1], tcfg, runtime_cache=fmt,
+    with pytest.raises(ValueError, match="unknown runtime_cache"):
+        TE.DecodeEngine(models["q"][1], tcfg, runtime_cache=fmt.upper(),
                         device="cpu")
 
 

@@ -7,7 +7,10 @@ numpy arrays (bfloat16 arrays keep their ml_dtypes dtype), with each
     {"packed", "absmax", "absmax_q", "absmax_state", "w_cache",
      "cache_scale", "shape", "blocksize", "quant_type", "dtype", "bias"}
 
-where ``w_cache`` holds the int4 cache's codes as int8, ``absmax_state`` is
+where ``w_cache`` holds a runtime cache: the int4 cache's codes as int8
+values in [-8, 7] with a 2-D ``cache_scale`` [K/128, N_pad], the int8
+cache (int8 [N, K], ``cache_scale`` [N]) or the bf16 cache (no scale);
+``absmax_state`` is
 ``None`` or a dict ``{"absmax", "shape", "blocksize", "dtype"}``, and
 ``dtype`` is a dtype name such as ``"bfloat16"``. Keys whose value would be
 None may be left out (a layer served off its packed bytes has no
@@ -21,7 +24,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .functional import QuantState, pack_nibbles
+from .functional import QuantState, pack_nibbles, to_tensor
+from .functional import dtype_of as torch_dtype
 from .models.layers import QLinear4
 from .models.llama import LlamaConfig
 
@@ -43,21 +47,8 @@ _IGNORED = ("experts_per_token", "moe_intermediate_size", "moe_norm_topk",
             "moe_shared_expert_size")
 
 
-def torch_dtype(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float16": torch.float16,
-            "float32": torch.float32}[str(name)]
-
-
-def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
 def _opt(a, device):
-    return None if a is None else _tensor(a, device)
+    return None if a is None else to_tensor(a, device)
 
 
 def _qlinear(d: Dict[str, Any], device) -> QLinear4:
@@ -65,15 +56,19 @@ def _qlinear(d: Dict[str, Any], device) -> QLinear4:
     dtype = torch_dtype(d["dtype"])
     st = d.get("absmax_state")
     state = None if st is None else QuantState(
-        absmax=_tensor(st["absmax"], device), shape=tuple(st["shape"]),
+        absmax=to_tensor(st["absmax"], device), shape=tuple(st["shape"]),
         blocksize=int(st["blocksize"]), quant_type="int8",
         dtype=torch_dtype(st["dtype"]))
     w_cache = cache_scale = None
-    if d.get("w_cache") is not None:
-        # drop the JAX cache's N padding; codes -> two nibbles per byte
-        codes = torch.from_numpy(np.asarray(d["w_cache"], np.int8)[:n].copy())
+    cache, scale = d.get("w_cache"), d.get("cache_scale")
+    if cache is not None and scale is not None and np.ndim(scale) == 2:
+        # the int4 cache: drop its N padding; codes -> two nibbles per byte
+        codes = torch.from_numpy(np.asarray(cache, np.int8)[:n].copy())
         w_cache = pack_nibbles(codes & 0x0F).to(device)
-        cache_scale = _tensor(np.asarray(d["cache_scale"])[:, :n], device)
+        cache_scale = to_tensor(np.asarray(scale)[:, :n], device)
+    elif cache is not None:
+        # the int8 cache with its row scale, or the bf16 cache: as they are
+        w_cache, cache_scale = to_tensor(cache, device), _opt(scale, device)
     return QLinear4(
         packed=_opt(d.get("packed"), device), absmax=_opt(d.get("absmax"),
                                                           device),
@@ -95,7 +90,7 @@ def from_reference_arrays(tree, device):
         return [from_reference_arrays(v, device) for v in tree]
     if tree is None:
         return None
-    return _tensor(tree, device)
+    return to_tensor(tree, device)
 
 
 def config_from_reference(fields: Dict[str, Any]) -> LlamaConfig:

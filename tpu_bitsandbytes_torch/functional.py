@@ -1,15 +1,16 @@
-"""NF4/FP4 storage primitives and the 4-bit matmul in PyTorch.
+"""The bitsandbytes-style functional API in PyTorch.
 
-The subset of the JAX package's ``functional.py`` that NF4 serving needs:
-the codebooks, :class:`QuantState`, nibble packing, row-wise blockwise
-4-bit quantization, the blockwise int8 quantizer used for double-quantized
-absmax, and :func:`matmul_4bit`. Packed bytes and absmax follow the JAX package bit
-for bit (same codebooks, same nearest-code tie-breaking, same padding rule),
-so NF4 checkpoints move between the two packages unchanged.
+The JAX package's ``functional.py``: the NF4/FP4 codebooks,
+:class:`QuantState`, nibble packing, row-wise blockwise 4-bit quantization
+and :func:`matmul_4bit`; blockwise, row-wise and col+row int8 with the
+int8 x int8 product; FP8 E4M3/E5M2; ``double_quant``; sparse COO. Codes
+follow the JAX package bit for bit (same codebooks, same nearest-code
+tie-breaking, same padding rule, every division an IEEE division), so
+checkpoints move between the two packages unchanged.
 
-Every function keeps its input's device. Only :func:`matmul_4bit` reaches
-a hand kernel (K5, through ``ops/matmul4bit.py``); the rest run once, when
-weights are built.
+Every function keeps its input's device. Only :func:`matmul_4bit` (and
+its aliases) reaches a hand kernel (K5, through ``ops/matmul4bit.py``);
+the JAX package leaves everything else to XLA, and here it is plain torch.
 """
 
 from __future__ import annotations
@@ -17,13 +18,24 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
-    "NF4_VALUES", "FP4_VALUES", "QuantState", "codebook",
-    "pack_nibbles", "unpack_nibbles",
-    "quantize_4bit", "dequantize_4bit",
-    "quantize_blockwise", "dequantize_blockwise", "matmul_4bit",
+    "NF4_VALUES", "FP4_VALUES", "NF4_CODEBOOK", "FP4_CODEBOOK",
+    "create_normal_map", "create_fp4_map", "QuantState", "codebook",
+    "pack_nibbles", "unpack_nibbles", "div_exact", "mul_recip",
+    "quantize_4bit", "dequantize_4bit", "matmul_4bit",
+    "quantize_nf4", "dequantize_nf4", "matmul_nf4",
+    "quantize_fp4", "dequantize_fp4", "matmul_fp4",
+    "quantize_blockwise", "dequantize_blockwise",
+    "quantize_rowwise", "dequantize_rowwise", "matmul_int8", "int8_dot",
+    "quantize_fp8_e4m3", "dequantize_fp8_e4m3", "matmul_fp8_e4m3",
+    "quantize_fp8_e5m2", "dequantize_fp8_e5m2",
+    "double_quant", "dequant_absmax",
+    "quantize_colrow", "dequantize_colrow", "matmul_colrow",
+    "spmm_coo", "spmm_coo_int8", "sparse_coo_from_dense",
+    "quantize_sparse_coo",
 ]
 
 # 16 quantiles of N(0, 1) normalized to [-1, 1]; must stay bit-identical to
@@ -42,15 +54,29 @@ FP4_VALUES = (
 )
 
 
+# CPU copies of the codebooks (the JAX package's NF4_CODEBOOK/FP4_CODEBOOK)
+NF4_CODEBOOK = torch.tensor(NF4_VALUES, dtype=torch.float32)
+FP4_CODEBOOK = torch.tensor(FP4_VALUES, dtype=torch.float32)
+
+
+def create_normal_map(offset: float = 0.9677083, use_extra_value: bool = True
+                      ) -> torch.Tensor:
+    """The NF4 codebook (bitsandbytes' name; the arguments are ignored, as
+    in the JAX package)."""
+    return NF4_CODEBOOK.clone()
+
+
+def create_fp4_map(signed: bool = True) -> torch.Tensor:
+    """The FP4 codebook (bitsandbytes' name)."""
+    return FP4_CODEBOOK.clone()
+
+
 def codebook(quant_type: str, device) -> torch.Tensor:
     """The 16-entry f32 codebook of ``quant_type`` ("nf4" or "fp4")."""
-    if quant_type == "nf4":
-        values = NF4_VALUES
-    elif quant_type == "fp4":
-        values = FP4_VALUES
-    else:
+    if quant_type not in ("nf4", "fp4"):
         raise ValueError(f"quant_type must be 'nf4' or 'fp4', got {quant_type}")
-    return torch.tensor(values, dtype=torch.float32, device=device)
+    book = NF4_CODEBOOK if quant_type == "nf4" else FP4_CODEBOOK
+    return book.to(device, copy=True)
 
 
 @dataclasses.dataclass
@@ -69,6 +95,68 @@ class QuantState:
     def __post_init__(self):
         self.shape = tuple(int(s) for s in self.shape)
 
+    def as_dict(self) -> dict:
+        """A serializable dict with the JAX package's keys."""
+        return {
+            "absmax": self.absmax, "shape": tuple(self.shape),
+            "blocksize": self.blocksize, "quant_type": self.quant_type,
+            "dtype": dtype_name(self.dtype),
+            "state2": None if self.state2 is None else self.state2.as_dict(),
+        }
+
+    @classmethod
+    def from_dict(cls, state_dict: dict, device=None) -> "QuantState":
+        """Inverse of :meth:`as_dict`; also takes the JAX package's dict,
+        with numpy arrays (bf16 ones in ml_dtypes' dtype)."""
+        state2 = None
+        if state_dict.get("state2") is not None:
+            state2 = cls.from_dict(state_dict["state2"], device)
+        return cls(absmax=to_tensor(state_dict["absmax"], device),
+                   shape=tuple(state_dict["shape"]),
+                   blocksize=int(state_dict.get("blocksize", 64)),
+                   quant_type=state_dict.get("quant_type", "nf4"),
+                   dtype=dtype_of(state_dict.get("dtype", "bfloat16")),
+                   state2=state2)
+
+    def to(self, device) -> "QuantState":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(
+            self, absmax=self.absmax.to(device),
+            state2=None if self.state2 is None else self.state2.to(device))
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32, "float64": torch.float64,
+           "int8": torch.int8, "uint8": torch.uint8, "int32": torch.int32,
+           "int64": torch.int64, "bool": torch.bool}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype's numpy-style name ("bfloat16")."""
+    return str(dtype).replace("torch.", "")
+
+
+def dtype_of(name) -> torch.dtype:
+    """A torch dtype from a torch dtype or a name such as "bfloat16"."""
+    return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
+
+
+def to_tensor(x, device=None, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """A torch tensor from a tensor, a numpy array (bf16 in ml_dtypes'
+    dtype) or a list; on ``device`` if given, else where it is (numpy on
+    the CPU)."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            x = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            x = torch.from_numpy(np.array(a))
+    if device is not None:
+        x = x.to(device)
+    return x if dtype is None else x.to(dtype)
+
 
 def div_exact(t: torch.Tensor, c: float) -> torch.Tensor:
     """``t / c`` as one IEEE f32 division per element on every device.
@@ -76,6 +164,20 @@ def div_exact(t: torch.Tensor, c: float) -> torch.Tensor:
     divisor, which can differ from the quotient in the last bit and move a
     rounded code against the CPU and the JAX package."""
     return t / torch.full_like(t, c)
+
+
+def mul_recip(t: torch.Tensor, c: float) -> torch.Tensor:
+    """``t / c`` as the JAX package's jitted functions compute it: XLA
+    rewrites a division by a constant into a product with the constant's
+    f32 reciprocal (a Python float multiplies an f32 tensor as f32)."""
+    return t * (1.0 / c)
+
+
+def sqrt_exact(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device (PyTorch's
+    vectorized CPU ``sqrt`` is off by one ulp in about 0.7% of values;
+    the f64 root rounded to f32 is exact)."""
+    return torch.sqrt(t.to(torch.float64)).to(torch.float32)
 
 
 def _pad_k(k: int, blocksize: int) -> int:
@@ -209,7 +311,7 @@ def quantize_blockwise(A: torch.Tensor, blocksize: int = 4096
     padded[:numel] = flat
     blocked = padded.reshape(-1, blocksize)
     absmax = blocked.abs().amax(dim=1).clamp(min=1e-8)
-    scale = torch.full_like(absmax, 127.0)[:, None] / absmax[:, None]
+    scale = _over(127.0, absmax)[:, None]
     q = torch.clamp(torch.round(blocked * scale), -127, 127).to(torch.int8)
     return q.reshape(-1)[:numel].reshape(A.shape), QuantState(
         absmax=absmax, shape=tuple(A.shape), blocksize=blocksize,
@@ -218,7 +320,8 @@ def quantize_blockwise(A: torch.Tensor, blocksize: int = 4096
 
 def dequantize_blockwise(A: torch.Tensor, quant_state: QuantState
                          ) -> torch.Tensor:
-    """Inverse of :func:`quantize_blockwise`."""
+    """Inverse of :func:`quantize_blockwise` (``absmax / 127`` as the JAX
+    package's jitted version computes it, :func:`mul_recip`)."""
     st = quant_state
     flat = A.reshape(-1).to(torch.float32)
     numel = flat.numel()
@@ -226,7 +329,7 @@ def dequantize_blockwise(A: torch.Tensor, quant_state: QuantState
                          dtype=torch.float32, device=A.device)
     padded[:numel] = flat
     blocked = padded.reshape(-1, st.blocksize)
-    deq = blocked * div_exact(st.absmax.to(torch.float32)[:, None], 127.0)
+    deq = blocked * mul_recip(st.absmax.to(torch.float32)[:, None], 127.0)
     return deq.reshape(-1)[:numel].reshape(st.shape).to(st.dtype)
 
 
@@ -269,3 +372,329 @@ def matmul_4bit(A: torch.Tensor, B: torch.Tensor, quant_state: QuantState,
     elif A.dim() == 1:
         out = out.reshape(out.shape[-1])
     return out.to(compute_dtype)
+
+
+def quantize_nf4(A: torch.Tensor, blocksize: int = 64,
+                 compress_statistics: bool = False
+                 ) -> Tuple[torch.Tensor, QuantState]:
+    """:func:`quantize_4bit` with quant_type "nf4"."""
+    return quantize_4bit(A, blocksize, compress_statistics, "nf4")
+
+
+def dequantize_nf4(A: torch.Tensor, quant_state: QuantState) -> torch.Tensor:
+    """:func:`dequantize_4bit` of an NF4 state."""
+    return dequantize_4bit(A, quant_state)
+
+
+def quantize_fp4(A: torch.Tensor, blocksize: int = 64,
+                 compress_statistics: bool = False
+                 ) -> Tuple[torch.Tensor, QuantState]:
+    """:func:`quantize_4bit` with quant_type "fp4"."""
+    return quantize_4bit(A, blocksize, compress_statistics, "fp4")
+
+
+def dequantize_fp4(A: torch.Tensor, quant_state: QuantState) -> torch.Tensor:
+    """:func:`dequantize_4bit` of an FP4 state."""
+    return dequantize_4bit(A, quant_state)
+
+
+def matmul_nf4(input, weight_packed, weight_state: QuantState, bias=None):
+    """:func:`matmul_4bit` with NF4 weights."""
+    return matmul_4bit(input, weight_packed, weight_state, bias)
+
+
+def matmul_fp4(input, weight_packed, weight_state: QuantState, bias=None):
+    """:func:`matmul_4bit` with FP4 weights."""
+    return matmul_4bit(input, weight_packed, weight_state, bias)
+
+
+# -- row-wise int8 and the exact int8 product --------------------------------
+
+def _round_int8(t: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+
+
+def _over(c: float, t: torch.Tensor) -> torch.Tensor:
+    """``c / t`` as an IEEE division (``c / t`` with a Python scalar c is
+    ``t.reciprocal() * c`` in PyTorch)."""
+    return torch.full_like(t, c) / t
+
+
+def quantize_rowwise(tensor: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per last-axis row: codes ``round(a * (127 / s))``
+    and the f32 row absmax ``s`` (at least 1e-8), one per row of the
+    tensor flattened to 2-D."""
+    a = tensor.reshape(-1, tensor.shape[-1]).to(torch.float32)
+    scales = a.abs().amax(dim=-1).clamp(min=1e-8)
+    q = _round_int8(a * _over(127.0, scales)[:, None])
+    return q.reshape(tensor.shape), scales
+
+
+def dequantize_rowwise(quantized: torch.Tensor, scales: torch.Tensor,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_rowwise`."""
+    q2 = quantized.reshape(-1, quantized.shape[-1]).to(torch.float32)
+    s = scales.reshape(-1).to(torch.float32)
+    return (q2 * div_exact(s, 127.0)[:, None]).to(dtype).reshape(
+        quantized.shape)
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, cols - t.shape[1],
+                                       0, rows - t.shape[0]))
+
+
+# torch._int_mm's shape rule on CUDA: more than 16 rows, K and N multiples
+# of 8
+_INT_MM_MIN_M = 17
+_INT_MM_ALIGN = 8
+
+
+def int_mm_shape(m: int, k: int, n: int) -> Tuple[int, int, int]:
+    """The (M, K, N) that :func:`int8_dot` pads an int8 product to on a
+    card, for ``torch._int_mm``: M to at least 17, K and N up to
+    multiples of 8 (zeros, so the sums do not change)."""
+    up = lambda v: -(-v // _INT_MM_ALIGN) * _INT_MM_ALIGN  # noqa: E731
+    return max(m, _INT_MM_MIN_M), up(k), up(n)
+
+
+def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [N, K].T`` for int8 operands as exact int32 sums
+    (the JAX package's ``dot_general(..., preferred_element_type=int32)``;
+    never through f32, which is inexact past 2^24, i.e. from K = 1041 on
+    at full-scale codes). On the CPU an int32 product; on a card
+    ``torch._int_mm`` (a library call: the JAX package leaves this product
+    to XLA, no Pallas kernel), padded to its shape rule."""
+    m, k = a.shape
+    n = b.shape[0]
+    if not a.is_cuda:
+        return a.to(torch.int32) @ b.to(torch.int32).t()
+    mp, kp, np_ = int_mm_shape(m, k, n)
+    if (mp, kp, np_) != (m, k, n):
+        a, b = _pad_to(a, mp, kp), _pad_to(b, np_, kp)
+    out = torch._int_mm(a.contiguous(), b.t().contiguous())
+    return out[:m, :n]
+
+
+def matmul_int8(A: torch.Tensor, B: torch.Tensor, A_scales: torch.Tensor,
+                B_scales: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+                ) -> torch.Tensor:
+    """int8 x int8 with row-wise scales: A [..., K] row-quantized, B [K, N]
+    column-quantized (``B_scales`` per column). Exact int32 sums
+    (:func:`int8_dot`), then ``acc * (a_s / 127) * (b_s / 127)``."""
+    lead = A.shape[:-1]
+    acc = int8_dot(A.reshape(-1, A.shape[-1]), B.t()).to(torch.float32)
+    a_s = div_exact(A_scales.to(torch.float32), 127.0).reshape(-1)
+    b_s = div_exact(B_scales.to(torch.float32), 127.0)
+    out = acc * a_s[:, None] * b_s[None, :]
+    return out.to(dtype).reshape(*lead, B.shape[1])
+
+
+# -- FP8 E4M3 / E5M2 ----------------------------------------------------------
+
+E4M3_MAX = 448.0
+E5M2_MAX = 57344.0
+_E4M3_NAN = 0x7F     # the JAX package's (ml_dtypes') codes for a NaN
+_E5M2_NAN = 0x7E
+
+
+def _encode_fp8_e4m3(values: torch.Tensor) -> torch.Tensor:
+    """f32 -> E4M3 bits (uint8): clipped to +-448 and rounded to nearest
+    even by the ``float8_e4m3fn`` conversion; NaN -> 0x7F, as the JAX
+    package encodes it."""
+    v = torch.clamp(values.to(torch.float32), -E4M3_MAX, E4M3_MAX)
+    bits = v.to(torch.float8_e4m3fn).view(torch.uint8)
+    return torch.where(torch.isnan(values), torch.full_like(bits, _E4M3_NAN),
+                       bits)
+
+
+def _decode_fp8(bits: torch.Tensor, fp8: torch.dtype) -> torch.Tensor:
+    return bits.to(torch.uint8).view(fp8).to(torch.float32)
+
+
+def _row_fp8_scale(a: torch.Tensor, fmax: float) -> torch.Tensor:
+    return mul_recip(a.abs().amax(dim=1), fmax).clamp(min=1e-12)
+
+
+def quantize_fp8_e4m3(tensor: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-scaled FP8 E4M3: bits uint8 [N, K] of ``a / s`` with the f32
+    row scale ``s = max|a| / 448`` (at least 1e-12; :func:`mul_recip`, as
+    JAX's jitted version divides)."""
+    if tensor.dim() != 2:
+        raise ValueError("Input must be 2D")
+    a = tensor.to(torch.float32)
+    scales = _row_fp8_scale(a, E4M3_MAX)
+    normalized = torch.clamp(a / scales[:, None], -E4M3_MAX, E4M3_MAX)
+    return _encode_fp8_e4m3(normalized), scales
+
+
+def dequantize_fp8_e4m3(quantized: torch.Tensor, scales: torch.Tensor,
+                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_fp8_e4m3`."""
+    vals = _decode_fp8(quantized, torch.float8_e4m3fn)
+    return (vals * scales.to(torch.float32)[:, None]).to(dtype)
+
+
+def matmul_fp8_e4m3(input: torch.Tensor, weight: torch.Tensor,
+                    weight_scales: torch.Tensor, bias=None,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``x @ decode(W).T`` with E4M3 weight bits [N, K]: the decoded weight
+    in ``dtype``, an f32 product, the f32 row scale on the output, cast to
+    ``dtype``, then the bias in ``dtype`` (the JAX package's order)."""
+    from .models.layers import dot_f32   # it imports this module
+    x = input[None, :] if input.dim() == 1 else input
+    lead = x.shape[:-1]
+    w = _decode_fp8(weight, torch.float8_e4m3fn).to(dtype)
+    out = dot_f32(x.reshape(-1, x.shape[-1]).to(dtype), w)
+    out = (out * weight_scales.to(torch.float32)[None, :]).to(dtype)
+    out = out.reshape(*lead, -1)
+    if bias is not None:
+        out = out + bias.to(dtype)
+    return out[0] if input.dim() == 1 else out
+
+
+def quantize_fp8_e5m2(tensor: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-scaled FP8 E5M2: bits uint8 of ``a / s``, clipped to +-57344,
+    with ``s = max|a| / 57344`` (at least 1e-12)."""
+    if tensor.dim() != 2:
+        raise ValueError("Input must be 2D")
+    a = tensor.to(torch.float32)
+    scales = _row_fp8_scale(a, E5M2_MAX)
+    normalized = torch.clamp(a / scales[:, None], -E5M2_MAX, E5M2_MAX)
+    bits = normalized.to(torch.float8_e5m2).view(torch.uint8)
+    # a NaN keeps its sign over the JAX package's (ml_dtypes') payload 0x7E
+    # (PyTorch's conversion gives 0x7F)
+    nan_bits = (bits & 0x80) | _E5M2_NAN
+    return torch.where(torch.isnan(normalized), nan_bits, bits), scales
+
+
+def dequantize_fp8_e5m2(quantized: torch.Tensor, scales: torch.Tensor,
+                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_fp8_e5m2`."""
+    vals = _decode_fp8(quantized, torch.float8_e5m2)
+    return (vals * scales.to(torch.float32)[:, None]).to(dtype)
+
+
+# -- double quantization and col+row int8 -------------------------------------
+
+def double_quant(A: torch.Tensor, col_stats=None, row_stats=None,
+                 out_col=None, out_row=None, threshold: float = 0.0):
+    """LLM.int8()-style row and column statistics and int8 codes: returns
+    ``(col_quantized, row_quantized, col_stats, row_stats, None)``."""
+    if A.dim() != 2:
+        raise ValueError("Input must be 2D")
+    a = A.to(torch.float32)
+    if row_stats is None:
+        row_stats = a.abs().amax(dim=1).clamp(min=1e-8)
+    if col_stats is None:
+        col_stats = a.abs().amax(dim=0).clamp(min=1e-8)
+    if out_row is None:
+        out_row = _round_int8(a * _over(127.0, row_stats)[:, None])
+    if out_col is None:
+        out_col = _round_int8(a * _over(127.0, col_stats)[None, :])
+    return out_col, out_row, col_stats, row_stats, None
+
+
+def dequant_absmax(absmax_quant: torch.Tensor, absmax_scales,
+                   blocksize: int = 256) -> torch.Tensor:
+    """Double-quantized absmax back to f32: by its nested
+    :class:`QuantState`, or by one scale per ``blocksize`` codes (rows of
+    a 2-D input each with their own scales)."""
+    if isinstance(absmax_scales, QuantState):
+        return dequantize_blockwise(absmax_quant, absmax_scales)
+    aq, sc = absmax_quant, absmax_scales.to(torch.float32)
+    squeeze = aq.dim() == 1
+    if squeeze:
+        aq, sc = aq[None, :], sc[None, :]
+    rows, num_blocks = aq.shape
+    padded = sc.shape[1] * blocksize
+    a_p = _pad_to(aq.to(torch.float32), rows, padded)
+    out = (a_p.reshape(rows, -1, blocksize) * sc[:, :, None]).reshape(
+        rows, padded)[:, :num_blocks]
+    return out[0] if squeeze else out
+
+
+def _colrow_scale(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    return sqrt_exact(row.to(torch.float32)[:, None]
+                      * col.to(torch.float32)[None, :])
+
+
+def quantize_colrow(tensor: torch.Tensor):
+    """int8 codes against the geometric mean of each element's row and
+    column absmax: returns ``(codes, row_absmax, col_absmax)``."""
+    if tensor.dim() != 2:
+        raise ValueError("Input must be 2D")
+    a = tensor.to(torch.float32)
+    row = a.abs().amax(dim=1).clamp(min=1e-8)
+    col = a.abs().amax(dim=0).clamp(min=1e-8)
+    return _round_int8(a * _over(127.0, _colrow_scale(row, col))), row, col
+
+
+def dequantize_colrow(quantized: torch.Tensor, row_scales: torch.Tensor,
+                      col_scales: torch.Tensor,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_colrow`."""
+    scale = div_exact(_colrow_scale(row_scales, col_scales), 127.0)
+    return (quantized.to(torch.float32) * scale).to(dtype)
+
+
+def matmul_colrow(input: torch.Tensor, weight_int8: torch.Tensor,
+                  weight_row_scales: torch.Tensor,
+                  weight_col_scales: torch.Tensor, bias=None,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``x @ W.T`` with W col+row quantized, dequantized to ``dtype``."""
+    w = dequantize_colrow(weight_int8, weight_row_scales, weight_col_scales,
+                          dtype)
+    out = input.to(dtype) @ w.t()
+    if bias is not None:
+        out = out + bias.to(dtype)
+    return out
+
+
+# -- sparse COO ----------------------------------------------------------------
+
+def spmm_coo(row_indices: torch.Tensor, col_indices: torch.Tensor,
+             values: torch.Tensor, dense: torch.Tensor, sparse_rows: int,
+             sparse_cols: int) -> torch.Tensor:
+    """COO sparse [sparse_rows, sparse_cols] x dense: the rows
+    ``values * dense[col]`` added into their output rows (``index_add_``;
+    on a card its atomic adds run in no fixed order, so sums of several
+    entries into one row may differ from the CPU's in the last bits)."""
+    gathered = values[:, None].to(dense.dtype) * dense[col_indices.long()]
+    out = torch.zeros((sparse_rows, dense.shape[1]), dtype=dense.dtype,
+                      device=dense.device)
+    return out.index_add_(0, row_indices.long(), gathered)
+
+
+def spmm_coo_int8(row_indices, col_indices, values_int8, values_scale,
+                  dense, sparse_rows: int, sparse_cols: int,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`spmm_coo` with int8 values times one f32 scale."""
+    values = (values_int8.to(torch.float32)
+              * values_scale.to(torch.float32).reshape(()))
+    return spmm_coo(row_indices, col_indices, values.to(dtype),
+                    dense.to(dtype), sparse_rows, sparse_cols)
+
+
+def sparse_coo_from_dense(tensor: torch.Tensor, threshold: float = 0.0):
+    """Dense [rows, cols] -> ``(row_indices, col_indices, values, rows,
+    cols)`` in row-major order, int32 indices; with ``threshold`` > 0 only
+    entries with ``|a| >= threshold`` are kept. A setup op: the number of
+    entries is read back to the host."""
+    rows, cols = tensor.shape
+    keep = tensor != 0
+    if threshold > 0:
+        keep &= tensor.abs() >= threshold
+    r, c = keep.nonzero(as_tuple=True)
+    return (r.to(torch.int32), c.to(torch.int32), tensor[r, c], rows, cols)
+
+
+def quantize_sparse_coo(row_indices, col_indices, values: torch.Tensor):
+    """COO values to int8 against one global scale ``max|v| / 127``:
+    returns ``(row_indices, col_indices, codes, scale [1])``."""
+    v = values.to(torch.float32)
+    scale = div_exact(v.abs().amax().clamp(min=1e-8), 127.0)
+    return row_indices, col_indices, _round_int8(v / scale), scale.reshape(1)

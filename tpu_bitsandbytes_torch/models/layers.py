@@ -15,8 +15,8 @@ import numpy as np
 import torch
 
 from ..functional import (QuantState, _pad_k, dequantize_4bit,
-                          dequantize_blockwise, matmul_4bit, quantize_4bit,
-                          quantize_blockwise)
+                          dequantize_blockwise, div_exact, matmul_4bit,
+                          quantize_4bit, quantize_blockwise)
 from ..ops.flash_prefill import flash_prefill_attention, tiled_attention
 from ..ops.int4cache import int4_matmul, quantize_int4
 from ..ops.w4a8 import takes_w4a8, w4a8_matmul_4bit
@@ -31,9 +31,12 @@ class QLinear4:
 
     ``packed`` [N, K_pad/2] uint8 NF4/FP4 nibble pairs and ``absmax``
     [N, nb] (or ``absmax_q`` int8 with the nested ``absmax_state`` when the
-    statistics are double-quantized). ``w_cache``/``cache_scale`` hold the
-    int4 runtime cache (packed [N, K_pad/2] two's-complement nibbles, f32
-    [K_pad/128, N]) that decode streams through kernel K1. Without a cache
+    statistics are double-quantized). ``w_cache``/``cache_scale`` hold a
+    runtime cache, told apart by the cache's dtype: the int4 cache (uint8
+    [N, K_pad/2] two's-complement nibble pairs, f32 [K_pad/128, N]) that
+    decode streams through kernel K1; the int8 cache (int8 [N, K], f32 row
+    scale [N]) or the bf16 cache ([N, K], no scale), which run the JAX
+    package's dot (an XLA fusion there, plain torch here). Without a cache
     the layer runs off the packed bytes: kernel K4 where the JAX package
     takes its W4A8 kernel, else :func:`matmul_4bit` (K5 up to M = 256).
     """
@@ -88,18 +91,25 @@ class QLinear4:
                           shape=tuple(self.shape), blocksize=self.blocksize,
                           quant_type=self.quant_type, dtype=self.dtype)
 
-    def with_runtime_cache(self, fmt: str = "int4",
+    def with_runtime_cache(self, fmt: str = "int8",
                            drop_packed: bool = False) -> "QLinear4":
-        """Attach the int4 runtime cache: the NF4 weight, dequantized in
-        f32, requantized to symmetric int4 per (row, 128-block).
-        ``drop_packed`` frees the NF4 codes and absmax."""
-        if fmt != "int4":
-            raise NotImplementedError(
-                f"runtime cache {fmt!r}: only 'int4' is ported (the int8 and "
-                "bf16 caches are still to come)")
+        """Attach a runtime cache of the NF4 weight, dequantized in f32:
+        "int8", symmetric int8 per output row (scale max|w| / 127);
+        "int4", symmetric int4 per (row, 128-block); "bf16", the weight
+        itself. ``drop_packed`` frees the NF4 codes and absmax."""
         state = dataclasses.replace(self.quant_state(), dtype=torch.float32)
         w = dequantize_4bit(self.packed.reshape(-1), state)
-        cache, scale = quantize_int4(w)
+        if fmt == "bf16":
+            cache, scale = w.to(torch.bfloat16), None
+        elif fmt == "int8":
+            s = div_exact(w.abs().amax(dim=1).clamp(min=1e-8), 127.0)
+            cache = torch.clamp(torch.round(w / s[:, None]), -127, 127
+                                ).to(torch.int8)
+            scale = s
+        elif fmt == "int4":
+            cache, scale = quantize_int4(w)
+        else:
+            raise ValueError(f"unknown runtime cache format: {fmt!r}")
         keep = not drop_packed
         return dataclasses.replace(
             self, w_cache=cache, cache_scale=scale,
@@ -111,7 +121,10 @@ class QLinear4:
     def hbm_bytes(self) -> int:
         """Device-memory bytes one forward pass reads for the weight."""
         if self.w_cache is not None:
-            return self.w_cache.numel() + self.cache_scale.numel() * 4
+            b = self.w_cache.numel() * self.w_cache.element_size()
+            if self.cache_scale is not None:
+                b += self.cache_scale.numel() * 4
+            return b
         b = self.packed.numel()
         if self.absmax is not None:
             b += self.absmax.numel() * 4
@@ -125,9 +138,12 @@ class QLinear4:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         n = self.shape[0]
-        if self.w_cache is not None:
+        if self.w_cache is not None and self.w_cache.dtype == torch.uint8:
             out = int4_matmul(x2, self.w_cache, self.cache_scale,
                               bias=self.bias, out_dtype=self.dtype, n_out=n)
+        elif self.w_cache is not None:
+            out = cache_matmul(x2, self.w_cache, self.cache_scale,
+                               self.bias, self.dtype)
         elif takes_w4a8(x2.shape[0], n, _pad_k(self.shape[1], self.blocksize),
                         self.blocksize, self.quant_type):
             out = w4a8_matmul_4bit(x2, self.packed.reshape(-1),
@@ -137,6 +153,38 @@ class QLinear4:
             out = matmul_4bit(x2, self.packed.reshape(-1), self.quant_state(),
                               bias=self.bias, compute_dtype=self.dtype)
         return out.reshape(*lead, n)
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` in f32, the JAX package's ``dot_general(...,
+    preferred_element_type=float32)`` of x with ``w`` cast to x's dtype
+    (``w``'s values must be exact in it: int8 codes, or a tensor of x's
+    dtype): the product is never rounded to a half-precision type. On a
+    card a half-precision x takes one GEMM with an f32 output (``mm``'s
+    ``out_dtype``); elsewhere both operands are widened to f32 (exact)."""
+    if x.is_cuda and x.dtype != torch.float32:
+        return torch.mm(x, w.to(x.dtype).t(), out_dtype=torch.float32)
+    return x.to(torch.float32) @ w.to(torch.float32).t()
+
+
+def cache_matmul(x2: torch.Tensor, w_cache: torch.Tensor,
+                 cache_scale: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor],
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 or bf16 runtime cache's product, as the JAX package's
+    ``QLinear4.__call__`` computes it: the cache widened to x's dtype, an
+    f32 product, times the f32 row scale, plus the bias in f32, cast once.
+    JAX leaves this to an XLA fusion (no Pallas kernel), so it stays plain
+    torch: the widened weight is a temporary the fusion does not write."""
+    # int8 codes are exact in any float type; a bf16 cache rounds to x's
+    # dtype, as JAX's astype does
+    w = w_cache if w_cache.dtype == torch.int8 else w_cache.to(x2.dtype)
+    out = dot_f32(x2, w)
+    if cache_scale is not None:
+        out = out * cache_scale[None, :]
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
 
 
 def linear_apply(w, x: torch.Tensor) -> torch.Tensor:

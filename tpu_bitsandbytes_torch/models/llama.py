@@ -168,9 +168,10 @@ def quantize_params(params: Params, blocksize: int = 64,
     return out
 
 
-def build_runtime_cache(params: Params, fmt: str = "int4",
+def build_runtime_cache(params: Params, fmt: str = "int8",
                         drop_packed: bool = False) -> Params:
-    """Attach the runtime execution cache to every :class:`QLinear4`."""
+    """Attach a runtime execution cache ("int8", "int4" or "bf16"; see
+    :meth:`QLinear4.with_runtime_cache`) to every :class:`QLinear4`."""
     def conv(w):
         return (w.with_runtime_cache(fmt, drop_packed=drop_packed)
                 if isinstance(w, QLinear4) else w)

@@ -68,18 +68,19 @@ def param_footprint(params, runtime_cache: Optional[str] = None
                     ) -> Dict[str, int]:
     """Bytes by category of a (quantized) parameter tree.
 
-    ``runtime_cache="int4"``: count a hypothetical int4 execution cache for
-    :class:`QLinear4` leaves that carry none yet, as the JAX package counts
-    it; the engine decides ``drop_packed`` from this before it builds the
+    ``runtime_cache`` ("int8", "int4" or "bf16"): count a hypothetical
+    execution cache for :class:`QLinear4` leaves that carry none yet, as
+    the JAX package counts it (1, 0.5 or 2 bytes per weight, plus 4 bytes
+    per row, or per (row, 128-block) for int4); the engine decides
+    ``drop_packed`` and "auto" its format from this before it builds the
     cache (building it and then dropping the codes would hold both at
-    once). The int8 and bf16 caches are not ported.
+    once).
 
     Returns {"packed": NF4 codes + absmax, "exec_cache": the runtime cache,
     "fp": everything else}.
     """
-    if runtime_cache not in (None, "int4"):
-        raise NotImplementedError(
-            f"runtime_cache={runtime_cache!r}: only 'int4' is ported")
+    if runtime_cache not in (None, "int8", "int4", "bf16"):
+        raise ValueError(f"unknown runtime cache format: {runtime_cache!r}")
     from ..models.layers import QLinear4
     from ..ops.int4cache import INT4_BLOCK
     out = {"packed": 0, "exec_cache": 0, "fp": 0}
@@ -91,9 +92,11 @@ def param_footprint(params, runtime_cache: Optional[str] = None
             if w.absmax_state is not None:
                 pk += _nbytes(w.absmax_state.absmax)
             ex = _nbytes(w.w_cache) + _nbytes(w.cache_scale)
-            if ex == 0 and runtime_cache == "int4":
+            if ex == 0 and runtime_cache is not None:
                 n, k = w.shape
-                ex = n * k // 2 + n * (k // INT4_BLOCK) * 4
+                per = {"int8": 1, "bf16": 2, "int4": 0.5}[runtime_cache]
+                sc = (k // INT4_BLOCK) * 4 if runtime_cache == "int4" else 4
+                ex = int(n * k * per) + n * sc
             out["packed"] += pk
             out["exec_cache"] += ex
             out["fp"] += _nbytes(w.bias)
