@@ -100,6 +100,21 @@ Phases (any failure raises: traceback, nonzero exit):
      LinearFP8, OutlierAwareLinear and the 4-bit and int8 embeddings
      against their CPU twins; SwitchBackLinear's gradients equal to a
      dense Linear's; a ``state_dict`` round trip.
+  10. QLoRA training at Llama-2-7B width (32 layers, random packed NF4
+     weights at blocksize 64 drawn on the card, bf16, no runtime cache;
+     LoRA r 8, alpha 16 on q_proj and v_proj): 4 steps of
+     ``make_qlora_train_step`` (adam8bit(1e-4)) on one seeded 1 x 257
+     batch, every frozen linear's forward on K5's wgmma kernel at M = 256
+     (225 launches a step, counted by the wrapper against the tree), losses
+     finite and falling, ``lora_B`` non-zero after step 1; a ``remat``
+     step and gradients equal to the plain ones bit for bit (the layers'
+     recomputed forwards counted too); a step at 2 x 513 (M = 1024, no
+     K5); a ``PagedAdamW`` step on the LoRA leaves, its states in pinned
+     host memory; then 2 layers of full width, 2 steps on the card against
+     the CPU (loss, LoRA gradients, parameters, 8-bit codes) and the
+     trained tree through ``save_checkpoint``/``load_checkpoint`` (logits
+     identical). Each step's line has its time, peak memory and 8-bit
+     state bytes beside the card's name and power limit.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -826,16 +841,21 @@ def phase_cache_dots(dev, gen, bw):
 # model builders
 # ---------------------------------------------------------------------------
 
-def random_params(cfg, rand_bytes, rand_unit, rand_normal, device):
+def random_params(cfg, rand_bytes, rand_unit, rand_normal, device,
+                  fused=True):
     """Llama params with random packed NF4 weights (blocksize 64, absmax
-    U*0.03+0.005) in the fused qkv/gateup layout, unit norms, a normal(0,
-    0.02) embedding."""
+    U*0.03+0.005) in the fused qkv/gateup layout (or, with ``fused``
+    False, the seven projections apart), unit norms, a normal(0, 0.02)
+    embedding."""
     from tpu_bitsandbytes_torch.models.layers import QLinear4
     h, hd = cfg.hidden_size, cfg.hd
     n_q, n_kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    shapes = {"qkv_proj": (n_q + 2 * n_kv, h), "o_proj": (h, n_q),
-              "gateup_proj": (2 * cfg.intermediate_size, h),
-              "down_proj": (h, cfg.intermediate_size)}
+    i = cfg.intermediate_size
+    shapes = ({"qkv_proj": (n_q + 2 * n_kv, h), "o_proj": (h, n_q),
+               "gateup_proj": (2 * i, h), "down_proj": (h, i)} if fused else
+              {"q_proj": (n_q, h), "k_proj": (n_kv, h), "v_proj": (n_kv, h),
+               "o_proj": (h, n_q), "gate_proj": (i, h), "up_proj": (i, h),
+               "down_proj": (h, i)})
 
     def qlinear(n, k):
         return QLinear4(packed=rand_bytes((n, k // 2)),
@@ -945,10 +965,14 @@ def compare_card_cpu(what, got_pre, ref_pre, got_steps, ref_steps, tol=None):
 
 def as_f32(tree):
     """A params tree with its float tensors, and its ``QLinear4``s' compute
-    dtype, in f32."""
+    dtype, in f32 (LoRA adapters keep theirs)."""
     from tpu_bitsandbytes_torch.models.layers import QLinear4
+    from tpu_bitsandbytes_torch.models.lora import LoRALinear
     if isinstance(tree, QLinear4):
         return dataclasses.replace(tree, dtype=torch.float32)
+    if isinstance(tree, LoRALinear):
+        return LoRALinear(as_f32(tree.base), tree.lora_A, tree.lora_B,
+                          tree.scaling)
     if isinstance(tree, dict):
         return {k: as_f32(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -2903,6 +2927,296 @@ def phase_library(dev, counters, plains):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: QLoRA training at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+QLORA_STEPS = 4
+QLORA_LR = 1e-4     # the train step's default optimizer, adam8bit(1e-4)
+# card against the CPU at 2 layers of full width, bf16 operands and f32
+# sums in other orders (K5's wgmma against its plain version, cuBLAS
+# against the CPU's GEMMs), bf16 rounding every activation and cotangent:
+# the loss, a mean over 256 tokens, within 1e-3 relative; the LoRA
+# gradients (each leaf as a share of its max|ref|) within twice the gap
+# between the CPU's bf16 gradients and its own f32 ones on the same step
+# (at least E2E_TOL): if the card's bf16 gradients are no further from
+# f32 than the CPU's are, the triangle inequality bounds card against
+# CPU by twice that gap (phase 3b holds logits to the gap itself, which
+# one bf16 run's noise against another's can exceed). Adam divides
+# each gradient element by its own RMS, so an element whose gradient sits
+# within that error of zero can move its update by up to 2 lr in each step
+# (Adam's first steps move an element by at most about lr, and the 8-bit
+# moments' rounding a little more): at least 95% of the elements within
+# 0.1 lr, all within 2.5 lr per step taken.
+QLORA_LOSS_TOL = 1e-3
+QLORA_PARAM_TOL = (0.1, 0.95, 2.5)
+
+
+def frozen_linears(tree):
+    """(the QLinear4s one forward runs, those inside the layers): each
+    layer's seven projections (a LoRA adapter's base among them) and the
+    quantized lm_head."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    in_layers = sum(isinstance(getattr(w, "base", w), QLinear4)
+                    for layer in tree["layers"] for w in layer.values())
+    return in_layers + isinstance(tree.get("lm_head"), QLinear4), in_layers
+
+
+def state_bytes(opt_state) -> int:
+    """Bytes of an adam8bit state: the int8/uint8 codes and their f32
+    absmax/max."""
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(list(opt_state)[1:]))
+
+
+def lora_7b(cfg, dev, seed):
+    """``cfg`` with random packed NF4 weights drawn on the card (the seven
+    projections apart) and LoRA at the JAX package's defaults (r 8, alpha
+    16, q_proj and v_proj, bf16)."""
+    from tpu_bitsandbytes_torch.models.lora import attach_lora
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = random_params(
+        cfg,
+        lambda s: torch.randint(0, 256, s, generator=gen, device=dev,
+                                dtype=torch.uint8),
+        lambda s: torch.rand(s, generator=gen, device=dev),
+        lambda s: torch.randn(s, generator=gen, device=dev), dev,
+        fused=False)
+    return attach_lora(params, generator=gen)
+
+
+def leaves_equal(a, b) -> bool:
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def qlora_card_vs_cpu(dev, cfg, tokens, smi):
+    """2 layers of full width: two steps (the train step's pieces, so the
+    gradients can be read) on the card and on the CPU from the same
+    weights and adapters, held to the QLORA tolerances; then the card's
+    trained tree through ``save_checkpoint``/``load_checkpoint``."""
+    import tempfile
+    from tpu_bitsandbytes_torch.models import llama as L
+    from tpu_bitsandbytes_torch.models.lora import (lora_trainable,
+                                                    merge_lora_trainable)
+    from tpu_bitsandbytes_torch.optim import transforms as T
+    from tpu_bitsandbytes_torch.parallel.train import qlora_loss_and_grads
+    from tpu_bitsandbytes_torch.utils.checkpoint import (load_checkpoint,
+                                                         save_checkpoint)
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    cfg32 = dataclasses.replace(cfg2, dtype=torch.float32)
+    frozen = {"card": lora_7b(cfg2, dev, seed=21)}
+    frozen["cpu"] = L.to_device(frozen["card"], "cpu")
+    cpu_f32 = as_f32(frozen["cpu"])
+    tx = T.adam8bit(QLORA_LR)
+    tr = {k: lora_trainable(v) for k, v in frozen.items()}
+    st = {k: tx.init(v) for k, v in tr.items()}
+    toks = {"card": tokens, "cpu": tokens.cpu()}
+    lines, secs = [], {"card": 0.0, "cpu": 0.0}
+    for step in range(2):
+        # the yardstick: the CPU's f32 gradients at the same adapters
+        t0 = time.perf_counter()
+        _, g32 = qlora_loss_and_grads(cfg32, tr["cpu"], cpu_f32, toks["cpu"])
+        secs["cpu_f32"] = secs.get("cpu_f32", 0.0) + time.perf_counter() - t0
+        out = {}
+        for where in ("card", "cpu"):
+            t0 = time.perf_counter()
+            loss, g = qlora_loss_and_grads(cfg2, tr[where], frozen[where],
+                                           toks[where])
+            with torch.no_grad():
+                upd, st[where] = tx.update(g, st[where], tr[where])
+                tr[where] = T.apply_updates(tr[where], upd)
+            if where == "card":
+                torch.cuda.synchronize()
+            secs[where] += time.perf_counter() - t0
+            out[where] = (float(loss), g)
+        loss_gap = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+
+        def gap(got, ref):
+            return max(err(a.float().cpu(), b.float())[1] for a, b in zip(
+                T.tree_leaves(got), T.tree_leaves(ref)) if b.any())
+        grad_gap = gap(out["card"][1], out["cpu"][1])
+        cpu_gap = gap(out["cpu"][1], g32)
+        grad_tol = max(E2E_TOL, 2 * cpu_gap)
+        d = torch.cat([(a.float().cpu() - b.float()).abs().reshape(-1)
+                       for a, b in zip(T.tree_leaves(tr["card"]),
+                                       T.tree_leaves(tr["cpu"]))])
+        within, share, most = QLORA_PARAM_TOL
+        param_share = float((d <= within * QLORA_LR).float().mean())
+        codes = [(a.cpu() == b).float().mean().item()
+                 for f in ("exp_avg_int8", "exp_avg_sq_uint8")
+                 for a, b in zip(T.tree_leaves(getattr(st["card"], f)),
+                                 T.tree_leaves(getattr(st["cpu"], f)))]
+        lines.append({"step": step + 1, "loss_card": out["card"][0],
+                      "loss_cpu": out["cpu"][0], "loss_rel_gap": loss_gap,
+                      "grad_rel_err": grad_gap, "grad_tol": grad_tol,
+                      "cpu_bf16_vs_f32_grad": cpu_gap,
+                      "card_vs_cpu_f32_grad": gap(out["card"][1], g32),
+                      "param_share_within_0.1lr": param_share,
+                      "param_max_gap_lr": float(d.max()) / QLORA_LR,
+                      "codes_equal_share": min(codes)})
+        if not (loss_gap <= QLORA_LOSS_TOL and grad_gap <= grad_tol
+                and param_share >= share
+                and float(d.max()) <= most * (step + 1) * QLORA_LR):
+            raise AssertionError(f"qlora card vs CPU: {lines[-1]}")
+    trained = merge_lora_trainable(frozen["card"], tr["card"])
+    probe = tokens[:, :-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "qlora_2l")
+        t0 = time.perf_counter()
+        save_checkpoint(path, trained)
+        back = L.to_device(load_checkpoint(path), dev)
+        ckpt_s = time.perf_counter() - t0
+    with torch.no_grad():
+        same = torch.equal(L.forward(trained, probe, cfg2),
+                           L.forward(back, probe, cfg2))
+    if not same:
+        raise AssertionError("qlora: logits of the reloaded checkpoint "
+                             "differ from the trained tree's")
+    emit({"phase": "qlora_card_vs_cpu", "layers": 2,
+          "widths": "Llama-2-7B", "card": smi, "steps": lines,
+          "tol": {"loss_rel": QLORA_LOSS_TOL, "param": QLORA_PARAM_TOL},
+          "card_s": secs["card"], "cpu_s": secs["cpu"],
+          "cpu_f32_s": secs["cpu_f32"],
+          "checkpoint_round_trip_s": ckpt_s, "logits_identical": same})
+
+
+def phase_qlora(dev, counters, plains, smi):
+    """10: QLoRA training through the port's entry points at Llama-2-7B
+    width (32 layers, packed NF4 at blocksize 64, bf16 compute, no runtime
+    cache; LoRA r 8 on q_proj and v_proj; ``make_qlora_train_step`` with
+    adam8bit(1e-4)): 4 steps on one seeded 1 x 257 batch (every frozen
+    linear at M = 256 on K5's wgmma kernel), one ``remat`` step and the
+    gradients with and without ``remat`` from the same start (bit for
+    bit), one step at 2 x 513 (M = 1024, the dequantized product), a
+    ``PagedAdamW`` step on the LoRA leaves; then 2 layers against the CPU.
+    Returns the 4 steps' launches."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    from tpu_bitsandbytes_torch.models.lora import (lora_trainable,
+                                                    merge_lora_trainable)
+    from tpu_bitsandbytes_torch.optim import PagedAdamW
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    from tpu_bitsandbytes_torch.parallel.train import (make_qlora_train_step,
+                                                       qlora_loss_and_grads)
+    t_phase = time.perf_counter()
+    k5 = counters["K5_matmul4bit"]
+    cfg = L.LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    frozen = lora_7b(cfg, dev, seed=20)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    per_fwd, per_layers = frozen_linears(frozen)
+    if per_fwd != 7 * cfg.num_layers + 1:
+        raise AssertionError(f"qlora: {per_fwd} frozen linears per forward")
+    rng = np.random.default_rng(10)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, 257))).to(dev)
+    init, train_step = make_qlora_train_step(cfg)
+    start = lora_trainable(frozen)
+    tr, st = start, init(start)
+
+    def counted(fn, want, what):
+        reset(counters, plains)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = (k5.launches, k5.wgmma_launches)
+        if got != (want, want):
+            raise AssertionError(f"qlora {what}: K5 launches (all, wgmma) "
+                                 f"{got}, the tree gives {want}")
+        no_plain_calls(plains, f"qlora {what}")
+        return out, ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps, launches = [], {k: 0 for k in counters}
+    for i in range(QLORA_STEPS):
+        (tr, st, loss), ms, peak = counted(
+            lambda: train_step(tr, st, frozen, tokens), per_fwd,
+            f"step {i + 1}")
+        for k, n in counts(counters).items():
+            launches[k] += n
+        steps.append({"step": i + 1, "loss": float(loss), "step_ms": ms,
+                      "peak_allocated_gib": peak,
+                      "state_bytes_8bit": state_bytes(st),
+                      "k5_launches": k5.launches, "card": smi})
+        if i == 0:
+            after_1 = tr
+            if not any(b["B"].any() for b in tr.values()):
+                raise AssertionError("qlora: lora_B still zero after step 1")
+    losses = [s["loss"] for s in steps]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"qlora: losses {losses} not finite and "
+                             "falling")
+    # remat: the same kernels in the same order, so the same bits
+    remat_fwd = per_fwd + per_layers
+    (loss_r, _, tr_r), ms_r, peak_r = counted(
+        lambda: make_qlora_train_step(cfg, remat=True)[1](
+            start, init(start), frozen, tokens)[::-1], remat_fwd,
+        "remat step")
+    (loss_p, g_p), _, _ = counted(
+        lambda: qlora_loss_and_grads(cfg, start, frozen, tokens), per_fwd,
+        "gradients")
+    (loss_g, g_r), _, _ = counted(
+        lambda: qlora_loss_and_grads(cfg, start, frozen, tokens, remat=True),
+        remat_fwd, "remat gradients")
+    remat_same = (float(loss_r) == losses[0] == float(loss_p)
+                  == float(loss_g) and leaves_equal(g_p, g_r)
+                  and leaves_equal(tr_r, after_1))
+    if not remat_same:
+        raise AssertionError("qlora: remat loss, gradients or step differ "
+                             "from the plain step's")
+    # 2 x 513: M = 1024, past K5's 256 rows
+    wide = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 513))).to(dev)
+    (_, _, loss_w), ms_w, peak_w = counted(
+        lambda: train_step(start, init(start), frozen, wide), 0, "2 x 513")
+    if not math.isfinite(float(loss_w)):
+        raise AssertionError("qlora: 2 x 513 loss not finite")
+    # PagedAdamW on the LoRA leaves, through torch.optim's protocol
+    params = merge_lora_trainable(frozen, {
+        k: {"A": v["A"].detach().clone(), "B": v["B"].detach().clone()}
+        for k, v in start.items()})
+    leaves = tree_leaves(lora_trainable(params))
+    opt = PagedAdamW(leaves, lr=QLORA_LR)
+
+    def backward():
+        with torch.enable_grad():
+            logits = L.forward(params, tokens[:, :-1], cfg)
+            torch.nn.functional.cross_entropy(
+                logits[0].float(), tokens[0, 1:].long()).backward()
+    counted(backward, per_fwd, "PagedAdamW's backward")
+    before = [p.detach().clone() for p in leaves]
+    t0 = time.perf_counter()
+    opt.step()
+    opt.synchronize()
+    paged_ms = (time.perf_counter() - t0) * 1e3
+    pinned = all(s[n].device.type == "cpu" and s[n].is_pinned()
+                 for s in opt.state.values()
+                 for n in ("exp_avg", "exp_avg_sq"))
+    moved = any(not torch.equal(a, b) for a, b in zip(before, leaves))
+    if not (pinned and moved and len(opt.state) == len(leaves)):
+        raise AssertionError(f"qlora: PagedAdamW states pinned {pinned}, "
+                             f"parameters moved {moved}")
+    del params, leaves, opt, g_p, g_r
+    qlora_card_vs_cpu(dev, cfg, tokens, smi)
+    emit({"phase": "qlora", "model": "Llama-2-7B", "layers": cfg.num_layers,
+          "card": smi, "build_s": build_s, "tokens": [1, 257],
+          "frozen_linears_per_forward": per_fwd, "steps": steps,
+          "remat": {"step_ms": ms_r, "peak_allocated_gib": peak_r,
+                    "k5_launches": remat_fwd, "identical": remat_same},
+          "wide_2x513": {"loss": float(loss_w), "step_ms": ms_w,
+                         "peak_allocated_gib": peak_w, "k5_launches": 0},
+          "paged_adamw": {"step_ms": paged_ms, "states_pinned": pinned,
+                          "leaves": len(before)},
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    del frozen, tr, st, start, after_1, tr_r
+    free_memory()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3017,6 +3331,9 @@ def main() -> int:
     phase_end("7")
     # 9. the bitsandbytes-style API at Llama-2-7B widths
     by_path["bnb_api_7b"] = phase_library(dev, counters, plains)
+    phase_end("9")
+    # 10. QLoRA training at Llama-2-7B width
+    by_path["qlora_7b"] = phase_qlora(dev, counters, plains, smi)
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     for k in kernels:
@@ -3024,7 +3341,7 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
-    phase_end("9")
+    phase_end("10")
     emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script,
           "seconds_at_end_of_phase": ends})
     emit({"kernels": kernels})

@@ -1471,3 +1471,98 @@ def test_int8_cache_graphed_chunk_matches_eager(cuda):
         if graphs:
             assert eng.graph_keys() and eng._graphs.pool_bytes() > 0
     assert outs[True] == outs[False]
+
+
+# ---------------------------------------------------------------------------
+# training: K5's backward, K2/K3 under grad, the 8-bit and paged optimizers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 64, 256])
+def test_fused_4bit_backward_card_matches_cpu(cuda, m):
+    """K5's autograd Function on the card: the forward launches the wgmma
+    kernel once (and no plain version); d_x (the f32 cotangent times the
+    dequantized f32 weight, cast to bf16) within one bf16 ulp (2^-8) of
+    the CPU's, the f32 GEMM summing in another order."""
+    rng = np.random.default_rng(m)
+    w = torch.from_numpy(rng.standard_normal((1024, 2048), dtype=np.float32)
+                         * 0.02)
+    packed, st = TF.quantize_4bit(w, blocksize=64)
+    x = torch.from_numpy(rng.standard_normal((m, 2048), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((m, 1024), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.clone().to(dev).requires_grad_()
+        n = K5.matmul4bit_mm.wgmma_launches, K5.matmul4bit_plain.cuda_calls
+        out = K5.fused_matmul_4bit(xd, packed.to(dev), st.to(dev),
+                                   mxu_dtype=torch.bfloat16)
+        if dev != "cpu":
+            assert (K5.matmul4bit_mm.wgmma_launches - n[0],
+                    K5.matmul4bit_plain.cuda_calls - n[1]) == (1, 0)
+        out.to(torch.bfloat16).backward(g.to(dev))
+        assert xd.grad.dtype == torch.bfloat16
+        grads.append(xd.grad)
+    assert rel_err(grads[1], grads[0]) <= 2 ** -8
+
+
+def test_attention_kernels_refuse_grad_on_the_card(cuda):
+    """K2 and K3 have no backward: with grad mode on, an input that
+    requires grad raises before the launch; under no_grad they launch."""
+    q = torch.zeros((1, 1024, 2, 128), dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    n = K3.flash_prefill_attention.launches
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        K3.flash_prefill_attention(q, q, q, s_real=1024, scale=0.1)
+    with torch.no_grad():
+        K3.flash_prefill_attention(q, q, q, s_real=1024, scale=0.1)
+    assert K3.flash_prefill_attention.launches == n + 1
+    kq = torch.zeros((1, 1, 256, 128), dtype=torch.int8, device=cuda)
+    ks = torch.ones((1, 1, 256), device=cuda)
+    qd = torch.zeros((1, 2, 128), device=cuda, requires_grad=True)
+    off = torch.tensor([100], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        K2.flash_decode_attention(qd, kq, ks, kq, ks, off)
+    with torch.no_grad():
+        K2.flash_decode_attention(qd, kq, ks, kq, ks, off)
+
+
+@pytest.mark.parametrize("name", ["Adam8bit", "PagedAdamW"])
+def test_optimizer_step_card_matches_cpu(cuda, name):
+    """Two steps of an 8-bit (or paged) optimizer on the card and on the
+    CPU from the same bf16 and f32 parameters and gradients: every state
+    (int8/uint8 codes, absmax, or the paged f32 moments) and every
+    parameter bit for bit: the same elementwise f32 operations, exact
+    divisions and correctly rounded square roots on both. The paged
+    optimizer's states of the 32,768-element leaf sit in pinned host
+    memory after each step."""
+    import tpu_bitsandbytes_torch.optim as O
+    rng = np.random.default_rng(1)
+    shapes = [(256, 128), (300,)]
+    init = [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s, dtype=np.float32) for s in shapes]
+             for _ in range(2)]
+    runs = []
+    for dev in ("cpu", cuda):
+        ps = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(dev, dt))
+              for a, dt in zip(init, (torch.bfloat16, torch.float32))]
+        opt = getattr(O, name)(ps, lr=1e-2, weight_decay=0.01)
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.from_numpy(g).to(dev, p.dtype)
+            opt.step()
+        if name.startswith("Paged"):
+            opt.synchronize()
+            st = opt.state[ps[0]]
+            if dev != "cpu":
+                assert st["exp_avg"].device.type == "cpu"
+                assert st["exp_avg"].is_pinned()
+                assert opt.state[ps[1]]["exp_avg"].is_cuda
+        runs.append((ps, opt))
+    (cp, copt), (gp, gopt) = runs
+    for a, b in zip(cp, gp):
+        assert torch.equal(a.detach(), b.detach().cpu())
+        for k, v in copt.state[a].items():
+            w = gopt.state[b][k]
+            if isinstance(v, torch.Tensor):
+                assert w.dtype == v.dtype and torch.equal(v, w.cpu()), k

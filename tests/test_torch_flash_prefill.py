@@ -94,24 +94,51 @@ def test_f32_scan_matches_jax(opts):
 
 
 def test_gqa_attention_dispatch_at_1024(monkeypatch):
-    """Aligned prefills of 1024 tokens or more leave the dense einsum:
-    bf16 goes to K3's wrapper (its plain version at the kernel's tile on
-    the CPU), f32 to ``tiled_attention``, not through K3's wrapper; below
-    1024 the dense path runs. All agree with the dense f32 attention
-    within bf16 rounding."""
-    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 1024, 2, 1, 64, seed=9))
-    calls = []
+    """Aligned prefills of 1024 tokens or more leave the dense einsum and
+    route as the JAX package routes: bf16 at d = 128 goes to K3's wrapper
+    (its plain version at the kernel's tile on the CPU), bf16 at d = 64
+    (no multiple of 128, so JAX runs its scan) and f32 go to
+    ``tiled_attention`` at 512 blocks, not through K3's wrapper; below 1024
+    the dense path runs. All agree with the dense f32 attention within
+    bf16 rounding."""
+    tiles, scans = [], []
     plain = TFP.flash_prefill_plain
     monkeypatch.setattr(TFP, "flash_prefill_plain",
-                        lambda *a, **kw: calls.append(kw["block_k"])
+                        lambda *a, **kw: tiles.append(kw["block_k"])
                         or plain(*a, **kw))
-    got = TLay.gqa_attention(*(t.to(torch.bfloat16) for t in (q, k, v)))
-    assert calls == [TFP.KEY_TILE[64]]
-    f32 = TLay.gqa_attention(q, k, v)
-    short = TLay.gqa_attention(q[:, :1000], k[:, :1000], v[:, :1000])
-    assert calls == [TFP.KEY_TILE[64]]
-    assert rel_err(t32(got), t32(f32)) <= 1e-2
-    assert rel_err(t32(short), t32(f32)[:, :1000]) <= 1e-5
+    tiled = TLay.tiled_attention
+    monkeypatch.setattr(TLay, "tiled_attention",
+                        lambda *a, **kw: scans.append(kw["block_k"])
+                        or tiled(*a, **kw))
+    for d, k3 in ((128, True), (64, False)):
+        tiles.clear(), scans.clear()
+        q, k, v = (torch.from_numpy(t)
+                   for t in _qkv(1, 1024, 2, 1, d, seed=9))
+        got = TLay.gqa_attention(*(t.to(torch.bfloat16) for t in (q, k, v)))
+        assert (tiles, scans) == (([TFP.KEY_TILE[d]], []) if k3
+                                  else ([], [512]))
+        assert TLay.jax_takes_its_kernel(1024, d) == k3
+        f32 = TLay.gqa_attention(q, k, v)
+        short = TLay.gqa_attention(q[:, :1000], k[:, :1000], v[:, :1000])
+        assert tiles == ([TFP.KEY_TILE[d]] if k3 else [])
+        assert scans == ([512] if k3 else [512, 512])
+        assert rel_err(t32(got), t32(f32)) <= 1e-2
+        assert rel_err(t32(short), t32(f32)[:, :1000]) <= 1e-5
+
+
+def test_head_dim_64_matches_jax_scan():
+    """d = 64 at S = 1024, half precision: the port's scan against JAX's
+    ``gqa_attention_flash`` (its scan, since d is no multiple of 128), on
+    the same inputs within the half-precision bound above."""
+    q, k, v = _qkv(1, 1024, 4, 2, 64, seed=64)
+    got = TLay.gqa_attention_flash(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
+    ref = JLay.gqa_attention_flash(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got, ref = t32(got), np.asarray(ref, np.float32)
+    assert rel_err(got, ref) <= 1e-2
+    assert _cos(got, ref) > 0.999
 
 
 @pytest.mark.parametrize("d", [96, 384])

@@ -4,15 +4,17 @@ NVIDIA H100.
 The bitsandbytes-style API (:mod:`.functional`: NF4/FP4, blockwise,
 row-wise and col+row int8, FP8, sparse COO; :mod:`.nn`: quantized Linear
 and Embedding modules; :mod:`.integration`: ``BitsAndBytesConfig`` and
-``quantize_model``), and NF4 serving of Llama-shaped models through an
-int8, int4 or bf16 runtime cache or straight off the packed NF4 bytes:
-the quantized trunk (:mod:`.models`), the int8-KV decode engine
+``quantize_model``); NF4 serving of Llama-shaped models through an int8,
+int4 or bf16 runtime cache or straight off the packed NF4 bytes: the
+quantized trunk (:mod:`.models`), the int8-KV decode engine
 (:mod:`.engine`) and five hand-written Hopper kernels (:mod:`.ops`): K1,
 the int4-cache matmul; K2, flash-decode attention; K3, flash-prefill
 attention; K4, the packed-NF4 x A8 matmul; K5, the fused 4-bit
-dequant-matmul. CUDA tensors run the kernels; CPU tensors run their plain
-PyTorch versions. Importing the package builds nothing and does not
-initialize CUDA.
+dequant-matmul; and QLoRA training: LoRA adapters
+(:mod:`.models.lora`), the 8-bit and paged optimizers (:mod:`.optim`)
+and the train step (:mod:`.parallel`). CUDA tensors run the kernels; CPU
+tensors run their plain PyTorch versions. Importing the package builds
+nothing and does not initialize CUDA.
 """
 
 __version__ = "0.1.0"
@@ -39,6 +41,12 @@ from .nn import (
     OutlierAwareLinear,
     SwitchBackLinear, SwitchBackLinearCallback,
     Params4bit,
+)
+from .optim import (
+    Adam8bit, AdamW8bit, Lion8bit, SGD8bit,
+    PagedAdam, PagedAdamW, PagedLion,
+    quantize_state, dequantize_state,
+    quantize_state_unsigned, dequantize_state_unsigned,
 )
 from .integration import (
     BitsAndBytesConfig,
@@ -74,7 +82,7 @@ def has_cuda_kernels() -> dict:
 
 
 __all__ = [
-    "__version__", "is_available", "has_native_kernels", "has_cuda_kernels",
+    "__version__", "is_available", "has_native_kernels",
     "QuantState",
     "quantize_4bit", "dequantize_4bit", "matmul_4bit",
     "quantize_nf4", "dequantize_nf4", "matmul_nf4", "NF4_CODEBOOK",
@@ -92,6 +100,10 @@ __all__ = [
     "Embedding4bit", "Embedding8bit", "EmbeddingNF4", "EmbeddingFP4",
     "OutlierAwareLinear", "SwitchBackLinear", "SwitchBackLinearCallback",
     "Params4bit",
+    "Adam8bit", "AdamW8bit", "Lion8bit", "SGD8bit",
+    "PagedAdam", "PagedAdamW", "PagedLion",
+    "quantize_state", "dequantize_state",
+    "quantize_state_unsigned", "dequantize_state_unsigned",
     "BitsAndBytesConfig", "quantize_model",
     "replace_linear_with_4bit", "replace_linear_with_8bit",
     "get_memory_footprint", "patch_transformers", "unpatch_transformers",

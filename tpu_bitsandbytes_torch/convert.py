@@ -14,7 +14,8 @@ cache (int8 [N, K], ``cache_scale`` [N]) or the bf16 cache (no scale);
 ``None`` or a dict ``{"absmax", "shape", "blocksize", "dtype"}``, and
 ``dtype`` is a dtype name such as ``"bfloat16"``. Keys whose value would be
 None may be left out (a layer served off its packed bytes has no
-``w_cache``).
+``w_cache``). A ``LoRALinear`` comes as ``{"base", "lora_A", "lora_B",
+"scaling"}`` with its base handed over the same way.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ from .functional import QuantState, pack_nibbles, to_tensor
 from .functional import dtype_of as torch_dtype
 from .models.layers import QLinear4
 from .models.llama import LlamaConfig
+from .models.lora import LoRALinear
 
 __all__ = ["from_reference_arrays", "config_from_reference", "torch_dtype"]
 
 # a QLinear4 with or without its runtime cache or packed codes
 _QLINEAR_KEYS = {"shape", "blocksize", "quant_type"}
+_LORA_KEYS = {"base", "lora_A", "lora_B", "scaling"}
 
 # defaults of the JAX LlamaConfig fields the port does not implement
 _UNSUPPORTED = {
@@ -85,6 +88,11 @@ def from_reference_arrays(tree, device):
     if isinstance(tree, dict):
         if _QLINEAR_KEYS <= tree.keys():
             return _qlinear(tree, device)
+        if tree.keys() == _LORA_KEYS:
+            return LoRALinear(from_reference_arrays(tree["base"], device),
+                              to_tensor(tree["lora_A"], device),
+                              to_tensor(tree["lora_B"], device),
+                              float(tree["scaling"]))
         return {k: from_reference_arrays(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_reference_arrays(v, device) for v in tree]

@@ -363,7 +363,8 @@ def matmul_4bit(A: torch.Tensor, B: torch.Tensor, quant_state: QuantState,
                else torch.float32)
         out = fused_matmul_4bit(A2, B, quant_state, mxu_dtype=mxu)
     else:
-        weight = dequantize_4bit(B, quant_state)
+        # frozen: autograd differentiates this product in A only
+        weight = dequantize_4bit(B, quant_state).detach()
         out = A2.to(weight.dtype) @ weight.t()
     if bias is not None:
         out = out + bias.to(out.dtype)

@@ -1,5 +1,7 @@
-from . import layers, llama
+from . import layers, llama, lora
 from .layers import QLinear4
 from .llama import LlamaConfig
+from .lora import LoRALinear
 
-__all__ = ["layers", "llama", "QLinear4", "LlamaConfig"]
+__all__ = ["layers", "llama", "lora", "QLinear4", "LlamaConfig",
+           "LoRALinear"]

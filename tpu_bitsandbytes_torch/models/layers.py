@@ -188,9 +188,10 @@ def cache_matmul(x2: torch.Tensor, w_cache: torch.Tensor,
 
 
 def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
-    """Apply a weight leaf: a :class:`QLinear4`, a dict with 'w' (and an
-    optional 'b'), or a raw [N, K] tensor."""
-    if isinstance(w, QLinear4):
+    """Apply a weight leaf: a :class:`QLinear4` or a
+    :class:`~tpu_bitsandbytes_torch.models.lora.LoRALinear` (callables), a
+    dict with 'w' (and an optional 'b'), or a raw [N, K] tensor."""
+    if callable(w) and not isinstance(w, torch.Tensor):
         return w(x)
     if isinstance(w, dict):
         out = x @ w["w"].t().to(x.dtype)
@@ -267,11 +268,6 @@ def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
     return keep[:, None, None]
 
 
-# head dims that go to K3 at every length; d = 256 (also one K3 takes) goes
-# where the JAX package runs its kernel, and takes its scan elsewhere
-_K3_ANY_LENGTH = (64, 128)
-
-
 def jax_takes_its_kernel(s: int, d: int) -> bool:
     """Whether the JAX package's ``gqa_attention_flash`` runs its Pallas
     kernel on half-precision q (its ``flash_prefill_supported``): head dims
@@ -288,21 +284,21 @@ def jax_takes_its_kernel(s: int, d: int) -> bool:
 def gqa_attention_flash(q, k, v, *, scale=None, window=None, softcap=None):
     """Causal GQA for aligned prefill (S == T) in O(S) memory.
 
-    Half-precision q runs :func:`flash_prefill_attention` (kernel K3) at
-    d = 64 and 128, whatever S, and wherever the JAX package runs its
-    kernel (:func:`jax_takes_its_kernel`: d = 256 up to S = 5632, which K3
-    takes with 64-key tiles). Everything else runs the JAX
-    package's own non-kernel route, its scan: the same online softmax in
-    torch ops over 512 x 512 blocks (:func:`tiled_attention`), in f32 with
-    p rounded to v's dtype before the PV product.
+    Half-precision q runs :func:`flash_prefill_attention` (kernel K3)
+    exactly where the JAX package runs its kernel
+    (:func:`jax_takes_its_kernel`: d = 128 up to a 512-padded S of 12,288,
+    d = 256 up to S = 5632, which K3 takes with 64-key tiles). Everything
+    else, d = 64 included, runs the JAX package's own non-kernel route, its
+    scan: the same online softmax in torch ops over 512 x 512 blocks
+    (:func:`tiled_attention`), in f32 with p rounded to v's dtype before
+    the PV product.
     """
     s, d = q.shape[1], q.shape[3]
     if s != k.shape[1]:
         raise ValueError("flash path is for aligned causal prefill (S == T)")
     if scale is None:
         scale = 1.0 / np.sqrt(d)
-    if q.dtype in (torch.bfloat16, torch.float16) and (
-            d in _K3_ANY_LENGTH or jax_takes_its_kernel(s, d)):
+    if _half(q.dtype) and jax_takes_its_kernel(s, d):
         return flash_prefill_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), s_real=s,
                                        scale=float(scale), window=window,

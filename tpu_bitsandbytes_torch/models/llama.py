@@ -14,6 +14,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..ops.flash_decode import flash_decode_attention
 from .layers import (QLinear4, apply_rope, gqa_attention, gqa_attention_hm,
@@ -186,7 +187,13 @@ def build_runtime_cache(params: Params, fmt: str = "int8",
 
 def to_device(tree, device):
     """A copy of a parameter tree (dicts, lists, :class:`QLinear4` and
-    other dataclasses) with every tensor moved to ``device``."""
+    other dataclasses, :class:`~.lora.LoRALinear`) with every tensor moved
+    to ``device``."""
+    from .lora import LoRALinear
+    if isinstance(tree, LoRALinear):
+        return LoRALinear(to_device(tree.base, device),
+                          tree.lora_A.detach().to(device),
+                          tree.lora_B.detach().to(device), tree.scaling)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, dict):
@@ -230,26 +237,40 @@ def _mlp(layer, h):
     return linear_apply(layer["down_proj"], torch.nn.functional.silu(gate) * up)
 
 
+def _layer(layer, x, cos, sin, config: LlamaConfig):
+    """One transformer layer of the causal prefill: (x, (k, v))."""
+    b, s, _ = x.shape
+    h = _norm(x, layer["input_norm"], config)
+    q, k, v = _qkv(layer, h, config)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = gqa_attention(q, k, v)
+    x = x + linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
+    x = x + _mlp(layer, _norm(x, layer["post_attn_norm"], config))
+    return x, (k, v)
+
+
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
-            return_kv: bool = False):
+            return_kv: bool = False, remat: bool = False):
     """Causal prefill forward. tokens [B, S] int32/int64 -> f32 logits
     [B, S, V], plus the per-layer post-RoPE ``(k, v)`` [B, S, H_kv, D] when
-    ``return_kv``."""
+    ``return_kv``. ``remat`` runs each layer through
+    :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), as the JAX
+    package wraps each layer in ``jax.checkpoint``: the backward pass
+    recomputes the layer's activations instead of keeping them."""
     b, s = tokens.shape
     cos_full, sin_full = _rope(config, tokens.device)
     cos, sin = cos_full[None, :s], sin_full[None, :s]
     x = _embed_tokens(params, tokens, config)
     new_kv = []
     for layer in params["layers"]:
-        h = _norm(x, layer["input_norm"], config)
-        q, k, v = _qkv(layer, h, config)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        attn = gqa_attention(q, k, v)
-        x = x + linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
-        x = x + _mlp(layer, _norm(x, layer["post_attn_norm"], config))
+        if remat:
+            x, kv = torch.utils.checkpoint.checkpoint(
+                _layer, layer, x, cos, sin, config, use_reentrant=False)
+        else:
+            x, kv = _layer(layer, x, cos, sin, config)
         if return_kv:
-            new_kv.append((k, v))
+            new_kv.append(kv)
     x = _norm(x, params["final_norm"], config)
     logits = head_logits(params, x, config)
     return (logits, new_kv) if return_kv else logits

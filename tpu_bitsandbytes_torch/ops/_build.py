@@ -209,3 +209,24 @@ def check(err: int, what: str) -> None:
     """Raise if a launch function returned a nonzero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def records_grad(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``: only then do K1, K4 and K5
+    go through their ``torch.autograd.Function``, whose ``apply`` adds
+    host time to every call of an eager decode step."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through a kernel call
+    here: grad mode on and an input that requires grad. A ctypes launch
+    returns a tensor without a ``grad_fn``, so the gradient would vanish
+    without an error. K1, K4 and K5 take gradients through their
+    ``torch.autograd.Function`` (whose forward runs without grad mode); K2
+    and K3 have no backward, as their TPU kernels have none."""
+    if any(t is not None and records_grad(t) for t in tensors):
+        raise RuntimeError(
+            f"{what}: no backward pass here (a kernel launch has no "
+            "autograd graph); call it under torch.no_grad(), or detach its "
+            "inputs")

@@ -244,8 +244,10 @@ def flash_decode_attention(q, k_q, k_scale, v_q, v_scale, off, *,
 
     CUDA tensors launch kernel K2 (counted in
     ``flash_decode_attention.launches``); CPU tensors take
-    :func:`flash_decode_plain`.
+    :func:`flash_decode_plain`. Neither has a backward pass, as the TPU
+    kernel has none: with grad mode on, a q that requires grad raises.
     """
+    _build.refuse_grad("flash_decode_attention", q)
     b, _, d = q.shape
     h_kv = k_q.shape[1]
     if scale is None:

@@ -172,8 +172,10 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     CUDA tensors launch kernel K3 (counted in
     ``flash_prefill_attention.launches``); CPU tensors take
     :func:`flash_prefill_plain` at the kernel's key tile for the head dim
-    (``KEY_TILE``).
+    (``KEY_TILE``). Neither has a backward pass, as the TPU kernel has
+    none: with grad mode on, an input that requires grad raises.
     """
+    _build.refuse_grad("flash_prefill_attention", q, k, v)
     if not q.is_cuda:
         d = q.shape[3]
         if d not in KEY_TILE:

@@ -11,7 +11,10 @@ quantize the activations to int8 per row (A8) and run kernel K1
 (``csrc/int4_matmul.cu``); every other call dequantizes the weight and runs
 one f32-accumulated product. The two branches give different numbers (the
 second does no A8 quantization), so the port takes the branch the JAX
-package takes for every shape (:func:`takes_kernel`).
+package takes for every shape (:func:`takes_kernel`). The kernel branch
+differentiates in x through :class:`Int4MatmulFn`, the JAX package's
+straight-through rule: the A8 quantization stays inside the boundary and
+d_x is the f32 cotangent times the dequantized weight.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ import torch
 
 from ..functional import div_exact, pack_nibbles, unpack_nibbles
 from . import _build
+from .w4a8 import quantize_a8
 
-__all__ = ["INT4_BLOCK", "quantize_int4", "dequant_int4", "unpack_int4",
-           "int4_matmul", "int4_mm", "int4_mm_plain", "takes_kernel"]
+__all__ = ["INT4_BLOCK", "Int4MatmulFn", "quantize_int4", "dequant_int4",
+           "unpack_int4", "int4_matmul", "int4_mm", "int4_mm_plain",
+           "takes_kernel"]
 
 INT4_BLOCK = 128
 _MAX_M = 64
@@ -134,6 +139,7 @@ def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     """K1: xq int8 [M, K_pad], w packed [N, K_pad/2], scales f32 [nb, N],
     s_x f32 [M] -> f32 [M, N]. CUDA tensors launch the kernel (counted in
     ``int4_mm.launches``); CPU tensors take :func:`int4_mm_plain`."""
+    _build.refuse_grad("int4_mm", xq, s_x)
     if not xq.is_cuda:
         return int4_mm_plain(xq, w, scales, s_x)
     m, kp = xq.shape
@@ -171,6 +177,32 @@ def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 _build.counter(int4_mm, "launches")
 
 
+def _a8_int4_mm(x, w, scales):
+    """x [M, K_pad] -> f32 [M, N]: A8 (:func:`~.w4a8.quantize_a8`), then
+    K1."""
+    xq, s_x = quantize_a8(x, x.shape[1])
+    return int4_mm(xq, w, scales, s_x)
+
+
+class Int4MatmulFn(torch.autograd.Function):
+    """x [M, K_pad] -> f32 [M, N] through A8 and :func:`int4_mm`, with the
+    JAX package's backward rule (``ops/int4cache.py:_make_int4_mm``):
+    ``d_x = (g in f32) @ dequant_int4(codes, scales)``, in x's dtype; the
+    codes and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, scales, blocksize):
+        ctx.save_for_backward(w, scales)
+        ctx.x_dtype, ctx.blocksize = x.dtype, blocksize
+        return _a8_int4_mm(x, w, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, scales = ctx.saved_tensors
+        d_x = g.to(torch.float32) @ dequant_int4(w, scales, ctx.blocksize)
+        return d_x.to(ctx.x_dtype), None, None, None
+
+
 def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
                 blocksize: Optional[int] = None,
                 bias: Optional[torch.Tensor] = None,
@@ -193,11 +225,8 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
     if kp != k:
         x = torch.nn.functional.pad(x, (0, kp - k))
     if takes_kernel(m, n, kp, blocksize):
-        x32 = x.to(torch.float32)
-        s_x = div_exact(x32.abs().amax(dim=1, keepdim=True), 127.0)
-        s_x = s_x.clamp(min=1e-12)
-        xq = torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8)
-        out = int4_mm(xq, w, scales, s_x[:, 0].contiguous())
+        out = (Int4MatmulFn.apply(x, w, scales, blocksize)
+               if _build.records_grad(x) else _a8_int4_mm(x, w, scales))
     else:
         wd = dequant_int4(w, scales, blocksize, dtype=x.dtype)
         out = x.to(torch.float32) @ wd.to(torch.float32).t()

@@ -8,8 +8,10 @@ state's dtype. The dequantized weight never reaches device memory.
 
 The TPU kernel broadcasts absmax across its lanes with a 0/1 matmul (a
 lane-layout workaround); the port multiplies by absmax directly, which is
-what that matmul computes. Forward only: the backward pass comes with the
-training slice.
+what that matmul computes. Gradients flow to x only, through
+:class:`Fused4bitFn`, by the JAX package's backward rule: d_x is the
+f32 cotangent times the dequantized f32 weight, in x's dtype; the codes
+and absmax are frozen.
 
 On the card, bf16 mode at the shapes :func:`takes_wgmma` admits (every
 Llama width) runs the wgmma kernel, which decodes each code once per CTA
@@ -27,8 +29,8 @@ import torch
 from ..functional import QuantState, _pad_k, codebook, dequantize_blockwise
 from . import _build
 
-__all__ = ["fused_matmul_4bit", "kernel_of", "matmul4bit_mm",
-           "matmul4bit_plain", "takes_wgmma"]
+__all__ = ["Fused4bitFn", "dequant_weight", "fused_matmul_4bit",
+           "kernel_of", "matmul4bit_mm", "matmul4bit_plain", "takes_wgmma"]
 
 MODES = ("bf16", "f32")
 _WGMMA_MAX_M = 256
@@ -118,6 +120,7 @@ def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
     take :func:`matmul4bit_plain`."""
     if mode not in MODES:
         raise ValueError(f"matmul4bit_mm: mode must be one of {MODES}")
+    _build.refuse_grad("matmul4bit_mm", x)
     if not x.is_cuda:
         return matmul4bit_plain(x, packed, absmax, book, mode)
     m, kp = x.shape
@@ -167,6 +170,37 @@ def matmul4bit_mm(x: torch.Tensor, packed: torch.Tensor,
 _build.counter(matmul4bit_mm, "launches", "wgmma_launches")
 
 
+def dequant_weight(packed: torch.Tensor, absmax: torch.Tensor,
+                   book: torch.Tensor) -> torch.Tensor:
+    """The f32 weight [N, K_pad] the codes stand for: ``book[code] *
+    absmax[n, k // blocksize]`` (element 2j in the low nibble)."""
+    n, nb = absmax.shape
+    scale = absmax.to(torch.float32).repeat_interleave(
+        packed.shape[1] // nb, dim=1)
+    vlo = book[(packed & 0x0F).long()] * scale
+    vhi = book[(packed >> 4).long()] * scale
+    return torch.stack([vlo, vhi], dim=-1).reshape(n, -1)
+
+
+class Fused4bitFn(torch.autograd.Function):
+    """:func:`matmul4bit_mm` with the JAX package's backward rule
+    (``ops/matmul4bit.py:_make_fused_aligned``): ``d_x = (g in f32) @ W``
+    with W the dequantized f32 weight, cast to x's dtype; the packed codes,
+    absmax and codebook get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, packed, absmax, book, mode):
+        ctx.save_for_backward(packed, absmax, book)
+        ctx.x_dtype = x.dtype
+        return matmul4bit_mm(x, packed, absmax, book, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, absmax, book = ctx.saved_tensors
+        d_x = g.to(torch.float32) @ dequant_weight(packed, absmax, book)
+        return d_x.to(ctx.x_dtype), None, None, None, None
+
+
 def fused_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,
                       quant_state: QuantState, *,
                       mxu_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -194,7 +228,8 @@ def fused_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,
     x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
     if kp != k:
         x = torch.nn.functional.pad(x, (0, kp - k))
-    out = matmul4bit_mm(x.contiguous(), packed_flat.reshape(n, kp // 2),
-                        absmax.contiguous(), _book(st.quant_type, x.device),
-                        mode)
+    args = (x.contiguous(), packed_flat.reshape(n, kp // 2),
+            absmax.contiguous(), _book(st.quant_type, x.device), mode)
+    out = (Fused4bitFn.apply(*args) if _build.records_grad(x)
+           else matmul4bit_mm(*args))
     return out.to(st.dtype)

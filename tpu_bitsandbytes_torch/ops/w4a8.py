@@ -9,8 +9,11 @@ scaled by ``absmax * (1/127)`` in f32, and the row scale multiplies last.
 
 The branch rule is the JAX package's (:func:`takes_w4a8`): where it leaves
 its kernel, ``QLinear4`` goes on to :func:`~tpu_bitsandbytes_torch.functional.matmul_4bit`,
-which gives different numbers (no A8, the exact codebook). Forward only:
-the backward pass comes with the training slice.
+which gives different numbers (no A8, the exact codebook). Gradients
+flow to x through :class:`W4A8Fn`, the JAX package's straight-through
+rule: the A8 quantization stays inside the boundary and d_x is the f32
+cotangent times the weight the kernel decodes (int8 codebook / 127 times
+absmax).
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ import torch
 from ..functional import (NF4_VALUES, QuantState, _pad_k, div_exact,
                           dequantize_blockwise)
 from . import _build
+from .matmul4bit import dequant_weight
 
-__all__ = ["NF4_I8", "takes_w4a8", "quantize_a8", "w4a8_matmul_4bit",
-           "w4a8_mm", "w4a8_mm_plain"]
+__all__ = ["NF4_I8", "W4A8Fn", "takes_w4a8", "quantize_a8",
+           "w4a8_matmul_4bit", "w4a8_mm", "w4a8_mm_plain"]
 
 # round(NF4 * 127) in f32, half to even: exact at the +-1 endpoints, the
 # interior entries within 0.5/127 of the block absmax
@@ -117,6 +121,7 @@ def w4a8_mm(xq: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
     low nibble), absmax f32 [N, nb], s_x f32 [M] -> f32 [M, N]. CUDA
     tensors launch the kernel (counted in ``w4a8_mm.launches``); CPU
     tensors take :func:`w4a8_mm_plain`."""
+    _build.refuse_grad("w4a8_mm", xq, s_x)
     if not xq.is_cuda:
         return w4a8_mm_plain(xq, packed, absmax, s_x)
     m, kp = xq.shape
@@ -170,6 +175,34 @@ def quantize_a8(x: torch.Tensor, k_pad: int
     return xq, s_x[:, 0].contiguous()
 
 
+def _a8_w4a8_mm(x, packed, absmax):
+    """x [M, K] -> f32 [M, N]: :func:`quantize_a8`, then K4."""
+    xq, s_x = quantize_a8(x, packed.shape[1] * 2)
+    return w4a8_mm(xq, packed, absmax, s_x)
+
+
+class W4A8Fn(torch.autograd.Function):
+    """x [M, K] -> f32 [M, N] through :func:`quantize_a8` and
+    :func:`w4a8_mm`, with the JAX package's backward rule
+    (``ops/w4a8.py:_make_w4a8``): ``d_x = (g in f32) @ W`` with W the
+    kernel's weight, ``NF4_I8 / 127`` (an f32 division) times absmax,
+    cast to x's dtype; the codes and absmax get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, packed, absmax):
+        ctx.save_for_backward(packed, absmax)
+        ctx.x_dtype, ctx.k = x.dtype, x.shape[1]
+        return _a8_w4a8_mm(x, packed, absmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, absmax = ctx.saved_tensors
+        w = dequant_weight(packed, absmax,
+                           div_exact(_table(packed.device), 127.0))
+        d_x = g.to(torch.float32) @ w[:, :ctx.k]
+        return d_x.to(ctx.x_dtype), None, None
+
+
 def w4a8_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,
                      quant_state: QuantState, *,
                      bias: Optional[torch.Tensor] = None,
@@ -194,9 +227,9 @@ def w4a8_matmul_4bit(x: torch.Tensor, packed_flat: torch.Tensor,
     if st.state2 is not None:
         absmax = dequantize_blockwise(absmax, st.state2)
     absmax = absmax.reshape(n, kp // st.blocksize).to(torch.float32)
-    xq, s_x = quantize_a8(x, kp)
-    out = w4a8_mm(xq, packed_flat.reshape(n, kp // 2), absmax.contiguous(),
-                  s_x)
+    args = (x, packed_flat.reshape(n, kp // 2), absmax.contiguous())
+    out = (W4A8Fn.apply(*args) if _build.records_grad(x)
+           else _a8_w4a8_mm(*args))
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.to(out_dtype or st.dtype)
