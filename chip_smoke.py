@@ -8,7 +8,8 @@ Phases (any failure raises: traceback, nonzero exit):
   2. kernels: builds every kernel from ``tpu_bitsandbytes_torch/csrc`` and
      holds each against its plain PyTorch version on the card, at the
      shapes the served paths give it (Llama-2-7B for K1/K2, Llama-2-13B
-     for K2/K3/K4/K5) and at odd ones (K2: spans of 128 to 8192 keys, rep
+     for K2/K3/K4/K5, Mixtral-8x7B's five matmul shapes for K4 at M = 1,
+     8, 32, 64 and for K5 at M = 128, 256) and at odd ones (K2: spans of 128 to 8192 keys, rep
      8, a span past the single-block shared memory limit, an all-masked slot
      beside live ones, window + softcap); times kernel (device time, replayed
      from a CUDA graph), plain version, the one PyTorch call that computes
@@ -57,16 +58,16 @@ Phases (any failure raises: traceback, nonzero exit):
      mode's line has graphs captured, capture seconds, the graph pool's
      MiB and peak device memory. Phase 4 also counts the kernels one
      decode-shaped matmul launches besides K1 (the A8 quantization).
-  6. The request API on phase 5's model (``prefill_chunk`` 256): nine
-     requests (phase 5's prompts and a queued 300-token one) with
+  6. The request API on phase 5's model cut to its first 20 layers
+     (``prefill_chunk`` 256): nine requests (phase 5's prompts and a queued 300-token one) with
      repetition penalties, logprobs, a sampled request and a cancel,
      streamed through ``generate_stream`` on a graphed engine (pass A); the
      same prompts all greedy on that engine and on an eager one (pass B:
-     tokens identical, logprobs within 1e-5, 161 K4 + 40 K2 per step of a
+     tokens identical, logprobs within 1e-5, 81 K4 + 20 K2 per step of a
      penalty-and-logprobs chunk by the counters and by its graph's nodes);
-     five of them on a bf16 KV cache (pass C: no K2, 161 K4 per step,
+     five of them on a bf16 KV cache (pass C: no K2, 81 K4 per step,
      served once eager and twice graphed, tokens identical to eager);
-     every 256-token chunk 160 K5 launches on the wgmma kernel and every
+     every 256-token chunk 80 K5 launches on the wgmma kernel and every
      final chunk 1 K4; then the
      1800-token prompt chunked against one bucket-2048 ``prefill_step``
      (K3) in both cache modes. Each pass prints its chunk ms, decode step
@@ -80,10 +81,11 @@ Phases (any failure raises: traceback, nonzero exit):
      ``speculative="ngram"`` (a verify step held at every position
      against decode steps fed the same tokens); the path's launches from
      an eager drive.
-  8. ``runtime_cache="auto"`` on phase 5's model and prompts: "auto" must
+  8. ``runtime_cache="auto"`` on phase 5's model (its first 20 layers) and
+     prompts: "auto" must
      pick the int8 cache (``footprint()``), keep the packed codes, and
      serve graphed and eager, as phases 4-5, with
-     identical tokens, 40 K2 and no K1, K4
+     identical tokens, one K2 per layer and no K1, K4
      or K5 launch per decode step (counters and graph nodes), K3 for the
      1024/2048 buckets; then one graphed serving of the prompts of at
      most 256 tokens through the bf16 cache. Phase 2 times the int8 and
@@ -115,6 +117,28 @@ Phases (any failure raises: traceback, nonzero exit):
      trained tree through ``save_checkpoint``/``load_checkpoint`` (logits
      identical). Each step's line has its time, peak memory and 8-bit
      state bytes beside the card's name and power limit.
+  11. The model families. (a) Mixtral-8x7B at its 32 layers and 8
+     experts (top-2, rope theta 1e6), random packed NF4 weights from a
+     seed, served off the packed bytes (B=8, ``max_seq`` 2048, 16-step
+     chunks, phase 5's prompts, 48 greedy new tokens) graphed and eager
+     as phase 5: tokens identical, 577 K4 + 32 K2 per decode step by the
+     counters and the graph's nodes, K4 for the 32/64 buckets, K5 on its
+     wgmma kernel for 128/256 (2 x 577), K3 for 1024/2048 (2 x 32),
+     ``footprint()`` equal to the allocations. (b) Mixtral at full width,
+     2 layers, one 128-token prompt (K5 at M = 128 in every expert and
+     the lm_head: the prefill's logits are the card's own) and 4 decode
+     steps against the CPU, the card fed the CPU's K4 inputs and experts:
+     routing flips counted with the CPU's top-2 gap (a flip at a gap of
+     1e-2 or more fails), every K4 input but o_proj's (K2's output) and
+     all logits within E2E_TOL, each K2 call against its plain version.
+     (c) Gemma2-9B at full width, 2 layers (layer 0 windowed at 4,096),
+     one 4,400-token prompt through K3 and 16 decode steps through K2 (d
+     = 256, softcap 50, scale 256^-0.5; final softcap 30, tied
+     256,000-row embedding) against the CPU: hidden states and logits
+     within E2E_TOL of its bf16 run, and of its f32 run within E2E_TOL
+     plus the CPU's own bf16-vs-f32 gap; K3's and K2's calls of that run
+     against their plain versions and timed. The CPU references of (b)
+     and (c) run in phase 11 itself, after every timed phase.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -482,6 +506,12 @@ K4_EXTRA = [(1, 5120, 5120, 128), (64, 27648, 5120, 64),
             (8, 15360, 5120, 128), (32, 5120, 13824, 64),
             (3, 256, 512, 16), (33, 5120, 5120, 32), (9, 1000, 4096, 2048)]
 K4_M = (8, 32, 64)   # decode, and the 32/64 prefill buckets
+# (name, N, K) of Mixtral-8x7B's matmuls (fused qkv, each expert's fused
+# gate/up and its down): phase 11's K4 shapes (M = 1 in 11b, 8 in 11a's
+# decode, 32/64 in its prefill buckets) and K5 shapes (M = 128/256)
+MIXTRAL_NK = [("qkv", 6144, 4096), ("o", 4096, 4096),
+              ("gateup", 28672, 4096), ("down", 4096, 14336),
+              ("lm_head", 32000, 4096)]
 
 
 def packed_inputs(n, k, bs, gen, dev, copies=1):
@@ -504,7 +534,10 @@ def phase_kernels_k4(K4, gen, dev, bw, int8_peak):
         return xq, torch.rand((m,), generator=gen, device=dev) * 0.05 + 1e-3
 
     worst = [0.0, 0.0]
-    for m, n, k, bs in K4_EXTRA + [(8, n, k, 64) for _, n, k, _ in K4_DECODE]:
+    for m, n, k, bs in (K4_EXTRA
+                        + [(8, n, k, 64) for _, n, k, _ in K4_DECODE]
+                        + [(m, n, k, 64) for m in (1,) + K4_M
+                           for _, n, k in MIXTRAL_NK]):
         xq, s_x = inputs(m, k)
         ((w, am),) = packed_inputs(n, k, bs, gen, dev)
         got = K4.w4a8_mm(xq, w, am, s_x)
@@ -577,6 +610,8 @@ def phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak):
     shapes13 = [(n, k) for _, n, k, _ in K4_DECODE]
     cases = ([(m, n, k, 64, "nf4", "bf16") for m in (65, 128, 256)
               for n, k in shapes13]
+             + [(m, n, k, 64, "nf4", "bf16") for m in (128, 256)
+                for _, n, k in MIXTRAL_NK]
              + [(128, 1000, 4032, 64, qt, mode) for qt in ("nf4", "fp4")
                 for mode in ("bf16", "f32")]
              + [(65, 5120, 5120, 64, "nf4", "f32"),
@@ -846,7 +881,9 @@ def random_params(cfg, rand_bytes, rand_unit, rand_normal, device,
     """Llama params with random packed NF4 weights (blocksize 64, absmax
     U*0.03+0.005) in the fused qkv/gateup layout (or, with ``fused``
     False, the seven projections apart), unit norms, a normal(0, 0.02)
-    embedding."""
+    embedding. A MoE config (``num_experts`` > 0) gets each expert's
+    fused gate/up and down in place of the MLP, and a normal(0, 0.02)
+    router in ``cfg.dtype``."""
     from tpu_bitsandbytes_torch.models.layers import QLinear4
     h, hd = cfg.hidden_size, cfg.hd
     n_q, n_kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -866,9 +903,17 @@ def random_params(cfg, rand_bytes, rand_unit, rand_normal, device,
     def ones():
         return torch.ones((h,), dtype=cfg.dtype, device=device)
 
+    mlp = ("gateup_proj", "down_proj")
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {name: qlinear(*shape) for name, shape in shapes.items()}
+        layer = {name: qlinear(*shape) for name, shape in shapes.items()
+                 if not (cfg.num_experts and name in mlp)}
+        if cfg.num_experts:
+            layer["moe"] = {
+                "router": (rand_normal((cfg.num_experts, h)) * 0.02).to(
+                    cfg.dtype),
+                "experts": [{n: qlinear(*shapes[n]) for n in mlp}
+                            for _ in range(cfg.num_experts)]}
         layer["input_norm"], layer["post_attn_norm"] = ones(), ones()
         layers.append(layer)
     return {"embed": (rand_normal((cfg.vocab_size, h)) * 0.02).to(cfg.dtype),
@@ -880,23 +925,46 @@ def random_params(cfg, rand_bytes, rand_unit, rand_normal, device,
 # phase 3: full width, card against CPU
 # ---------------------------------------------------------------------------
 
-def run_prefill_decode(params, cfg, device, prompts, forced, max_seq=256):
-    """Prefill each prompt into its slot, then a staged chunk of decode
-    steps fed ``forced`` tokens (or greedy ones when None). Returns the
-    prefill logits, the decode-step logits and the tokens fed."""
+def run_prefill_decode(params, cfg, device, prompts, forced, max_seq=256,
+                       n_steps=8, hidden=None):
+    """Prefill each prompt into its slot of an int8 cache, then a staged
+    chunk of ``n_steps`` decode steps fed ``forced`` tokens (or greedy ones
+    when None). Returns the prefill's last-token logits [slots, V], the
+    decode steps' logits [n_steps, slots, V] and the tokens fed, all on
+    the CPU.
+
+    The prefill is the engine's ``prefill_step`` (the prompt padded to its
+    bucket, the head on every position) unless ``hidden`` is a list: then
+    each prompt runs layer by layer at its own length, its hidden states
+    after the last layer ([S, H] f32 on the CPU) are appended to
+    ``hidden``, and the head runs on its last token only (Gemma2's
+    256,000-row head over 4,400 positions would take 4.5 GB of logits)."""
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.engine.kvcache import KVCache
-    n_steps = 8
+    from tpu_bitsandbytes_torch.models import llama as L
     cache = KVCache.create(cfg.num_layers, len(prompts), max_seq,
-                           cfg.num_kv_heads, cfg.hd, device=device)
+                           cfg.num_kv_heads, cfg.hd, dtype=cfg.dtype,
+                           device=device)
     pre = []
     for slot, pr in enumerate(prompts):
-        padded = torch.zeros((1, E._bucket(len(pr), max_seq)),
-                             dtype=torch.int32)
-        padded[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
-        logits, cache = E.prefill_step(params, cache, padded.to(device), slot,
-                                       len(pr), cfg)
-        pre.append(logits.cpu())
+        if hidden is None:
+            padded = torch.zeros((1, E._bucket(len(pr), max_seq)),
+                                 dtype=torch.int32)
+            padded[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
+            logits, cache = E.prefill_step(params, cache, padded.to(device),
+                                           slot, len(pr), cfg)
+            pre.append(logits.cpu())
+            continue
+        tok = torch.tensor([pr], dtype=torch.int32, device=device)
+        cos, sin = (t[None, :len(pr)] for t in L._rope(cfg, device))
+        x = L._embed_tokens(params, tok, cfg)
+        for li, layer in enumerate(params["layers"]):
+            x, (k, v) = L._layer(layer, x, cos, sin, cfg, li)
+            cache.write_prefill(li, slot, k[0], v[0])
+        cache.lengths[slot] = len(pr)
+        hidden.append(x[0].float().cpu())
+        xl = L._norm(x[:, -1:], params["final_norm"], cfg)
+        pre.append(L.head_logits(params, xl, cfg)[0, 0].float().cpu())
     toks = torch.stack(pre).argmax(-1).to(torch.int32)
     active = torch.ones((len(prompts),), dtype=torch.bool, device=device)
     span = E._span_bucket(max(map(len, prompts)) + n_steps, max_seq)
@@ -907,7 +975,7 @@ def run_prefill_decode(params, cfg, device, prompts, forced, max_seq=256):
         fed.append(t_in)
         logits, cache = E.decode_step(params, cache, t_in.to(device), active,
                                       cfg, attn_span=span)
-        steps.append(logits.cpu())
+        steps.append(logits.float().cpu())
         toks = logits.argmax(-1).to(torch.int32).cpu()
     cache.flush_stage()
     return torch.stack(pre), torch.stack(steps), fed
@@ -1005,32 +1073,46 @@ def phase_full_width(dev):
           "logit_rel_err_by_slot": worst, "tol": E2E_TOL, "cpu_s": cpu_s})
 
 
-def normal_nf4_params(cfg, rng, dev):
-    """Llama params from normal(0, 0.02) weights drawn from the numpy
-    generator ``rng`` and quantized to NF4 (blocksize 64) on ``dev``, in the
-    fused qkv/gateup layout; unit norms."""
-    from tpu_bitsandbytes_torch.models.layers import QLinear4
-    h = cfg.hidden_size
+def numpy_normal(rng, dev):
+    """``normal(shape)``: standard normal f32 tensors on ``dev`` drawn from
+    the numpy generator ``rng``."""
+    return lambda shape: torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
-    def normal(shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32) * 0.02).to(dev)
+
+def normal_nf4_params(cfg, normal, dev):
+    """Llama params from normal(0, 0.02) weights (``normal(shape)``: standard
+    normal f32 tensors on ``dev``) quantized to NF4 (blocksize 64) on
+    ``dev``, in the fused qkv/gateup layout; unit norms. A MoE config
+    (``num_experts`` > 0) gets each expert's fused gate/up and its down in
+    place of the MLP, and a normal(0, 0.02) router in ``cfg.dtype``."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    h, i = cfg.hidden_size, cfg.intermediate_size
 
     def qlinear(n, k):
-        return QLinear4.quantize(normal((n, k)), blocksize=64,
+        return QLinear4.quantize(normal((n, k)) * 0.02, blocksize=64,
                                  dtype=cfg.dtype)
 
     def ones():
         return torch.ones((h,), dtype=cfg.dtype, device=dev)
 
-    n_qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.hd
-    layers = [{"qkv_proj": qlinear(n_qkv, h),
-               "o_proj": qlinear(h, cfg.num_heads * cfg.hd),
-               "gateup_proj": qlinear(2 * cfg.intermediate_size, h),
-               "down_proj": qlinear(h, cfg.intermediate_size),
-               "input_norm": ones(), "post_attn_norm": ones()}
-              for _ in range(cfg.num_layers)]
-    return {"embed": normal((cfg.vocab_size, h)).to(cfg.dtype),
+    def mlp():
+        return {"gateup_proj": qlinear(2 * i, h), "down_proj": qlinear(h, i)}
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {"qkv_proj": qlinear((cfg.num_heads + 2 * cfg.num_kv_heads)
+                                     * cfg.hd, h),
+                 "o_proj": qlinear(h, cfg.num_heads * cfg.hd)}
+        if cfg.num_experts:
+            layer["moe"] = {
+                "router": (normal((cfg.num_experts, h)) * 0.02).to(cfg.dtype),
+                "experts": [mlp() for _ in range(cfg.num_experts)]}
+        else:
+            layer.update(mlp())
+        layer["input_norm"], layer["post_attn_norm"] = ones(), ones()
+        layers.append(layer)
+    return {"embed": (normal((cfg.vocab_size, h)) * 0.02).to(cfg.dtype),
             "layers": layers, "final_norm": ones(),
             "lm_head": qlinear(cfg.vocab_size, h)}
 
@@ -1092,7 +1174,7 @@ def phase_full_width_packed(dev, counters):
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig, to_device
     cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
     rng = np.random.default_rng(2468)
-    params = normal_nf4_params(cfg, rng, dev)
+    params = normal_nf4_params(cfg, numpy_normal(rng, dev), dev)
     cpu_params = to_device(params, "cpu")
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (40, 100, 1000)]
@@ -1716,6 +1798,16 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak, workload):
 # ---------------------------------------------------------------------------
 
 CHUNK = 256         # phase 6's prefill_chunk: K5 at M = 256
+REQUESTS_LAYERS = 20    # phases 6 and 8 serve the first 20 of phase 5's
+#                         layers (the script's time; the paths are 5's)
+
+
+def cut_depth(workload, layers):
+    """A workload (cfg, params, prompts, sampling, engine keywords) cut to
+    its first ``layers`` layers: the same weights, embedding and head."""
+    cfg, params, *rest = workload
+    return (dataclasses.replace(cfg, num_layers=layers),
+            dict(params, layers=params["layers"][:layers]), *rest)
 
 
 def run_chunks(params, cfg, device, prompt, *, quantized=True, cache=None):
@@ -1751,7 +1843,8 @@ def phase_chunked_prefill(dev, counters):
     3b); the card's own-codes gap is printed beside it."""
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig, to_device
     cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
-    params = normal_nf4_params(cfg, np.random.default_rng(2468), dev)
+    params = normal_nf4_params(
+        cfg, numpy_normal(np.random.default_rng(2468), dev), dev)
     cpu_params = to_device(params, "cpu")
     prompt = np.random.default_rng(2469).integers(1, cfg.vocab_size,
                                                   600).tolist()
@@ -1950,21 +2043,23 @@ def serve_stream(engine, mode, prompts, sps, counters, plains, cancel=None,
 
 def chunk_launches(engine, key, counters):
     """Launches per decode step of one more chunk of ``key`` (span,
-    n_steps, all_greedy, penalty, want_logprobs) from every slot's current
-    position: by the counters (eager: each wrapper's own; graphed: the
-    replay's), and, graphed, by the kernel nodes of the key's graph."""
-    span, n, greedy, penalty, want_lp = key
+    n_steps, all_greedy, penalty, want_logprobs, attn_start) from every
+    slot's current position: by the counters (eager: each wrapper's own;
+    graphed: the replay's), and, graphed, by the kernel nodes of the key's
+    graph."""
+    span, n, greedy, penalty, want_lp, a_start = key
     b, vocab = engine.max_batch, engine.config.vocab_size
     before = counts(counters)
     engine.run_chunk(np.ones((b,), np.int32), np.ones((b,), bool),
                      all_greedy=greedy, attn_span=span,
                      seen=np.zeros((b, vocab), bool) if penalty else None,
-                     want_logprobs=want_lp)
+                     want_logprobs=want_lp, attn_start=a_start)
     torch.cuda.synchronize()
     got = {"counters": {k: (c - before[k]) / n
                         for k, c in counts(counters).items()}}
     if engine.graph_keys():
-        names = engine.graph_kernel_names(span, greedy, penalty, want_lp)
+        names = engine.graph_kernel_names(span, greedy, penalty, want_lp,
+                                          a_start)
         got["graph_nodes"] = {
             k: sum(c for nm, c in names.items() if re.search(rx, nm)) / n
             for k, rx in KERNEL_RE.items()}
@@ -1994,8 +2089,9 @@ def request_line(res):
 
 
 def phase_requests(dev, counters, plains, workload):
-    """6: the request API at Llama-2-13B width (40 layers, phase 5's model
-    off the packed bytes), B=8, max_seq 2048, 32-step chunks,
+    """6: the request API at Llama-2-13B width (phase 5's model off the
+    packed bytes, cut to ``REQUESTS_LAYERS`` layers by the caller; the
+    counts below are at 40), B=8, max_seq 2048, 32-step chunks,
     ``prefill_chunk`` 256, nine requests: phase 5's eight prompts and a
     300-token one, queued until request 6's slot frees. Pass A (graphed,
     through ``generate_stream``): greedy, penalties, logprobs, a sampled
@@ -2060,7 +2156,7 @@ def phase_requests(dev, counters, plains, workload):
             engine = new_engine(dev, params, cfg, kw, mode)
         res = serve_stream(engine, mode, prompts, sps_b, counters, plains)
         keys = [k for k in res["graph_keys"] if k[3] and k[4]]
-        key = keys[0] if keys else (256, 32, True, True, True)
+        key = keys[0] if keys else (256, 32, True, True, True, 0)
         steps_b[mode] = chunk_launches(engine, key, counters)
         if any(c != per_step for c in steps_b[mode].values()):
             raise AssertionError(f"pass B {mode}: launches per step of a "
@@ -2118,7 +2214,8 @@ def phase_requests(dev, counters, plains, workload):
                        for i in range(2 if mode == "graphed" else 1)]
         lengths = engine.cache.lengths.clone()
         span = E._span_bucket(int(lengths.max()) + 32, 2048)
-        steps_c[mode] = chunk_launches(engine, (span, 32, True, False, False),
+        steps_c[mode] = chunk_launches(engine,
+                                       (span, 32, True, False, False, 0),
                                        counters)
         if any(c != per_step_c for c in steps_c[mode].values()):
             raise AssertionError(f"pass C {mode}: launches per step "
@@ -3217,6 +3314,452 @@ def phase_qlora(dev, counters, plains, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the model families (Mixtral-8x7B, Gemma2-9B)
+# ---------------------------------------------------------------------------
+
+MIXTRAL_NEW = 48    # 11a: greedy tokens per request
+# 11a's decode chunk: 16 steps, about 100k kernel nodes a graph (a 32-step
+# chunk's capture took 16.5 s and each step breakdown's profile 20-29 s)
+MIXTRAL_CHUNK = 16
+MOE_PROMPT = 128    # 11b: one prompt (K5 at M = 128 in every expert) ...
+MOE_STEPS = 4       # ... and decode steps (K4 at M = 1)
+# 11b: a token whose routing differs between card and CPU is a near tie
+# where the CPU's k-th and (k+1)-th probabilities are closer than this
+# (chosen before any run: one bf16 ulp of a router input moves its f32
+# logits by about 4e-3 of their size, so a probability gap below 1e-2 can
+# flip); a flip at a wider gap fails the phase
+MOE_TIE_GAP = 1e-2
+GEMMA2_PROMPT = 4400    # 11c: past the 4,096 window, inside K3's 5,632
+GEMMA2_STEPS = 16
+GEMMA2_MAX_SEQ = 4608
+
+
+@contextlib.contextmanager
+def routing_record(out, feed=None):
+    """Collects (experts [.., k], probs [.., E]) of every MoE router call,
+    on the CPU, in call order. ``feed``: another run's record, whose
+    experts this run takes call by call, each weighted by this run's own
+    probabilities (renormalized where the config says), as the K4 inputs
+    are fed (:func:`k4_inputs`); what is recorded is this run's own
+    choice."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    orig = L.moe_routing
+
+    def tap(router, x, config):
+        top, topv, probs = orig(router, x, config)
+        out.append((top.cpu(), probs.cpu()))
+        if feed is not None:
+            top = feed[len(out) - 1][0].to(probs.device)
+            topv = probs.gather(-1, top)
+            if config.moe_norm_topk:
+                topv = topv / topv.sum(dim=-1, keepdim=True)
+        return top, topv, probs
+
+    L.moe_routing = tap
+    try:
+        yield out
+    finally:
+        L.moe_routing = orig
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name, calls):
+    """Appends the (args, kwargs) of every call of ``module.name`` to
+    ``calls`` while it is open."""
+    orig = getattr(module, name)
+
+    def tap(*a, **kw):
+        calls.append((a, dict(kw)))
+        return orig(*a, **kw)
+
+    setattr(module, name, tap)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def k2_against_plain(K2, a, kw, what):
+    """Replays one recorded K2 call (``flash_decode_attention(*a, **kw)``)
+    and its plain version on the same inputs; returns the rel err, and
+    raises past K2_TOL."""
+    q, kq, ks, vq, vs, off = a
+    kw = dict(kw)
+    st = kw.pop("staged")
+    got = K2.flash_decode_attention(q, kq, ks, vq, vs, off, staged=st, **kw)
+    # the wrapper's defaults, which the plain version takes explicitly
+    plain_kw = {"window": None, "kpos_start": 0, "softcap": None, **kw}
+    if plain_kw.get("scale") is None:
+        plain_kw["scale"] = 1.0 / q.shape[-1] ** 0.5
+    ref = K2.flash_decode_plain(q, kq, ks, vq, vs, off, *st, **plain_kw)
+    torch.cuda.synchronize()
+    r = err(got, ref)[1]
+    if not (r <= K2_TOL and torch.isfinite(got).all()):
+        raise AssertionError(f"{what} K2 {kw}: rel err {r}")
+    return r
+
+
+def mixtral_workload(dev):
+    """11a: (cfg, params, prompts, sampling, engine keywords) for
+    Mixtral-8x7B at its 32 layers and 8 experts, random packed NF4 weights
+    drawn on the card from a seed, served off the packed bytes at B=8,
+    ``max_seq`` 2048, 16-step chunks, phase 5's prompt lengths."""
+    from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.mixtral_8x7b()
+    gen = torch.Generator(device=dev).manual_seed(87)
+    params = random_params(
+        cfg,
+        lambda s: torch.randint(0, 256, s, generator=gen, device=dev,
+                                dtype=torch.uint8),
+        lambda s: torch.rand(s, generator=gen, device=dev),
+        lambda s: torch.randn(s, generator=gen, device=dev), dev)
+    rng = np.random.default_rng(88)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in PACKED_PROMPTS]
+    kw = dict(max_batch=8, max_seq=2048, steps_per_sync=MIXTRAL_CHUNK,
+              runtime_cache=None)
+    return cfg, params, prompts, SamplingParams(
+        max_new_tokens=MIXTRAL_NEW), kw
+
+
+def phase_mixtral(dev, counters, plains):
+    """11a: Mixtral-8x7B served off the packed bytes (16-step chunks),
+    graphed and eager
+    (:func:`serve_mode`): 577 K4 (32 x (qkv + o + 8 x (gate/up + down)) +
+    lm_head) and 32 K2 per decode step by the counters and the graph's
+    nodes; K4 for the 32/64 buckets, K5 on its wgmma kernel for 128/256
+    (2 x 577 launches), K3 for 1024/2048 (2 x 32); tokens identical
+    between the modes; ``footprint()`` against the allocations. Returns
+    the eager pass's launches."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    cfg, params, prompts, sp, kw = mixtral_workload(dev)
+    per_step = cfg.num_layers * (2 + 2 * cfg.num_experts) + 1
+    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": per_step,
+            "K5_matmul4bit": 0}
+    results, fp = {}, None
+    for mode in MODES:
+        res, engine = serve_mode(dev, params, cfg, kw, mode, prompts, sp,
+                                 counters, plains, want,
+                                 lambda: timed_prefills(counters))
+        last = res["passes"][-1]
+        launches = last["launches"]
+        groups = sorted(last["extra"], key=lambda g: g["bucket"])
+        if [g["bucket"] for g in groups] != [32, 64, 128, 256, 1024, 2048]:
+            raise AssertionError(f"mixtral {mode}: admission groups {groups}")
+        last["extra"] = groups
+        if not (launches["K5_matmul4bit"] == last["wgmma_launches"]
+                == 2 * per_step):
+            raise AssertionError(f"mixtral {mode}: K5 launches {launches} "
+                                 f"({last['wgmma_launches']} wgmma), "
+                                 f"expected {2 * per_step} on the wgmma "
+                                 "kernel")
+        if (launches["K3_flash_prefill"] != 2 * cfg.num_layers
+                or launches["K1_int4_matmul"]
+                or launches["K2_flash_decode"]
+                != cfg.num_layers * last["decode_steps"]):
+            raise AssertionError(f"mixtral {mode}: launches {launches} for "
+                                 f"{last['decode_steps']} decode steps")
+        if mode == "graphed":
+            fp = engine.footprint()
+            c = engine.cache
+            want_fp = {"params": tensor_bytes(engine.params),
+                       "kv": sum(t.numel() * t.element_size()
+                                 for t in (c.k, c.v, c.k_scale, c.v_scale))}
+            got_fp = {"params": fp["packed"] + fp["exec_cache"] + fp["fp"],
+                      "kv": fp["kv"]}
+            if got_fp != want_fp or not fp["fits"]:
+                raise AssertionError(f"mixtral footprint {fp}: {got_fp} "
+                                     f"against the allocations {want_fp}")
+            del c
+        results[mode] = res
+        del engine
+        free_memory()
+    serve_lines("mixtral_8x7b", results, {
+        "runtime_cache": None, "layers": cfg.num_layers,
+        "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+        "batch": 8, "max_seq": 2048, "steps_per_sync": MIXTRAL_CHUNK,
+        "prompt_lens": PACKED_PROMPTS, "new_tokens": MIXTRAL_NEW,
+        "k4_per_step": per_step, "footprint": fp,
+        "param_bytes": tensor_bytes(params)})
+    del params
+    free_memory()
+    return results["eager"]["passes"][-1]["launches"]
+
+
+def phase_mixtral_2l(dev, counters, plains, K2):
+    """11b: Mixtral-8x7B at full width, 2 layers (normal weights quantized
+    to NF4 on the card, copied to the CPU), one 128-token prompt and 4
+    decode steps on the CPU (plain versions), then on the card.
+
+    The prefill is the engine's ``prefill_step`` at bucket 128: every
+    matmul, the lm_head's too, runs K5 at M = 128 on the card, so the
+    prefill's logits are the card's own (every expert, the expert-weighted
+    sums, the attention) and must be within E2E_TOL of the CPU's. In the
+    decode steps K4 quantizes its activations to int8 per row, where one
+    bf16 ulp at a row's largest element rescales every code, so the card
+    is fed the CPU's activation at every K4 call, and each K4 input as the
+    card computed it from the layers before is held to the fed one at
+    E2E_TOL: the qkv and expert inputs (the residual stream after the
+    attention and the expert-weighted sums), the expert down inputs and
+    the lm_head's (the final hidden state, normed). The o_proj inputs,
+    K2's outputs, are reported, not gated: K2's int8 q and p codes move by
+    one where the prefill's bf16 K/V differ by an ulp (up to 3.74e-2 of
+    max on an H100 at 700 W, with every other input within 6e-3); each of
+    the run's K2 calls is held against K2's plain version on its own
+    inputs instead (K2_TOL). Every decode step's logits must be within
+    E2E_TOL.
+
+    The card also takes the CPU's experts for every token and layer, each
+    weighted by the card's own probabilities, so that a near tie in the
+    router, where one bf16 ulp of input picks another expert, does not
+    carry into every later token. Each side's own choice is recorded for
+    every token and layer: a token whose top-k differs is a flip, allowed
+    only where the CPU's k-th vs (k+1)-th probability gap is below
+    ``MOE_TIE_GAP``."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    cfg = dataclasses.replace(L.LlamaConfig.mixtral_8x7b(), num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(811)
+    params = normal_nf4_params(
+        cfg, lambda shape: torch.randn(shape, generator=gen, device=dev), dev)
+    cpu_params = L.to_device(params, "cpu")
+    prompt = np.random.default_rng(812).integers(1, cfg.vocab_size,
+                                                 MOE_PROMPT).tolist()
+    t0 = time.perf_counter()
+    cpu_x, cpu_routes = [], []
+    with k4_inputs(record=cpu_x), routing_record(cpu_routes):
+        ref_pre, ref_steps, fed = run_prefill_decode(
+            cpu_params, cfg, "cpu", [prompt], None, n_steps=MOE_STEPS)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    routes, k2_calls = [], []
+    reset(counters, plains)
+    with k4_inputs(feed=cpu_x) as notes, \
+            routing_record(routes, feed=cpu_routes), \
+            recorded_calls(L, "flash_decode_attention", k2_calls):
+        got_pre, got_steps, _ = run_prefill_decode(
+            params, cfg, dev, [prompt], fed, n_steps=MOE_STEPS)
+    torch.cuda.synchronize()
+    launches = counts(counters)
+    no_plain_calls(plains, "mixtral 2 layers")
+    per_layer = 2 + 2 * cfg.num_experts
+    want = {"K1_int4_matmul": 0, "K3_flash_prefill": 0,
+            "K2_flash_decode": MOE_STEPS * cfg.num_layers,
+            "K4_w4a8_matmul": MOE_STEPS * (cfg.num_layers * per_layer + 1),
+            "K5_matmul4bit": cfg.num_layers * per_layer + 1}
+    if launches != want or len(notes) != len(cpu_x):
+        raise AssertionError(f"mixtral 2 layers: launches {launches}, "
+                             f"expected {want}; {len(notes)} K4 calls fed "
+                             f"of {len(cpu_x)}")
+    k2_err = max(k2_against_plain(K2, a, kw, "mixtral 2 layers")
+                 for a, kw in k2_calls)
+    reset(counters, plains)     # the comparisons' launches are not the path's
+    del k2_calls
+    o_shape = (cfg.hidden_size, cfg.num_heads * cfg.hd)
+    calls = [{"call": i, "shape": list(n["shape"]), "m": n["m"],
+              "rel_err": n["rel_err"], "codes_differ": n["codes_differ"],
+              "gated": tuple(n["shape"]) != o_shape}
+             for i, n in enumerate(notes)]
+    gated = [c for c in calls if c["gated"]]
+    worst_gated = max(c["rel_err"] for c in gated)
+    worst_o = max((c["rel_err"] for c in calls if not c["gated"]),
+                  default=None)
+    if len(routes) != len(cpu_routes):
+        raise AssertionError("mixtral 2 layers: router calls differ")
+    k = cfg.experts_per_token
+    flips, tokens = [], 0
+    for call, ((top_c, _), (top_r, probs_r)) in enumerate(
+            zip(routes, cpu_routes)):
+        same = (top_c.sort(-1).values == top_r.sort(-1).values).all(-1)
+        srt = probs_r.sort(-1, descending=True).values
+        gap = srt[..., k - 1] - srt[..., k]
+        tokens += same.numel()
+        # call order: layer 0 and 1 of the prefill, then of each step
+        step = 0 if call < cfg.num_layers else 1 + (call - cfg.num_layers) \
+            // cfg.num_layers
+        for g in gap[~same].tolist():
+            flips.append({"step": step, "layer": call % cfg.num_layers,
+                          "cpu_gap": g})
+    wide = [f for f in flips if f["cpu_gap"] >= MOE_TIE_GAP]
+    got = torch.cat([got_pre, got_steps[:, 0]])
+    ref = torch.cat([ref_pre, ref_steps[:, 0]])
+    rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+    emit({"phase": "families", "part": "11b", "model": "mixtral_8x7b",
+          "layers": cfg.num_layers, "prompt_len": MOE_PROMPT,
+          "decode_steps": MOE_STEPS, "launches": launches,
+          "k4_inputs_fed": len(notes), "k4_inputs_gated": len(gated),
+          "k4_input_worst_rel_err_gated": worst_gated,
+          "k4_input_worst_rel_err_o_proj": worst_o,
+          "k4_input_worst_calls": sorted(calls,
+                                         key=lambda c: -c["rel_err"])[:6],
+          "k2_worst_rel_err_vs_plain": k2_err, "k2_tol": K2_TOL,
+          "routing_tokens_x_layers": tokens, "routing_flips": flips,
+          "tie_gap": MOE_TIE_GAP,
+          "logit_rel_err_prefill_then_steps": rel.tolist(),
+          "tol": E2E_TOL, "cpu_s": cpu_s})
+    if wide:
+        raise AssertionError(f"mixtral 2 layers: routing differs where the "
+                             f"CPU's top-{k} gap is clear: {wide}")
+    if not worst_gated <= E2E_TOL:
+        raise AssertionError(f"mixtral 2 layers: K4 inputs card vs CPU "
+                             f"{[c for c in gated if c['rel_err'] > E2E_TOL]}"
+                             f" (tol {E2E_TOL})")
+    if not (rel <= E2E_TOL).all() or not torch.isfinite(got).all():
+        raise AssertionError(f"mixtral 2 layers: logits rel err "
+                             f"{rel.tolist()} (tol {E2E_TOL})")
+    del params
+    free_memory()
+    return launches
+
+
+def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3):
+    """11c: Gemma2-9B at full width, 2 layers (layer 0 windowed at 4,096,
+    layer 1 global; bf16, unquantized weights drawn on the card from a
+    seed, copied to the CPU), one 4,400-token prompt through K3 (d = 256,
+    the window on layer 0, softcap 50, scale 256^-0.5) and 16 staged
+    decode steps through K2 with the same arguments, fed the CPU's greedy
+    tokens; the final softcap 30 and the tied 256,000-row embedding.
+    Against the CPU: the prefill's hidden states and every step's logits
+    within E2E_TOL of max|ref| of the CPU's bf16 run (the same arithmetic
+    but for the kernels' sum orders), and of its f32 run within E2E_TOL
+    plus the CPU's own bf16-vs-f32 gap on the same tensor (the triangle
+    bound: bf16 alone is 1.5-6e-2 from f32 at this width, the CPU's run as
+    the card's, on an H100 at 700 W). Then K3's and K2's calls of this
+    run, each layer's, against their plain versions on the same inputs
+    (K3 1e-2 of each row's max, K2 1e-3), timed beside their bounds (and
+    K3 beside SDPA, which takes no window or softcap: null)."""
+    from tpu_bitsandbytes_torch.models import layers as LY
+    from tpu_bitsandbytes_torch.models import llama as L
+    cfg = dataclasses.replace(L.LlamaConfig.gemma2_9b(), num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(813)
+    params = L.init_params(cfg, generator=gen, device=dev)
+    cpu_params = L.to_device(params, "cpu")
+    prompt = np.random.default_rng(814).integers(1, cfg.vocab_size,
+                                                 GEMMA2_PROMPT).tolist()
+    t0 = time.perf_counter()
+    f32_hidden, bf16_hidden, hidden = [], [], []
+    ref32 = run_prefill_decode(
+        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
+        "cpu", [prompt], None, GEMMA2_MAX_SEQ, GEMMA2_STEPS, f32_hidden)
+    fed = ref32[2]
+    ref16 = run_prefill_decode(cpu_params, cfg, "cpu", [prompt], fed,
+                               GEMMA2_MAX_SEQ, GEMMA2_STEPS, bf16_hidden)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    k2_calls, k3_calls = [], []
+    reset(counters, plains)
+    with recorded_calls(L, "flash_decode_attention", k2_calls), \
+            recorded_calls(LY, "flash_prefill_attention", k3_calls):
+        got = run_prefill_decode(params, cfg, dev, [prompt], fed,
+                                 GEMMA2_MAX_SEQ, GEMMA2_STEPS, hidden)
+    torch.cuda.synchronize()
+    launches = counts(counters)
+    no_plain_calls(plains, "gemma2")
+    want = {"K1_int4_matmul": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0,
+            "K3_flash_prefill": cfg.num_layers,
+            "K2_flash_decode": GEMMA2_STEPS * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"gemma2: launches {launches}, expected {want}")
+    del k2_calls[cfg.num_layers:]   # the first step's calls, one a layer
+
+    def rows(a, b):
+        return ((a - b).abs().amax(-1) / b.abs().amax(-1)).tolist()
+
+    got, ref32, ref16 = (torch.cat([pre, steps[:, 0]])
+                         for pre, steps, _ in (got, ref32, ref16))
+    gaps = {  # card vs the CPU in bf16 and in f32; the CPU's own gap
+        "card_bf16": {"hidden": err(hidden[0], bf16_hidden[0])[1],
+                      "logits": rows(got, ref16)},
+        "card_f32": {"hidden": err(hidden[0], f32_hidden[0])[1],
+                     "logits": rows(got, ref32)},
+        "cpu_bf16_f32": {"hidden": err(bf16_hidden[0], f32_hidden[0])[1],
+                         "logits": rows(ref16, ref32)}}
+    # |card - f32| <= |card - bf16| + |bf16 - f32|: the first is gated at
+    # E2E_TOL, the second is the CPU's own bf16-vs-f32 gap
+    tol_f32 = {"hidden": E2E_TOL + gaps["cpu_bf16_f32"]["hidden"],
+               "logits": [E2E_TOL + g
+                          for g in gaps["cpu_bf16_f32"]["logits"]]}
+    ok = (gaps["card_bf16"]["hidden"] <= E2E_TOL
+          and max(gaps["card_bf16"]["logits"]) <= E2E_TOL
+          and gaps["card_f32"]["hidden"] <= tol_f32["hidden"]
+          and all(g <= t for g, t in zip(gaps["card_f32"]["logits"],
+                                         tol_f32["logits"]))
+          and torch.isfinite(got).all()
+          and got.abs().max() <= cfg.final_logit_softcap)
+    if not ok:
+        raise AssertionError(f"gemma2: card vs CPU {gaps} (tol {E2E_TOL}; "
+                             f"against f32 {tol_f32})")
+    windows = [L._layer_window(cfg, li) for li in range(cfg.num_layers)]
+    seen = {name: [kw.get("window") for _, kw in calls]
+            for name, calls in (("K2", k2_calls), ("K3", k3_calls))}
+    if windows != [cfg.sliding_window, None] or any(
+            w != windows for w in seen.values()):
+        raise AssertionError(f"gemma2: windows {windows}, by call {seen}")
+    # K3 and K2 at exactly these calls' arguments against the plain versions
+    kern_rows = {"K3": [], "K2": []}
+    s = GEMMA2_PROMPT
+    for (q, k, v), kw in k3_calls:
+        got3 = K3.flash_prefill_attention(q, k, v, **kw)
+        ref3 = K3.flash_prefill_plain(q, k, v, block_k=K3.KEY_TILE[256],
+                                      **kw)
+        torch.cuda.synchronize()
+        rr = row_err(got3[:, :s], ref3[:, :s])
+        if not (rr <= K3_TOL and torch.isfinite(got3[:, :s]).all()):
+            raise AssertionError(f"gemma2 K3 {kw}: rel err {rr} of a row's "
+                                 "max")
+        b, sp, h, d = q.shape
+        bound, by = k3_bound(b, sp, h, k.shape[2], d, s, kw["window"], bw,
+                             bf16_peak, K3)
+        kern_rows["K3"].append({
+            "window": kw["window"], "softcap": kw["softcap"],
+            "scale": kw["scale"], "shape": f"B={b} S={sp} H={h} "
+            f"H_kv={k.shape[2]} D={d} s_real={s}", "max_row_rel_err": rr,
+            "ms": time_graph_ms([lambda: K3.flash_prefill_attention(
+                q, k, v, **kw)], iters=5),
+            "plain_ms": time_ms([lambda: K3.flash_prefill_plain(
+                q, k, v, block_k=K3.KEY_TILE[256], **kw)], iters=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+    for a, kw in k2_calls:
+        r = k2_against_plain(K2, a, kw, "gemma2")
+        q, kq, ks, vq, vs, off = a
+        kw = dict(kw)
+        st = kw.pop("staged")
+        step = st[4]
+        kept = k2_kept_keys(off, step, kq.shape[2], st[0].shape[2])
+        if kw["window"] is not None:
+            kept = min(kept, q.shape[0] * kw["window"])
+        kern_rows["K2"].append({
+            "window": kw["window"], "softcap": kw["softcap"],
+            "scale": kw["scale"], "kpos_start": kw["kpos_start"],
+            "shape": f"B={q.shape[0]} H={q.shape[1]} H_kv={kq.shape[1]} "
+            f"D={q.shape[2]} T={kq.shape[2]} C={st[0].shape[2]}",
+            "cluster": K2.cluster_size(q.shape[1] // kq.shape[1],
+                                       kq.shape[2], st[0].shape[2],
+                                       q.shape[2], q.shape[0], kq.shape[1],
+                                       dev),
+            "max_rel_err": r, "kept_keys": kept,
+            "ms": time_graph_ms([lambda: K2.flash_decode_attention(
+                q, kq, ks, vq, vs, off, staged=st, **kw)], iters=20),
+            "plain_ms": time_ms([lambda: K2.flash_decode_plain(
+                q, kq, ks, vq, vs, off, *st, **kw)], iters=2),
+            "bound_ms": k2_bound_ms(kept, q.shape[0], q.shape[1],
+                                    kq.shape[1], q.shape[2], bw, int8_peak),
+            "bound_by": "bytes", "library_ms": None})
+    reset(counters, plains)     # the comparisons' launches are not the path's
+    emit({"phase": "families", "part": "11c", "model": "gemma2_9b",
+          "layers": cfg.num_layers, "windows": windows,
+          "prompt_len": GEMMA2_PROMPT, "decode_steps": GEMMA2_STEPS,
+          "attn_softcap": cfg.attn_logit_softcap,
+          "final_softcap": cfg.final_logit_softcap,
+          "rel_err": gaps, "tol": E2E_TOL, "tol_against_f32": tol_f32,
+          "launches": launches, "kernels": kern_rows, "cpu_s": cpu_s})
+    del params, k2_calls, k3_calls
+    free_memory()
+    return launches, kern_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3310,15 +3853,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_end("5")
-    # 6. the slice: the request API on the same model
-    by_path["llama2_13b_requests"] = phase_requests(dev, counters, plains,
-                                                    workload)
+    # 6. the request API on the same model, cut to its first 20 layers
+    by_path["llama2_13b_requests"] = phase_requests(
+        dev, counters, plains, cut_depth(workload, REQUESTS_LAYERS))
     free_memory()
 
     phase_end("6")
-    # 8. runtime_cache="auto" (the int8 cache) on the same model
-    by_path["llama2_13b_auto_int8"] = phase_auto(dev, counters, plains,
-                                                 workload)
+    # 8. runtime_cache="auto" (the int8 cache) on the same model, cut to its
+    # first 20 layers
+    by_path["llama2_13b_auto_int8"] = phase_auto(
+        dev, counters, plains, cut_depth(workload, REQUESTS_LAYERS))
     del workload
     free_memory()
 
@@ -3334,6 +3878,16 @@ def main() -> int:
     phase_end("9")
     # 10. QLoRA training at Llama-2-7B width
     by_path["qlora_7b"] = phase_qlora(dev, counters, plains, smi)
+    phase_end("10")
+    # 11. the model families: Mixtral-8x7B served, Mixtral and Gemma2-9B
+    # at 2 layers against the CPU
+    free_memory()
+    by_path["mixtral_8x7b_packed"] = phase_mixtral(dev, counters, plains)
+    by_path["mixtral_2l"] = phase_mixtral_2l(dev, counters, plains, K2)
+    by_path["gemma2_9b_2l"], g2_rows = phase_gemma2(
+        dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3)
+    kernels[1]["gemma2_9b_decode_layers"] = g2_rows["K2"]
+    kernels[2]["gemma2_9b_prefill_layers"] = g2_rows["K3"]
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     for k in kernels:
@@ -3341,7 +3895,7 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
-    phase_end("10")
+    phase_end("11")
     emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script,
           "seconds_at_end_of_phase": ends})
     emit({"kernels": kernels})

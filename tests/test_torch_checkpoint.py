@@ -140,8 +140,9 @@ def test_module_tree_round_trips(tmp_path):
     classes, buffers bit for bit, each giving the output of the same JAX
     module handed over through ``load_state_dict`` (which the module tests
     hold against JAX); saved again by the port, it
-    loads in JAX and gives JAX's outputs. GPT-2's classes and a QLinear4
-    without its packed codes are refused, as in JAX."""
+    loads in JAX and gives JAX's outputs. A JAX GPT-2 loads as the port's
+    GPT-2 and gives JAX's f32 logits within 1e-5 of max|ref|; a QLinear4
+    without its packed codes is refused, as in JAX."""
     jm, x = _jax_modules()
     JC.save_checkpoint(str(tmp_path / "m"), jm)
     tm = TC.load_checkpoint(str(tmp_path / "m"))
@@ -164,11 +165,16 @@ def test_module_tree_round_trips(tmp_path):
         inp = jnp.asarray(ids) if name.startswith("e") else jnp.asarray(x)
         np.testing.assert_array_equal(np.asarray(mod(inp), np.float32),
                                       np.asarray(jm[name](inp), np.float32))
-    JC.save_checkpoint(str(tmp_path / "g"),
-                       JG.GPT2LMHeadModel(JG.GPT2Config.tiny(),
-                                          jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="A4"):
-        TC.load_checkpoint(str(tmp_path / "g"))
+    gcfg = dataclasses.replace(JG.GPT2Config.tiny(), dtype=jnp.float32)
+    jg = JG.GPT2LMHeadModel(gcfg, jax.random.PRNGKey(0))
+    JC.save_checkpoint(str(tmp_path / "g"), jg)
+    tg = TC.load_checkpoint(str(tmp_path / "g"))
+    assert type(tg).__name__ == "GPT2LMHeadModel"
+    tok = np.random.default_rng(4).integers(0, gcfg.vocab_size, (2, 12))
+    ref = np.asarray(jg(jnp.asarray(tok)))
+    with torch.no_grad():
+        got = tg(torch.from_numpy(tok)).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
     q = QLinear4.quantize(torch.randn(64, 64)).with_runtime_cache(
         "int8", drop_packed=True)
     with pytest.raises(TypeError, match="packed codes were dropped"):

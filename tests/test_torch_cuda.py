@@ -443,16 +443,17 @@ def test_engine_f32_tokens_card_match_cpu(cuda):
     assert got == ref
 
 
-def _prefill_decode(params, cfg, dev, prompts, fed=None):
+def _prefill_decode(params, cfg, dev, prompts, fed=None, max_seq=64):
     """Prefill each prompt into its slot, then a staged chunk of 4 decode
     steps fed ``fed`` (greedy tokens when None). Returns the prefill and
     decode logits, the tokens fed, and each step's (K1, K2) launches."""
     p = llama.to_device(params, dev)
-    cache = KVCache.create(cfg.num_layers, len(prompts), 64,
+    cache = KVCache.create(cfg.num_layers, len(prompts), max_seq,
                            cfg.num_kv_heads, cfg.hd, device=dev)
     logits = []
     for slot, pr in enumerate(prompts):
-        toks = torch.zeros((1, 16), dtype=torch.int32)
+        toks = torch.zeros((1, E._bucket(len(pr), max_seq)),
+                           dtype=torch.int32)
         toks[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
         lg, cache = E.prefill_step(p, cache, toks.to(dev), slot, len(pr), cfg)
         logits.append(lg)
@@ -465,7 +466,7 @@ def _prefill_decode(params, cfg, dev, prompts, fed=None):
         fed_out.append(t_in)
         k1, k2 = K1.int4_mm.launches, K2.flash_decode_attention.launches
         lg, cache = E.decode_step(p, cache, t_in.to(dev), active, cfg,
-                                  attn_span=64)
+                                  attn_span=max_seq)
         launches.append((K1.int4_mm.launches - k1,
                          K2.flash_decode_attention.launches - k2))
         logits.append(lg)
@@ -1566,3 +1567,205 @@ def test_optimizer_step_card_matches_cpu(cuda, name):
             w = gopt.state[b][k]
             if isinstance(v, torch.Tensor):
                 assert w.dtype == v.dtype and torch.equal(v, w.cpu()), k
+
+
+# ---------------------------------------------------------------------------
+# the model families: windows, softcaps, MoE, LayerNorm, the ring KV cache
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("tiny_mistral", "tiny_mixtral", "tiny_qwen2_moe", "tiny_gemma",
+            "tiny_gemma2", "tiny_phi2", "tiny_stablelm")
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_card_matches_cpu(cuda, name):
+    """Each tiny family in bf16 off its packed NF4 bytes (K5), prompts of
+    5, 30 and 50 tokens (past every window of 16) and 4 decode steps
+    through K2 (with each layer's window and Gemma2's softcaps and scale):
+    the card's logits within 3e-2 of the CPU's, one K2 per layer and
+    step."""
+    cfg = getattr(llama.LlamaConfig, name)()
+    gen = torch.Generator().manual_seed(21)
+    params = llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True)
+    prompts = _prompts([5, 30, 50], cfg.vocab_size)
+    ref, fed, _ = _prefill_decode(params, cfg, "cpu", prompts, max_seq=128)
+    k5 = K5.matmul4bit_mm.launches
+    got, _, launches = _prefill_decode(params, cfg, cuda, prompts, fed,
+                                       max_seq=128)
+    assert [k2 for _, k2 in launches] == [cfg.num_layers] * 4
+    assert K5.matmul4bit_mm.launches > k5
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert rel_err(g, r) <= 3e-2
+
+
+def _moe_cfg():
+    """A Mixtral-shaped tiny config whose every matmul K4 and K1 take:
+    hidden 256, experts of 256, head_dim 64, vocab 512."""
+    return llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                             intermediate_size=256, num_layers=2,
+                             num_heads=4, num_kv_heads=2, max_seq_len=128,
+                             num_experts=4, experts_per_token=2)
+
+
+@pytest.mark.parametrize("cache", [None, "int4"])
+def test_moe_tree_through_k4_and_k1(cuda, cache):
+    """A MoE tree off its packed bytes (K4 for every decode matmul: 2 x
+    (qkv + o + 4 experts x (gate/up + down)) + lm_head = 21 a step) and
+    through the int4 cache (K1, as many): the card's logits within 3e-2 of
+    the CPU's."""
+    cfg = _moe_cfg()
+    gen = torch.Generator().manual_seed(22)
+    params = llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True)
+    if cache is not None:
+        params = llama.build_runtime_cache(params, cache)
+    prompts = _prompts([5, 30, 50], cfg.vocab_size)
+    ref, fed, _ = _prefill_decode(params, cfg, "cpu", prompts, max_seq=128)
+    kernel = K1.int4_mm if cache else K4.w4a8_mm
+    before = kernel.launches
+    got, _, _ = _prefill_decode(params, cfg, cuda, prompts, fed,
+                                max_seq=128)
+    per_step = cfg.num_layers * (2 + 2 * cfg.num_experts) + 1
+    assert kernel.launches - before >= 4 * per_step
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert rel_err(g, r) <= 3e-2
+
+
+def _ring_engine(dev, graphs, **kw):
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny_mistral(),
+                              sliding_window=32, max_seq_len=512)
+    gen = torch.Generator().manual_seed(23)
+    params = llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True)
+    params = llama.to_device(llama.build_runtime_cache(params, "int4"), dev)
+    return cfg, E.DecodeEngine(params, cfg, max_batch=4, max_seq=512,
+                               steps_per_sync=8, ring_kv=True, device=dev,
+                               cuda_graphs=graphs, **kw)
+
+
+@pytest.mark.parametrize("quantized_kv", [True, False])
+def test_ring_engine_graphed_matches_eager(cuda, quantized_kv):
+    """A ring KV engine (128 entries for max_seq 512) serves prompts of 20
+    to 150 tokens and 120 new tokens (past the ring) with the same tokens
+    graphed and eager; no K2 (a ring reads through the ring mask in
+    torch); the graphs' keys read the whole ring (span None)."""
+    outs, keys = {}, {}
+    prompts = _prompts([150, 20, 70], 512)
+    for graphs in (False, True):
+        cfg, eng = _ring_engine(cuda, graphs, quantized_kv=quantized_kv)
+        assert eng.cache.ring and eng.cache.max_seq == 128
+        k2 = K2.flash_decode_attention.launches
+        outs[graphs] = eng.generate(prompts,
+                                    SamplingParams(max_new_tokens=120))
+        assert K2.flash_decode_attention.launches == k2
+        keys[graphs] = eng.graph_keys()
+    assert outs[True] == outs[False]
+    assert keys[True] and all(k[0] is None for k in keys[True])
+
+
+def test_ring_graphed_chunk_reads_nothing_back(cuda):
+    """A ring engine's graphed chunk (writes at ``pos % ring`` on the
+    device, no stage) runs with the synchronizing-operation check set to
+    raise."""
+    _, eng = _ring_engine(cuda, True)
+    eng.generate(_prompts([40, 9, 150], 512),
+                 SamplingParams(max_new_tokens=4))
+    toks = np.array([5, 6, 7, 0], np.int32)
+    active = np.array([True, True, True, False])
+    eng.run_chunk(toks, active, all_greedy=True, attn_span=None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.run_chunk(toks, active, all_greedy=True, attn_span=None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out[0].shape == (8, 4)
+    assert eng.graph_stats()["graphs"] == 1
+
+
+def test_windowed_engine_sends_kpos_start_to_k2(cuda, monkeypatch):
+    """A fully-windowed bf16 model (window 16) with a 1,100-token prompt:
+    its decode chunks read from the window's 1024-bucket, K2 takes
+    ``kpos_start`` = 1024, the graph's key carries it, and the graphed
+    tokens equal the eager ones."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny_mistral(),
+                              max_seq_len=2048)
+    gen = torch.Generator().manual_seed(24)
+    params = llama.to_device(llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True), cuda)
+    starts = []
+    orig = K2.flash_decode_attention
+
+    def spy(*a, **kw):
+        starts.append(kw.get("kpos_start", 0))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(llama, "flash_decode_attention", spy)
+    prompt = _prompts([1100], cfg.vocab_size)
+    outs, keys = {}, {}
+    for graphs in (False, True):
+        eng = E.DecodeEngine(params, cfg, max_batch=1, max_seq=2048,
+                             steps_per_sync=8, device=cuda,
+                             cuda_graphs=graphs)
+        outs[graphs] = eng.generate(prompt, SamplingParams(max_new_tokens=12))
+        keys[graphs] = eng.graph_keys()
+    assert outs[True] == outs[False]
+    assert 1024 in starts
+    assert keys[True] and all(k[5] == 1024 for k in keys[True])
+
+
+def test_flash_decode_d256_gemma2_arguments(cuda):
+    """K2 at Gemma2-9B's decode: d = 256, rep 2, window 4,096, softcap 50,
+    scale 256^-0.5, keys from kpos_start 1,024 on, a stage of 16, against
+    its plain version (1e-3 of max|ref|)."""
+    rng = np.random.default_rng(25)
+    b, h, h_kv, d, t, c, start = 2, 16, 8, 256, 3584, 16, 1024
+
+    def codes(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8)).to(cuda)
+
+    def scales(*shape):
+        return torch.from_numpy((rng.random(shape) * 1.5 + 0.5).astype(
+            np.float32)).to(cuda)
+
+    kv = (codes(b, h_kv, t, d), scales(b, h_kv, t),
+          codes(b, h_kv, t, d), scales(b, h_kv, t))
+    st = (codes(b, h_kv, c, d), scales(b, h_kv, c),
+          codes(b, h_kv, c, d), scales(b, h_kv, c), 9)
+    q = torch.from_numpy((rng.standard_normal((b, h, d)) * 0.3).astype(
+        np.float32)).to(torch.bfloat16).to(cuda)
+    off = torch.tensor([start + t - c + 9, start + 4200], dtype=torch.int32,
+                       device=cuda)
+    kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0,
+              kpos_start=start)
+    got = K2.flash_decode_attention(q, *kv, off, staged=st, **kw)
+    ref = K2.flash_decode_plain(q, *kv, off, *st, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel_err(got, ref) <= 1e-3
+
+
+def test_flash_prefill_d256_window_at_4400(cuda):
+    """K3 at Gemma2-9B's windowed layer: d = 256, GQA rep 2, S = 4,400
+    (past the 4,096 window, ragged against the 64-key tiles), softcap 50,
+    scale 256^-0.5, against its plain version (1e-2 of each row's
+    max)."""
+    rng = np.random.default_rng(26)
+    q, k, v = (torch.from_numpy((rng.standard_normal(shape) * 0.5).astype(
+        np.float32)).to(torch.bfloat16).to(cuda)
+        for shape in ((1, 4400, 4, 256), (1, 4400, 2, 256),
+                      (1, 4400, 2, 256)))
+    kw = dict(s_real=4400, scale=256 ** -0.5, window=4096, softcap=50.0)
+    ref = K3.flash_prefill_plain(q, k, v, block_k=K3.KEY_TILE[256], **kw)
+    got = K3.flash_prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert row_rel_err(got, ref) <= 1e-2

@@ -366,7 +366,7 @@ def test_warmup_runs_exactly_the_plan(tiny, monkeypatch):
     assert len(calls["prefill_batch"]) == len(buckets)
     assert len(calls["prefill_chunk_step"]) == len(plan["chunk_pairs"])
     got = [(k["attn_span"], k["n_steps"], k["all_greedy"],
-            k["seen_mask"] is not None, k["want_logprobs"])
+            k["seen_mask"] is not None, k["want_logprobs"], k["attn_start"])
            for k in calls["decode_chunk"]]
     assert got == te.plan_graph_keys(plan) and len(got) == 8
     assert plan["n_compiles"] == 2 * 2 + len(plan["chunk_pairs"]) + 1 + 8

@@ -6,8 +6,11 @@ row-wise and col+row int8, FP8, sparse COO; :mod:`.nn`: quantized Linear
 and Embedding modules; :mod:`.integration`: ``BitsAndBytesConfig`` and
 ``quantize_model``); NF4 serving of Llama-shaped models through an int8,
 int4 or bf16 runtime cache or straight off the packed NF4 bytes: the
-quantized trunk (:mod:`.models`), the int8-KV decode engine
-(:mod:`.engine`) and five hand-written Hopper kernels (:mod:`.ops`): K1,
+quantized trunk (:mod:`.models`: Llama, Qwen2, Mistral, Mixtral,
+Qwen2-MoE, Gemma, Gemma2, Phi-2 and StableLM, and module-based GPT-2;
+HuggingFace checkpoints load through :mod:`.utils.hf`), the int8-KV decode
+engine (:mod:`.engine`, with a ring KV cache for sliding-window models) and
+five hand-written Hopper kernels (:mod:`.ops`): K1,
 the int4-cache matmul; K2, flash-decode attention; K3, flash-prefill
 attention; K4, the packed-NF4 x A8 matmul; K5, the fused 4-bit
 dequant-matmul; and QLoRA training: LoRA adapters

@@ -15,7 +15,9 @@ cache (int8 [N, K], ``cache_scale`` [N]) or the bf16 cache (no scale);
 ``dtype`` is a dtype name such as ``"bfloat16"``. Keys whose value would be
 None may be left out (a layer served off its packed bytes has no
 ``w_cache``). A ``LoRALinear`` comes as ``{"base", "lora_A", "lora_B",
-"scaling"}`` with its base handed over the same way.
+"scaling"}`` with its base handed over the same way. Every other dict and
+list crosses as it is: a MoE layer's ``{"router", "experts": [...],
+"shared_expert", "shared_gate"}``, a LayerNorm's ``{"w", "b"}``.
 """
 
 from __future__ import annotations
@@ -36,19 +38,6 @@ __all__ = ["from_reference_arrays", "config_from_reference", "torch_dtype"]
 # a QLinear4 with or without its runtime cache or packed codes
 _QLINEAR_KEYS = {"shape", "blocksize", "quant_type"}
 _LORA_KEYS = {"base", "lora_A", "lora_B", "scaling"}
-
-# defaults of the JAX LlamaConfig fields the port does not implement
-_UNSUPPORTED = {
-    "sliding_window": None, "hidden_act": "silu", "rms_weight_offset": 0.0,
-    "scale_embeddings": False, "post_norms": False,
-    "attn_logit_softcap": None, "final_logit_softcap": None,
-    "query_pre_attn_scalar": None, "sliding_window_pattern": None,
-    "sliding_window_layers": None, "num_experts": 0, "norm_type": "rms",
-    "parallel_blocks": False, "gated_mlp": True, "rope_partial_factor": 1.0,
-}
-_IGNORED = ("experts_per_token", "moe_intermediate_size", "moe_norm_topk",
-            "moe_shared_expert_size")
-
 
 def _opt(a, device):
     return None if a is None else to_tensor(a, device)
@@ -103,19 +92,11 @@ def from_reference_arrays(tree, device):
 
 def config_from_reference(fields: Dict[str, Any]) -> LlamaConfig:
     """A :class:`LlamaConfig` from the JAX ``LlamaConfig``'s fields
-    (``dataclasses.asdict``, with ``dtype`` as a name). Raises
-    NotImplementedError for what only the JAX package implements: MoE,
-    LayerNorm, post-norms, parallel blocks, sliding windows, softcaps,
-    non-SiLU activations, scaled embeddings and partial rotary."""
+    (``dataclasses.asdict``, with ``dtype`` as a name): every family and
+    preset of the JAX package crosses, field for field."""
     fields = dict(fields)
-    used = [k for k, default in _UNSUPPORTED.items()
-            if fields.pop(k, default) != default]
-    if used:
-        raise NotImplementedError(
-            f"LlamaConfig features not ported: {', '.join(used)}")
-    for k in _IGNORED:
-        fields.pop(k, None)
     fields["dtype"] = torch_dtype(fields["dtype"])
-    if fields.get("rope_scaling") is not None:
-        fields["rope_scaling"] = tuple(fields["rope_scaling"])
+    for k in ("rope_scaling", "sliding_window_layers"):
+        if fields.get(k) is not None:
+            fields[k] = tuple(fields[k])
     return LlamaConfig(**fields)

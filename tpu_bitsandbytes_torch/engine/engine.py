@@ -49,17 +49,19 @@ from .sampler import SamplingArrays, SamplingParams, sample, sample_batched
 
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
                 active: torch.Tensor, config: llama.LlamaConfig,
-                attn_span: Optional[int] = None):
+                attn_span: Optional[int] = None, attn_start: int = 0):
     """Advance every slot one token: tokens int32 [B], active bool [B].
     Returns (f32 logits [B, V], cache) with the lengths of active slots
     advanced in place. ``attn_span`` must cover every active slot's
-    length + 1."""
+    length + 1; ``attn_start`` (a fully-windowed model's lower bound) must
+    lie at or below every active slot's length minus the window."""
     positions = cache.lengths.clone()
     x, cos, sin = llama.decode_embed_and_rope(params, tokens, positions,
                                               config)
     for li, layer in enumerate(params["layers"]):
         x, cache = llama.decode_layer(layer, x, cos, sin, positions, cache,
-                                      li, config, attn_span=attn_span)
+                                      li, config, attn_span=attn_span,
+                                      attn_start=attn_start)
     x = llama._norm(x, params["final_norm"], config)
     logits = llama.head_logits(params, x[:, 0], config)
     cache.lengths += active.to(torch.int32)
@@ -73,7 +75,7 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
                  n_steps: int = 8, all_greedy: bool = False,
                  attn_span: Optional[int] = None,
                  seen_mask: Optional[torch.Tensor] = None,
-                 want_logprobs: bool = False):
+                 want_logprobs: bool = False, attn_start: int = 0):
     """Advance every slot up to ``n_steps`` tokens without reading anything
     back to the host; a slot that emits its EOS, or reaches ``max_seq - 1``,
     goes inactive on the device and its later emissions carry
@@ -92,13 +94,13 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
     cache, last tokens [B], active [B], logprobs_seq f32 [n_steps, B] or
     None, seen_mask).
     """
-    max_seq = cache.max_seq
+    max_seq = cache.max_positions or cache.max_seq   # the absolute bound
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     cache.begin_stage(n_steps)
     toks_seq, act_seq, lp_seq = [], [], []
     for _ in range(n_steps):
         logits, cache = decode_step(params, cache, tokens, active, config,
-                                    attn_span)
+                                    attn_span, attn_start)
         toks = sample_batched(logits, generator, samp, seen_mask,
                               all_greedy=all_greedy)
         toks = torch.where(active, toks, tokens)
@@ -123,10 +125,11 @@ def prefill_step(params, cache: KVCache, tokens: torch.Tensor, slot: int,
                  true_len: int, config: llama.LlamaConfig):
     """Prefill one request of (padded) shape [1, S_pad] into ``slot``.
     Positions past ``true_len`` write garbage KV that decode overwrites
-    before attending to it. Returns (f32 last-token logits [V], cache)."""
+    before attending to it (a ring cache drops them). Returns (f32
+    last-token logits [V], cache)."""
     logits, new_kv = llama.forward(params, tokens, config, return_kv=True)
     for li, (k, v) in enumerate(new_kv):
-        cache.write_prefill(li, slot, k[0], v[0])
+        cache.write_prefill(li, slot, k[0], v[0], valid_len=true_len)
     cache.lengths[slot] = true_len
     return logits[0, true_len - 1].to(torch.float32), cache
 
@@ -155,7 +158,8 @@ def prefill_batch(params, cache: KVCache, tokens: torch.Tensor,
 def prefill_chunk_step(params, cache: KVCache, tokens: torch.Tensor,
                        slot: int, start: int, new_len: int,
                        config: llama.LlamaConfig,
-                       attn_span: Optional[int] = None):
+                       attn_span: Optional[int] = None,
+                       attn_start: int = 0):
     """One chunk of a chunked prefill: tokens [1, C] written into ``slot``
     at positions [start, start + C) (those past ``max_seq`` dropped), the
     chunk's queries attending to the slot's own history (``decode_layer``
@@ -179,7 +183,7 @@ def prefill_chunk_step(params, cache: KVCache, tokens: torch.Tensor,
     for li, layer in enumerate(params["layers"]):
         x, cache = llama.decode_layer(layer, x, cos, sin, positions, cache,
                                       li, config, attn_span=attn_span,
-                                      slot=slot)
+                                      slot=slot, attn_start=attn_start)
     cache.lengths[slot] = new_len
     return x, cache
 
@@ -353,7 +357,7 @@ class DecodeEngine:
                  runtime_cache: Optional[str] = None,
                  speculative: Optional[str] = None, spec_gamma: int = 4,
                  prefill_chunk: Optional[int] = None,
-                 drop_packed="auto",
+                 ring_kv: bool = False, drop_packed="auto",
                  device="cuda", cuda_graphs: bool = True):
         """``params`` must live on ``device``. ``quantized_kv``: an int8 KV
         cache (staged within a decode chunk); False keeps K/V in the
@@ -381,7 +385,13 @@ class DecodeEngine:
         16: a prompt longer than this is written into its slot
         ``prefill_chunk`` tokens per engine step, between decode chunks, so
         one long admission cannot stall every running stream for a whole
-        prompt's forward. ``cuda_graphs``: on a CUDA device, run each decode
+        prompt's forward. ``ring_kv``: for a model whose every layer has a
+        sliding window (Mistral-class), a rolling KV cache of the window
+        plus the positions in flight (``steps_per_sync``, ``spec_gamma`` +
+        1, ``prefill_chunk``) and one, rounded up to 128: memory and the
+        decode read become O(window) instead of O(``max_seq``); refused
+        for other configs and where the ring would not be shorter than
+        ``max_seq``. ``cuda_graphs``: on a CUDA device, run each decode
         chunk as a CUDA graph replay (:class:`ChunkGraphs`, one graph per
         span bucket, chunk length, all-greedy flag, penalty flag and
         logprobs flag, captured at first use; a verify step, one graph per
@@ -405,6 +415,22 @@ class DecodeEngine:
         self.speculative = speculative
         self.spec_gamma = int(spec_gamma)
         self.spec_stats = {"verify_steps": 0, "drafted": 0, "accepted": 0}
+        w = config.sliding_window
+        self._fully_windowed = (
+            w is not None and config.sliding_window_pattern is None
+            and (config.sliding_window_layers is None
+                 or all(config.sliding_window_layers)))
+        if ring_kv and not self._fully_windowed:
+            raise ValueError("ring_kv requires a fully-sliding-window "
+                             "config (every layer windowed)")
+        slack = max(self.steps_per_sync, self.spec_gamma + 1,
+                    prefill_chunk or 0) + 1
+        self.ring_size = -(-(w + slack) // 128) * 128 if ring_kv else None
+        if ring_kv and self.ring_size >= self.max_seq:
+            raise ValueError(
+                f"ring_kv is inert: ring {self.ring_size} >= max_seq "
+                f"{self.max_seq} (window + in-flight slack leaves nothing "
+                f"to roll) — drop ring_kv= or raise max_seq")
         if runtime_cache == "auto":
             runtime_cache = self._auto_runtime_cache(params, quantized_kv)
         self.runtime_cache = runtime_cache
@@ -429,7 +455,8 @@ class DecodeEngine:
         self.cache = KVCache.create(config.num_layers, max_batch,
                                     self.max_seq, config.num_kv_heads,
                                     config.hd, quantized=quantized_kv,
-                                    dtype=config.dtype, device=self.device)
+                                    dtype=config.dtype, device=self.device,
+                                    ring_size=self.ring_size)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # the chunk's static inputs: tokens, active and the seen mask staged
         # through (pinned, on CUDA) host buffers, and the sampling arrays,
@@ -475,7 +502,9 @@ class DecodeEngine:
         cfg = self.config
         kv = kv_bytes_actual
         if kv is None:
-            kv = kv_cache_bytes(cfg.num_layers, self.max_batch, self.max_seq,
+            kv = kv_cache_bytes(cfg.num_layers, self.max_batch,
+                                min(self.ring_size or self.max_seq,
+                                    self.max_seq),
                                 cfg.num_kv_heads, cfg.hd, quantized_kv)
         act = serving_act_bytes(cfg, self.max_batch,
                                 _bucket(self.max_seq - 1, self.max_seq),
@@ -622,10 +651,12 @@ class DecodeEngine:
     # -- admission --------------------------------------------------------
     def _admit(self):
         """Admit waiting requests into free slots. Requests that want
-        logprobs, and prompts longer than ``prefill_chunk``, admit one at a
-        time (the batched prefill samples first tokens only, and a long
-        prompt goes in chunk by chunk); the rest group by length bucket
-        into one forward each."""
+        logprobs, prompts longer than ``prefill_chunk`` and, on a ring
+        cache, prompts whose bucket exceeds the ring admit one at a time
+        (the batched prefill samples first tokens only, a long prompt goes
+        in chunk by chunk, and only a single prefill drops the padding a
+        ring would wrap); the rest group by length bucket into one forward
+        each."""
         free = self._free_slots()
         groups: Dict[int, list] = {}
         while free and self.waiting:
@@ -637,7 +668,10 @@ class DecodeEngine:
                 req.prompt = req.prompt[-(self.max_seq - 1):]
             if req.params.logprobs or (
                     self.prefill_chunk is not None
-                    and len(req.prompt) > self.prefill_chunk):
+                    and len(req.prompt) > self.prefill_chunk) or (
+                    self.cache.ring
+                    and _bucket(len(req.prompt), self.max_seq)
+                    > self.cache.max_seq):
                 self._admit_one(slot, req)
                 continue
             groups.setdefault(_bucket(len(req.prompt), self.max_seq),
@@ -720,10 +754,14 @@ class DecodeEngine:
         toks = torch.zeros((1, c), dtype=torch.int32)
         toks[0, :end - start] = torch.tensor(req.prompt[start:end],
                                              dtype=torch.int32)
+        if self.cache.ring:
+            span, a_start = None, 0
+        else:
+            span = _chunk_span_bucket(start + c, self.max_seq)
+            a_start = self._win_start(start)
         x, self.cache = prefill_chunk_step(
             self.params, self.cache, toks.to(self.device), slot, start, end,
-            self.config, attn_span=_chunk_span_bucket(start + c,
-                                                      self.max_seq))
+            self.config, attn_span=span, attn_start=a_start)
         req.prefill_pos = end
         if end >= n:
             logits = prefill_final_logits(self.params, x, n - 1 - start,
@@ -733,6 +771,27 @@ class DecodeEngine:
         return True
 
     # -- decode -------------------------------------------------------------
+    def _win_start(self, upto: int) -> int:
+        """The KV read's lower bound for a query at position ``upto`` in a
+        fully-windowed model, in buckets of 1024 (a small set of graph
+        keys); 0 for every other model."""
+        if not self._fully_windowed:
+            return 0
+        return max(0, (upto - self.config.sliding_window) // 1024 * 1024)
+
+    def _attn_window(self, extra_steps: int = 0):
+        """(attn_start, attn_span) of the next decode chunk. A
+        fully-windowed model reads from the shortest decoding slot's
+        position minus the window (bucketed); a model with global layers
+        reads from 0; a ring cache reads the whole ring: (0, None)."""
+        if self.cache.ring:
+            return 0, None
+        span = self._attn_span(extra_steps)
+        shortest = min((len(r.prompt) + len(r.generated)
+                        for r in self.active.values() if not r.prefilling),
+                       default=0)
+        return self._win_start(shortest), span
+
     def _attn_span(self, extra_steps: int = 0) -> int:
         """Span bucket covering every decoding slot's position plus the
         chunk. ``extra_steps``: steps dispatched but not yet collected (a
@@ -798,20 +857,21 @@ class DecodeEngine:
             req.on_token(req.uid, token, req.done)
 
     def run_chunk(self, tokens: np.ndarray, active: np.ndarray, *,
-                  all_greedy: bool, attn_span: int,
+                  all_greedy: bool, attn_span: Optional[int],
                   seen: Optional[np.ndarray] = None,
-                  want_logprobs: bool = False):
+                  want_logprobs: bool = False, attn_start: int = 0):
         """One decode chunk of ``steps_per_sync`` steps from host
         ``tokens`` int32 [B] and ``active`` bool [B], staged into the static
         device inputs without a host sync. ``seen`` bool [B, V]: the
         repetition penalty's history, staged into the engine's static seen
         mask, which the chunk then updates on the device; None runs without
-        a penalty. On CUDA (unless the engine was built with
+        a penalty. ``attn_start`` and ``attn_span``: the KV read's window
+        (:meth:`_attn_window`). On CUDA (unless the engine was built with
         ``cuda_graphs=False``) the chunk replays the graph of ``(attn_span,
-        steps_per_sync, all_greedy, penalty, want_logprobs)``, captured at
-        the key's first use. Returns the device (tokens_seq, active_seq,
-        logprobs_seq or None) [steps, B]; read them before the next chunk,
-        which may overwrite them."""
+        steps_per_sync, all_greedy, penalty, want_logprobs, attn_start)``,
+        captured at the key's first use. Returns the device (tokens_seq,
+        active_seq, logprobs_seq or None) [steps, B]; read them before the
+        next chunk, which may overwrite them."""
         self._tokens_host.numpy()[:] = tokens
         self._active_host.numpy()[:] = active
         self._tokens.copy_(self._tokens_host, non_blocking=True)
@@ -822,10 +882,11 @@ class DecodeEngine:
         self._samp_arrays()
         return self._dispatch(all_greedy=all_greedy, attn_span=attn_span,
                               penalty=seen is not None,
-                              want_logprobs=want_logprobs)
+                              want_logprobs=want_logprobs,
+                              attn_start=attn_start)
 
-    def _dispatch(self, *, all_greedy: bool, attn_span: int, penalty: bool,
-                  want_logprobs: bool):
+    def _dispatch(self, *, all_greedy: bool, attn_span: Optional[int],
+                  penalty: bool, want_logprobs: bool, attn_start: int = 0):
         """One decode chunk from the static device inputs as they stand
         (tokens, active, seen mask, sampling arrays). The chunk leaves its
         last tokens and active flags in the static tokens and active, so a
@@ -839,7 +900,7 @@ class DecodeEngine:
                 self.generator, samp, self.config, n_steps=n,
                 all_greedy=all_greedy, attn_span=attn_span,
                 seen_mask=self._seen if penalty else None,
-                want_logprobs=want_logprobs)
+                want_logprobs=want_logprobs, attn_start=attn_start)
             self._tokens.copy_(last)
             self._active.copy_(live)
             return toks_seq, act_seq, lp_seq
@@ -847,11 +908,11 @@ class DecodeEngine:
         if self._graphs is None:
             return chunk()
         return self._graphs.run(
-            (attn_span, n, all_greedy, penalty, want_logprobs), chunk,
-            None if all_greedy else self.generator)
+            (attn_span, n, all_greedy, penalty, want_logprobs, attn_start),
+            chunk, None if all_greedy else self.generator)
 
     def run_verify(self, tokens: np.ndarray, active: np.ndarray, *,
-                   all_greedy: bool, attn_span: int):
+                   all_greedy: bool, attn_span: Optional[int]):
         """One speculative verify step from host ``tokens`` int32 [B,
         gamma + 1] (each slot's last token and its drafts) and ``active``
         bool [B], staged like :meth:`run_chunk`'s inputs. On CUDA (unless
@@ -890,20 +951,21 @@ class DecodeEngine:
     def graph_keys(self) -> List[tuple]:
         """The keys of the graphs captured so far, in capture order: a
         decode chunk's (attn_span, n_steps, all_greedy, penalty,
-        want_logprobs), a verify step's ("verify", attn_span, gamma,
-        all_greedy)."""
+        want_logprobs, attn_start), a verify step's ("verify", attn_span,
+        gamma, all_greedy)."""
         return [] if self._graphs is None else self._graphs.keys()
 
-    def graph_kernel_names(self, attn_span: int, all_greedy: bool = True,
-                           penalty: bool = False,
-                           want_logprobs: bool = False) -> Counter[str]:
+    def graph_kernel_names(self, attn_span: Optional[int],
+                           all_greedy: bool = True, penalty: bool = False,
+                           want_logprobs: bool = False,
+                           attn_start: int = 0) -> Counter[str]:
         """The kernels one replay of the chunk graph of that key launches,
         by demangled name, read from the graph."""
         return self._graphs.kernel_names(
             (attn_span, self.steps_per_sync, all_greedy, penalty,
-             want_logprobs))
+             want_logprobs, attn_start))
 
-    def verify_kernel_names(self, attn_span: int,
+    def verify_kernel_names(self, attn_span: Optional[int],
                             all_greedy: bool = True) -> Counter[str]:
         """The kernels one replay of the verify graph of that key launches,
         by demangled name, read from the graph."""
@@ -945,11 +1007,11 @@ class DecodeEngine:
                     n_emit += 1
             self.metrics.record(n_emit, time.perf_counter() - t0)
             return bool(self.waiting or self.active)
+        a_start, span = self._attn_window()
         toks_seq, act_seq, lp_seq = self.run_chunk(
-            tokens, active, all_greedy=all_greedy,
-            attn_span=self._attn_span(),
+            tokens, active, all_greedy=all_greedy, attn_span=span,
             seen=self._seen_mask() if self._needs_seen_mask() else None,
-            want_logprobs=want_lp)
+            want_logprobs=want_lp, attn_start=a_start)
         emitted = self._collect_chunk(toks_seq, act_seq, lp_seq)
         self.metrics.record(emitted, time.perf_counter() - t0)
         return bool(self.waiting or self.active)
@@ -974,7 +1036,8 @@ class DecodeEngine:
                       for r in self.active.values())
         emitted, counts = self.run_verify(
             toks, active, all_greedy=all_greedy,
-            attn_span=_span_bucket(longest + g + 1, self.max_seq))
+            attn_span=(None if self.cache.ring
+                       else _span_bucket(longest + g + 1, self.max_seq)))
         emitted, counts = emitted.cpu().numpy(), counts.cpu().numpy()
         self.spec_stats["verify_steps"] += 1
         self.spec_stats["accepted"] += int(np.clip(counts - 1, 0, None).sum())
@@ -999,14 +1062,23 @@ class DecodeEngine:
                 "group_sizes": tuple(group_sizes)}
         if self.prefill_chunk is not None:
             c = self.prefill_chunk
-            plan["chunk_pairs"] = sorted(
-                {(_chunk_span_bucket(st + c, self.max_seq), 0)
-                 for b in buckets for st in range(0, b, c)})
+            if self.cache.ring:
+                pairs = {(None, 0)}
+            else:
+                pairs = {(_chunk_span_bucket(st + c, self.max_seq),
+                          self._win_start(st))
+                         for b in buckets for st in range(0, b, c)}
+            plan["chunk_pairs"] = sorted(pairs,
+                                         key=lambda p: (p[0] or 0, p[1]))
         else:
             plan["chunk_pairs"] = []
-        plan["decode_windows"] = sorted(
-            {(0, _span_bucket(b + self.steps_per_sync, self.max_seq))
-             for b in buckets} | {(0, 128)})
+        if self.cache.ring:
+            plan["decode_windows"] = [(0, None)]
+        else:
+            plan["decode_windows"] = sorted(
+                {(self._win_start(b),
+                  _span_bucket(b + self.steps_per_sync, self.max_seq))
+                 for b in buckets} | {(0, 128)})
         variants = [dict(all_greedy=True)]
         if "sampled" in features:
             variants.append(dict(all_greedy=False))
@@ -1024,13 +1096,13 @@ class DecodeEngine:
 
     def plan_graph_keys(self, plan: dict) -> List[tuple]:
         """The decode-chunk graph keys (attn_span, n_steps, all_greedy,
-        penalty, want_logprobs) of a :meth:`warmup_plan`: its decode
-        windows times its variants, in warm-up order ("sampled" is
+        penalty, want_logprobs, attn_start) of a :meth:`warmup_plan`: its
+        decode windows times its variants, in warm-up order ("sampled" is
         ``all_greedy=False``, "penalty" a seen mask, "logprobs"
         ``want_logprobs``)."""
         return [(span, self.steps_per_sync, var["all_greedy"],
-                 "seen_mask" in var, var.get("want_logprobs", False))
-                for _, span in plan["decode_windows"]
+                 "seen_mask" in var, var.get("want_logprobs", False), start)
+                for start, span in plan["decode_windows"]
                 for var in plan["variants"]]
 
     def warmup(self, prompt_lengths: Optional[List[int]] = None,
@@ -1072,20 +1144,23 @@ class DecodeEngine:
         if self.prefill_chunk is not None:
             toks = torch.zeros((1, self.prefill_chunk), dtype=torch.int32,
                                device=dev)
-            for span, _ in plan["chunk_pairs"]:
+            for span, a_start in plan["chunk_pairs"]:
                 x, _ = prefill_chunk_step(self.params, self.cache, toks, 0,
-                                          0, 1, self.config, attn_span=span)
+                                          0, 1, self.config, attn_span=span,
+                                          attn_start=a_start)
             prefill_final_logits(self.params, x, 0, self.config)
         zeros = np.zeros((b,), np.int32)
         ones = np.ones((b,), bool)
-        for span, _, greedy, penalty, want_lp in self.plan_graph_keys(plan):
-            # each chunk from empty slots, so span covers every position
-            self.cache.lengths.zero_()
+        for (span, _, greedy, penalty, want_lp,
+             a_start) in self.plan_graph_keys(plan):
+            # each chunk from empty slots (at a window's start), so span
+            # covers every position
+            self.cache.lengths.fill_(a_start)
             self.run_chunk(
                 zeros, ones, all_greedy=greedy, attn_span=span,
                 seen=(np.zeros((b, self.config.vocab_size), bool)
                       if penalty else None),
-                want_logprobs=want_lp)
+                want_logprobs=want_lp, attn_start=a_start)
         self.cache.lengths.zero_()
         self.generator.set_state(rng_state)
         if dev.type == "cuda":
@@ -1119,8 +1194,8 @@ class DecodeEngine:
         save_checkpoint(path, {
             "cache": {"k": c.k, "v": c.v, "k_scale": c.k_scale,
                       "v_scale": c.v_scale, "lengths": c.lengths,
-                      "quantized": c.quantized, "ring": False,
-                      "max_positions": None,
+                      "quantized": c.quantized, "ring": c.ring,
+                      "max_positions": c.max_positions,
                       "dtype": str(dtype).replace("torch.", "")},
             "generator": self.generator.get_state(), "uid": self._uid,
             "waiting": [enc_req(r) for r in self.waiting],
@@ -1150,7 +1225,8 @@ class DecodeEngine:
 
         st = load_checkpoint(path)
         snap, c = st["cache"], self.cache
-        if bool(snap["quantized"]) != c.quantized or snap["ring"]:
+        if (bool(snap["quantized"]) != c.quantized
+                or bool(snap["ring"]) != c.ring):
             raise ValueError("load_state: the snapshot's cache mode differs "
                              "from this engine's")
         for name in ("k", "v", "k_scale", "v_scale", "lengths"):
@@ -1245,17 +1321,19 @@ class DecodeEngine:
                         self._steps_left(r) <= dispatched
                         for r in self.active.values()):
                     break       # the chunks in flight end every request
-                span = self._attn_span(extra_steps=dispatched)
+                a_start, span = self._attn_window(extra_steps=dispatched)
                 if k == 0:
                     outs = self.run_chunk(tokens, active,
                                           all_greedy=all_greedy,
                                           attn_span=span, seen=seen,
-                                          want_logprobs=want_lp)
+                                          want_logprobs=want_lp,
+                                          attn_start=a_start)
                 else:
                     outs = self._dispatch(all_greedy=all_greedy,
                                           attn_span=span,
                                           penalty=seen is not None,
-                                          want_logprobs=want_lp)
+                                          want_logprobs=want_lp,
+                                          attn_start=a_start)
                 inflight.append(self._to_host(outs, k % depth))
                 k += 1
                 dispatched += n

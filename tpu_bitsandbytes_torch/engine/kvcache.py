@@ -17,6 +17,12 @@ once per chunk length and reset in place, and the flush runs on the
 device without reading anything back, so a whole chunk can be captured in
 a CUDA graph. An unquantized cache has no stage (as in the JAX package):
 decode writes scatter into it.
+
+A ring cache (``create(ring_size=)``, for models whose every layer has a
+sliding window) keeps only the last ``ring`` positions: absolute position
+p lives at index ``p % ring``, ``lengths`` stay absolute, and attention
+reads the whole ring under the ring mask (``models.layers._causal_mask``).
+It has no stage either.
 """
 
 from __future__ import annotations
@@ -49,6 +55,10 @@ class KVCache:
     k_scale: Optional[torch.Tensor]    # f32 [L, B, H, S]; None unquantized
     v_scale: Optional[torch.Tensor]
     lengths: torch.Tensor    # int32 [B]
+    # ring mode: the S axis rolls over the last S positions, and
+    # max_positions is the absolute bound (None in plain mode)
+    ring: bool = False
+    max_positions: Optional[int] = None
     stage: Optional[KVStage] = None
     # chunk length -> its stage, allocated at the first begin_stage
     stages: Dict[int, KVStage] = dataclasses.field(default_factory=dict,
@@ -57,20 +67,29 @@ class KVCache:
     @classmethod
     def create(cls, num_layers: int, batch: int, max_seq: int,
                num_kv_heads: int, head_dim: int, *, quantized: bool = True,
-               dtype=torch.bfloat16, device) -> "KVCache":
-        """``quantized=False``: K and V in ``dtype``, no scales."""
-        shape = (num_layers, batch, num_kv_heads, max_seq, head_dim)
+               dtype=torch.bfloat16, device,
+               ring_size: Optional[int] = None) -> "KVCache":
+        """``quantized=False``: K and V in ``dtype``, no scales.
+        ``ring_size``: a rolling S axis of that many entries (it must
+        exceed the model's window plus the positions in flight) while
+        ``max_seq`` stays the absolute bound; a ring at least ``max_seq``
+        long is a plain cache."""
+        s_axis = max_seq if ring_size is None else min(ring_size, max_seq)
+        ring = s_axis < max_seq
+        shape = (num_layers, batch, num_kv_heads, s_axis, head_dim)
         lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+        mode = dict(lengths=lengths, ring=ring,
+                    max_positions=max_seq if ring else None)
         if not quantized:
             return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device),
-                       k_scale=None, v_scale=None, lengths=lengths)
+                       k_scale=None, v_scale=None, **mode)
         return cls(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
             k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
             v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
-            lengths=lengths)
+            **mode)
 
     @property
     def quantized(self) -> bool:
@@ -78,6 +97,7 @@ class KVCache:
 
     @property
     def max_seq(self) -> int:
+        """The S axis: the ring's size in ring mode."""
         return self.k.shape[3]
 
     @property
@@ -92,9 +112,9 @@ class KVCache:
         and reused: beginning resets its step index to 0 and copies the
         lengths into ``len0`` in place, so every chunk works on the same
         buffers (what a captured chunk needs). A no-op for an unquantized
-        cache, as in the JAX package."""
+        or a ring cache, as in the JAX package."""
         l, b, h, s, d = self.k.shape
-        if n_steps > s or not self.quantized:
+        if n_steps > s or not self.quantized or self.ring:
             return self
         st = self.stages.get(n_steps)
         if st is None:
@@ -177,21 +197,33 @@ class KVCache:
         return q, absmax
 
     def write_prefill(self, layer: int, slot: int, k_new: torch.Tensor,
-                      v_new: torch.Tensor) -> "KVCache":
+                      v_new: torch.Tensor,
+                      valid_len: Optional[int] = None) -> "KVCache":
         """Write [S_p, H, D] k/v of one slot at positions [0, S_p) (in
-        place)."""
-        k_hm, v_hm = k_new.transpose(0, 1), v_new.transpose(0, 1)  # [H, S_p, D]
-        sl = slice(0, k_new.shape[0])
-        if not self.quantized:
-            self.k[layer, slot, :, sl] = k_hm.to(self.k.dtype)
-            self.v[layer, slot, :, sl] = v_hm.to(self.v.dtype)
+        place). A ring cache writes position p at ``p % ring`` and drops
+        the padding at or past ``valid_len`` (it would wrap onto real
+        entries) and the positions a ring's length behind the last kept
+        one, as the JAX package's ring write does."""
+        # [H, S_p, D]
+        k_hm, v_hm = k_new.transpose(0, 1), v_new.transpose(0, 1)
+        if self.quantized:
+            (kq, ks), (vq, vs) = self._quant(k_hm), self._quant(v_hm)
+            writes = ((self.k, kq), (self.v, vq), (self.k_scale, ks),
+                      (self.v_scale, vs))
+        else:
+            writes = ((self.k, k_hm.to(self.k.dtype)),
+                      (self.v, v_hm.to(self.v.dtype)))
+        s_p = k_new.shape[0]
+        if not self.ring:
+            for buf, new in writes:
+                buf[layer, slot, :, :s_p] = new
             return self
-        kq, ks = self._quant(k_hm)
-        vq, vs = self._quant(v_hm)
-        self.k[layer, slot, :, sl] = kq
-        self.v[layer, slot, :, sl] = vq
-        self.k_scale[layer, slot, :, sl] = ks
-        self.v_scale[layer, slot, :, sl] = vs
+        ring = self.max_seq
+        last = s_p - 1 if valid_len is None else min(s_p, valid_len) - 1
+        lo = max(0, last - ring + 1)
+        idx = torch.arange(lo, last + 1, device=self.k.device)
+        for buf, new in writes:
+            buf[layer, slot][:, idx % ring] = new[:, lo:last + 1]
         return self
 
     def _inside(self, pos: torch.Tensor):
@@ -242,6 +274,9 @@ class KVCache:
         b_idx = rows[:, None, None]
         h_idx = torch.arange(self.num_kv_heads, device=dev)[None, :, None]
         pos = positions.long()
+        if self.ring:
+            # a chunk's positions are fewer than the ring: distinct indices
+            pos = torch.remainder(pos, self.max_seq)
         if self.quantized:
             (kq, ks), (vq, vs) = self._quant(k_hm), self._quant(v_hm)
             writes = ((self.k, kq), (self.v, vq), (self.k_scale, ks),
@@ -250,7 +285,7 @@ class KVCache:
             writes = ((self.k, k_hm.to(self.k.dtype)),
                       (self.v, v_hm.to(self.v.dtype)))
         take = None
-        if pos.shape[1] > 1:
+        if pos.shape[1] > 1 and not self.ring:
             # one decode token per slot stays below max_seq: only a
             # prefill's padding can reach past it
             pos, take = self._inside(pos)
@@ -263,21 +298,23 @@ class KVCache:
             buf[layer, b_idx, h_idx, pos] = new
         return self
 
-    def read_raw(self, layer: int, span: Optional[int] = None):
-        """Views (no copy) of a layer's first ``span`` positions: codes
-        [B, H, span, D] and scales [B, H, span], as (k, k_scale, v,
-        v_scale); the scales are None when unquantized."""
-        return self._read(layer, slice(None), span)
+    def read_raw(self, layer: int, span: Optional[int] = None,
+                 start: int = 0):
+        """Views (no copy) of a layer's positions [start, span): codes
+        [B, H, span - start, D] and scales [B, H, span - start], as (k,
+        k_scale, v, v_scale); the scales are None when unquantized."""
+        return self._read(layer, slice(None), span, start)
 
     def read_raw_slot(self, layer: int, slot: int,
-                      span: Optional[int] = None):
-        """:meth:`read_raw` of one slot (views [1, H, span, D] and
-        [1, H, span]): a prefill chunk's queries attend to their own slot's
-        history only."""
-        return self._read(layer, slice(slot, slot + 1), span)
+                      span: Optional[int] = None, start: int = 0):
+        """:meth:`read_raw` of one slot (views [1, H, span - start, D] and
+        [1, H, span - start]): a prefill chunk's queries attend to their
+        own slot's history only."""
+        return self._read(layer, slice(slot, slot + 1), span, start)
 
-    def _read(self, layer: int, rows: slice, span: Optional[int]):
-        sl = slice(0, span)
+    def _read(self, layer: int, rows: slice, span: Optional[int],
+              start: int):
+        sl = slice(start, span)
 
         def view(buf):
             return None if buf is None else buf[layer, rows, :, sl]

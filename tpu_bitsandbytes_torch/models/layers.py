@@ -201,12 +201,28 @@ def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
     return x @ w.t().to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
-    """RMSNorm; the normalized activation is cast back to x's dtype before
-    the weight multiply (HF Llama's order)."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
+             offset: float = 0.0):
+    """RMSNorm. The default (offset 0) casts the normalized activation back
+    to x's dtype before the weight multiply (HF Llama's order); Gemma's
+    zero-centered weights (``offset=1.0``) multiply by ``w + 1`` in f32,
+    before the cast."""
     x32 = x.to(torch.float32)
     var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if offset:
+        w = weight.to(torch.float32) + offset
+        return ((x32 * torch.rsqrt(var + eps)) * w).to(x.dtype)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5):
+    """LayerNorm, normalized in f32, then weight and bias in x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * weight.to(x.dtype) + bias.to(x.dtype)
 
 
 def rope_table(head_dim: int, max_seq: int, theta: float = 10000.0,
@@ -236,21 +252,38 @@ def rope_table(head_dim: int, max_seq: int, theta: float = 10000.0,
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """x [..., S, H, D]; cos/sin [..., S, D/2] gathered at x's positions."""
+    """x [..., S, H, D]; cos/sin [..., S, R/2] gathered at x's positions.
+    R = 2 * cos.shape[-1] is the rotary dim: with R < D (partial rotary,
+    Phi-2 and StableLM) the trailing D - R dims pass through."""
     d2 = cos.shape[-1]
     x1, x2 = x[..., :d2], x[..., d2:2 * d2]
     c = cos[..., :, None, :].to(x.dtype)
     s = sin[..., :, None, :].to(x.dtype)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s, x[..., 2 * d2:]],
+                     dim=-1)
 
 
 def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
                  window: Optional[int] = None, kpos_start: int = 0,
-                 device=None) -> torch.Tensor:
+                 ring: Optional[int] = None, device=None) -> torch.Tensor:
     """Causal (optionally sliding-window) keep-mask: [1,1,1,S,T] for an
     aligned prefill (``causal_offset`` None), else [B,1,1,S,T] with
     ``causal_offset`` [B, S] the queries' absolute positions and key index
-    0 at absolute position ``kpos_start``."""
+    0 at absolute position ``kpos_start``. ``window``: a query at p sees
+    keys in (p - window, p]. ``ring``: a rolling cache of ``ring`` entries,
+    where key index r holds the last absolute position congruent to r
+    modulo ``ring`` at or before the query's (unwritten entries, at
+    negative positions, are masked); decode only."""
+    if ring is not None:
+        if causal_offset is None:
+            raise ValueError("the ring mask needs causal_offset")
+        r = torch.arange(t, device=causal_offset.device)[None, None, :]
+        off = causal_offset[:, :, None].long()
+        a = off - torch.remainder(off - r, ring)
+        keep = a >= 0
+        if window is not None:
+            keep &= a > off - window
+        return keep[:, None, None]
     if causal_offset is None:
         if kpos_start != 0:
             raise ValueError("kpos_start needs causal_offset")
@@ -266,6 +299,11 @@ def _causal_mask(s: int, t: int, causal_offset: Optional[torch.Tensor],
     if window is not None:
         keep &= kpos[None, None, :] > off - window
     return keep[:, None, None]
+
+
+def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma2's logit soft-capping, cap * tanh(x / cap); None: as is."""
+    return logits if cap is None else torch.tanh(logits / cap) * cap
 
 
 def jax_takes_its_kernel(s: int, d: int) -> bool:
@@ -308,25 +346,32 @@ def gqa_attention_flash(q, k, v, *, scale=None, window=None, softcap=None):
                            block_k=_SCAN_BLOCK)
 
 
-def gqa_attention(q, k, v, *, causal_offset=None, scale=None
+def gqa_attention(q, k, v, *, causal_offset=None, scale=None, window=None,
+                  softcap=None, kpos_start: int = 0, ring=None
                   ) -> torch.Tensor:
     """Dense grouped-query attention, computed in f32.
 
     q [B, S, H, D]; k/v [B, T, H_kv, D] token-major. ``causal_offset``
     [B, S]: the queries' absolute positions (None: aligned causal prefill,
-    S == T). Aligned prefills of 1024 tokens or more go to
-    :func:`gqa_attention_flash`, as in the JAX package.
+    S == T). ``window``, ``kpos_start`` and ``ring``: see
+    :func:`_causal_mask`; ``softcap`` caps the scaled logits. Aligned
+    prefills of 1024 tokens or more go to :func:`gqa_attention_flash`, as in
+    the JAX package.
     """
     b, s, h, d = q.shape
     t, h_kv = k.shape[1], k.shape[2]
-    if causal_offset is None and s == t and s >= FLASH_PREFILL_THRESHOLD:
-        return gqa_attention_flash(q, k, v, scale=scale)
+    if (causal_offset is None and ring is None and kpos_start == 0
+            and s == t and s >= FLASH_PREFILL_THRESHOLD):
+        return gqa_attention_flash(q, k, v, scale=scale, window=window,
+                                   softcap=softcap)
     rep = h // h_kv
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     qg = q.reshape(b, s, h_kv, rep, d).to(torch.float32)
     logits = torch.einsum("bshrd,bthd->bhrst", qg, k.to(torch.float32)) * scale
-    mask = _causal_mask(s, t, causal_offset, device=q.device)
+    logits = _softcap(logits, softcap)
+    mask = _causal_mask(s, t, causal_offset, window, kpos_start, ring,
+                        device=q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
@@ -337,15 +382,18 @@ def _half(dtype) -> bool:
     return dtype in (torch.bfloat16, torch.float16)
 
 
-def gqa_attention_hm(q, k, v, *, causal_offset=None, scale=None
-                     ) -> torch.Tensor:
+def gqa_attention_hm(q, k, v, *, causal_offset=None, scale=None,
+                     window=None, softcap=None, kpos_start: int = 0,
+                     ring=None) -> torch.Tensor:
     """GQA over head-major unquantized K/V (the bf16 KV cache's layout).
 
     q [B, S, H, D]; k/v [B, H_kv, T, D]. The JAX package's dtype policy:
     half-precision q contracts half-precision operands with f32
     accumulation (here: f32 products of the half values, which are exact)
     and rounds the probabilities to q's dtype before the PV product; f32
-    stays f32. ``causal_offset`` [B, S]: the queries' absolute positions.
+    stays f32. ``causal_offset`` [B, S]: the queries' absolute positions;
+    ``window``, ``softcap``, ``kpos_start`` and ``ring`` as in
+    :func:`gqa_attention`.
     """
     b, s, h, d = q.shape
     h_kv, t = k.shape[1], k.shape[2]
@@ -357,7 +405,9 @@ def gqa_attention_hm(q, k, v, *, causal_offset=None, scale=None
     qg = q.reshape(b, s, h_kv, rep, d).to(f32)
     logits = torch.einsum("bshrd,bhtd->bhrst", qg,
                           k.to(cd).to(f32)) * scale
-    mask = _causal_mask(s, t, causal_offset, device=q.device)
+    logits = _softcap(logits, softcap)
+    mask = _causal_mask(s, t, causal_offset, window, kpos_start, ring,
+                        device=q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(cd).to(f32)
     out = torch.einsum("bhrst,bhtd->bshrd", probs, v.to(cd).to(f32))
@@ -366,7 +416,8 @@ def gqa_attention_hm(q, k, v, *, causal_offset=None, scale=None
 
 def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
                            causal_offset=None, scale=None, window=None,
-                           softcap=None, kpos_start: int = 0, staged=None):
+                           softcap=None, kpos_start: int = 0, ring=None,
+                           staged=None):
     """GQA directly over int8 head-major KV codes, accumulated in f32.
 
     q [B, S, H, D]; k_q/v_q int8 [B, H_kv, T, D]; k_scale/v_scale f32
@@ -379,7 +430,8 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
     step)``, the decode chunk's staged block (``KVCache.read_stage``),
     joined as a second key block: the main block is cut at the chunk start
     (``kpos <= off - step - 1``), staged key j counts when ``j <= step``,
-    and one softmax covers both. Requires S == 1.
+    and one softmax covers both. Requires S == 1 and no ``ring`` (see
+    :func:`_causal_mask`).
     """
     b, s, h, d = q.shape
     h_kv, t = k_q.shape[1], k_q.shape[2]
@@ -398,15 +450,14 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
     logits = logits * (k_scale * (scale / 127.0))[:, :, None, None, :]
     neg = torch.full((), -1e30, dtype=f32, device=q.device)
     if staged is not None:
-        if s != 1:
-            raise ValueError("staged attention is decode-only (S == 1)")
+        if s != 1 or ring is not None:
+            raise ValueError("staged attention is decode-only (S == 1) "
+                             "and takes no ring")
         st_k, st_ks, st_v, st_vs, step = staged
         c = st_k.shape[2]
         lg_st = torch.einsum("bshrd,bhtd->bhrst", qg, st_k.to(f32))
         lg_st = lg_st * (st_ks * (scale / 127.0))[:, :, None, None, :]
-        if softcap is not None:
-            logits = torch.tanh(logits / softcap) * softcap
-            lg_st = torch.tanh(lg_st / softcap) * softcap
+        logits, lg_st = _softcap(logits, softcap), _softcap(lg_st, softcap)
         kpos = kpos_start + torch.arange(t, device=q.device)[None, None, :]
         off = causal_offset[:, :, None]
         keep_main = kpos <= off - step - 1
@@ -431,9 +482,9 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
                               st_v.to(f32)))
         out = out / denom.permute(0, 3, 1, 2, 4)
         return out.reshape(b, s, h, d).to(q.dtype)
-    if softcap is not None:
-        logits = torch.tanh(logits / softcap) * softcap
-    mask = _causal_mask(s, t, causal_offset, window, kpos_start, q.device)
+    logits = _softcap(logits, softcap)
+    mask = _causal_mask(s, t, causal_offset, window, kpos_start, ring,
+                        device=q.device)
     logits = torch.where(mask, logits, neg)
     probs = torch.softmax(logits, dim=-1)
     pv = rounded(probs * (v_scale / 127.0)[:, :, None, None, :])

@@ -2,9 +2,13 @@
 
 Parameters follow the JAX package's tree: ``{"embed", "layers": [...],
 "final_norm", "lm_head"?}`` with per-layer dicts whose linear leaves are raw
-tensors, ``{"w", "b"}`` dicts or :class:`QLinear4`. Only the Llama trunk is
-ported (RMSNorm, SiLU-gated MLP, full causal attention, optional q/k/v
-biases and tied embeddings).
+tensors, ``{"w", "b"}`` dicts or :class:`QLinear4`. The families of the JAX
+package's ``LlamaConfig`` run on one trunk: Llama and Qwen2 (q/k/v biases),
+Mistral (sliding windows), Mixtral and Qwen2-MoE (a sparse-MoE MLP under
+``layer["moe"]``), Gemma (GeLU-tanh, ``(1 + w)`` RMSNorm, scaled
+embeddings), Gemma2 (sandwich norms, logit softcaps, alternating windows),
+Phi-2 (LayerNorm over ``{"w", "b"}`` norm leaves, parallel blocks, a
+non-gated MLP, partial rotary, an ``lm_head`` bias) and StableLM.
 """
 
 from __future__ import annotations
@@ -18,17 +22,26 @@ import torch.utils.checkpoint
 
 from ..ops.flash_decode import flash_decode_attention
 from .layers import (QLinear4, apply_rope, gqa_attention, gqa_attention_hm,
-                     gqa_attention_kv_quant, linear_apply, rms_norm,
-                     rope_table)
+                     gqa_attention_kv_quant, layer_norm, linear_apply,
+                     rms_norm, rope_table)
 
 Params = Dict[str, Any]
 
 _LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
                  "gate_proj", "up_proj", "down_proj")
+_MLP_NAMES = ("gate_proj", "up_proj", "down_proj")
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
+    """The JAX package's ``LlamaConfig``, field for field (see its
+    comments): ``sliding_window`` (with ``sliding_window_pattern`` or the
+    per-layer ``sliding_window_layers``), the Gemma knobs (``hidden_act``,
+    ``rms_weight_offset``, ``scale_embeddings``), Gemma2's (``post_norms``,
+    the two softcaps, ``query_pre_attn_scalar``), the MoE MLP
+    (``num_experts`` > 0, top-``experts_per_token``, ``moe_*``) and
+    Phi/StableLM's (``norm_type``, ``parallel_blocks``, ``gated_mlp``,
+    ``rope_partial_factor``)."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -42,12 +55,36 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
     attention_bias: bool = False
+    sliding_window: Optional[int] = None
     rope_scaling: Optional[Tuple] = None
+    hidden_act: str = "silu"
+    rms_weight_offset: float = 0.0
+    scale_embeddings: bool = False
+    post_norms: bool = False
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    sliding_window_pattern: Optional[int] = None
+    sliding_window_layers: Optional[Tuple[bool, ...]] = None
+    num_experts: int = 0
+    experts_per_token: int = 2
+    moe_intermediate_size: Optional[int] = None
+    moe_norm_topk: bool = True
+    moe_shared_expert_size: Optional[int] = None
+    norm_type: str = "rms"
+    parallel_blocks: bool = False
+    gated_mlp: bool = True
+    rope_partial_factor: float = 1.0
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    @property
+    def rotary_dim(self) -> int:
+        return int(self.hd * self.rope_partial_factor)
+
+    # ---- the JAX package's presets ---------------------------------------
     @staticmethod
     def tiny() -> "LlamaConfig":
         return LlamaConfig(vocab_size=512, hidden_size=128,
@@ -63,22 +100,233 @@ class LlamaConfig:
         return LlamaConfig(hidden_size=5120, intermediate_size=13824,
                            num_layers=40, num_heads=40, num_kv_heads=40)
 
+    @staticmethod
+    def llama2_70b() -> "LlamaConfig":
+        return LlamaConfig(hidden_size=8192, intermediate_size=28672,
+                           num_layers=80, num_heads=64, num_kv_heads=8)
 
-def _norm(x, weight, config: LlamaConfig):
-    return rms_norm(x, weight, config.rms_eps)
+    @staticmethod
+    def tiny_qwen2() -> "LlamaConfig":
+        return dataclasses.replace(LlamaConfig.tiny(), rope_theta=1e6,
+                                   attention_bias=True, tie_embeddings=True)
+
+    @staticmethod
+    def qwen2_5_0_5b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=151936, hidden_size=896,
+                           intermediate_size=4864, num_layers=24,
+                           num_heads=14, num_kv_heads=2, rope_theta=1e6,
+                           rms_eps=1e-6, max_seq_len=32768,
+                           attention_bias=True, tie_embeddings=True)
+
+    @staticmethod
+    def tiny_gemma() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=512, hidden_size=128,
+                           intermediate_size=256, num_layers=2, num_heads=4,
+                           num_kv_heads=1, head_dim=32, max_seq_len=128,
+                           rms_eps=1e-6, tie_embeddings=True,
+                           hidden_act="gelu_tanh", rms_weight_offset=1.0,
+                           scale_embeddings=True)
+
+    @staticmethod
+    def gemma_2b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=256000, hidden_size=2048,
+                           intermediate_size=16384, num_layers=18,
+                           num_heads=8, num_kv_heads=1, head_dim=256,
+                           max_seq_len=8192, rms_eps=1e-6,
+                           tie_embeddings=True, hidden_act="gelu_tanh",
+                           rms_weight_offset=1.0, scale_embeddings=True)
+
+    @staticmethod
+    def gemma_7b() -> "LlamaConfig":
+        return dataclasses.replace(LlamaConfig.gemma_2b(), hidden_size=3072,
+                                   intermediate_size=24576, num_layers=28,
+                                   num_heads=16, num_kv_heads=16)
+
+    @staticmethod
+    def tiny_gemma2() -> "LlamaConfig":
+        return dataclasses.replace(
+            LlamaConfig.tiny_gemma(), num_layers=4, num_kv_heads=2,
+            post_norms=True, attn_logit_softcap=50.0,
+            final_logit_softcap=30.0, query_pre_attn_scalar=32.0,
+            sliding_window=16, sliding_window_pattern=2)
+
+    @staticmethod
+    def gemma2_9b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=256000, hidden_size=3584,
+                           intermediate_size=14336, num_layers=42,
+                           num_heads=16, num_kv_heads=8, head_dim=256,
+                           max_seq_len=8192, rms_eps=1e-6,
+                           tie_embeddings=True, hidden_act="gelu_tanh",
+                           rms_weight_offset=1.0, scale_embeddings=True,
+                           post_norms=True, attn_logit_softcap=50.0,
+                           final_logit_softcap=30.0,
+                           query_pre_attn_scalar=256.0, sliding_window=4096,
+                           sliding_window_pattern=2)
+
+    @staticmethod
+    def tiny_mixtral() -> "LlamaConfig":
+        return dataclasses.replace(LlamaConfig.tiny(), num_experts=4,
+                                   experts_per_token=2)
+
+    @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                           intermediate_size=14336, num_layers=32,
+                           num_heads=32, num_kv_heads=8, max_seq_len=32768,
+                           rope_theta=1e6, num_experts=8,
+                           experts_per_token=2)
+
+    @staticmethod
+    def tiny_qwen2_moe() -> "LlamaConfig":
+        return dataclasses.replace(
+            LlamaConfig.tiny(), rope_theta=1e6, attention_bias=True,
+            num_experts=4, experts_per_token=2, moe_intermediate_size=96,
+            moe_norm_topk=False, moe_shared_expert_size=160)
+
+    @staticmethod
+    def tiny_phi2() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=512, hidden_size=128,
+                           intermediate_size=512, num_layers=2, num_heads=4,
+                           num_kv_heads=4, max_seq_len=128,
+                           norm_type="layernorm", parallel_blocks=True,
+                           gated_mlp=False, hidden_act="gelu_tanh",
+                           rope_partial_factor=0.5, attention_bias=True)
+
+    @staticmethod
+    def tiny_stablelm() -> "LlamaConfig":
+        return dataclasses.replace(LlamaConfig.tiny(), norm_type="layernorm",
+                                   rope_partial_factor=0.25)
+
+    @staticmethod
+    def tiny_mistral() -> "LlamaConfig":
+        return dataclasses.replace(LlamaConfig.tiny(), sliding_window=16)
+
+    @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                           intermediate_size=14336, num_layers=32,
+                           num_heads=32, num_kv_heads=8, max_seq_len=32768,
+                           sliding_window=4096)
+
+    @staticmethod
+    def qwen2_5_7b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=152064, hidden_size=3584,
+                           intermediate_size=18944, num_layers=28,
+                           num_heads=28, num_kv_heads=4, rope_theta=1e6,
+                           rms_eps=1e-6, max_seq_len=32768,
+                           attention_bias=True)
+
+
+def _norm(x, leaf, config: LlamaConfig):
+    """RMSNorm over a weight leaf, or LayerNorm over a ``{"w", "b"}`` leaf
+    (``norm_type="layernorm"``)."""
+    if config.norm_type == "layernorm":
+        return layer_norm(x, leaf["w"], leaf["b"], config.rms_eps)
+    return rms_norm(x, leaf, config.rms_eps, config.rms_weight_offset)
+
+
+def _act(config: LlamaConfig):
+    if config.hidden_act == "silu":
+        return torch.nn.functional.silu
+    if config.hidden_act in ("gelu_tanh", "gelu_pytorch_tanh"):
+        return functools.partial(torch.nn.functional.gelu,
+                                 approximate="tanh")
+    if config.hidden_act == "gelu":
+        return torch.nn.functional.gelu
+    raise ValueError(f"unknown hidden_act: {config.hidden_act!r}")
+
+
+def _expert(exp, x, act):
+    """One gated MLP (an expert, or the shared expert): fused
+    ``gateup_proj`` or separate gate/up, then ``down_proj``."""
+    if "gateup_proj" in exp:
+        gate, up = torch.chunk(linear_apply(exp["gateup_proj"], x), 2,
+                               dim=-1)
+    else:
+        gate = linear_apply(exp["gate_proj"], x)
+        up = linear_apply(exp["up_proj"], x)
+    return linear_apply(exp["down_proj"], act(gate) * up)
+
+
+def moe_routing(router: torch.Tensor, x: torch.Tensor,
+                config: LlamaConfig):
+    """The router of :func:`_moe_mlp`: f32 logits [.., E], a softmax, the
+    top-k (ties to the lower expert index, as ``jax.lax.top_k``: a stable
+    sort of the negated probabilities), renormalized when
+    ``moe_norm_topk``. Returns (experts [.., k] int64, weights [.., k]
+    f32, probs [.., E] f32)."""
+    logits = x.to(torch.float32) @ router.to(torch.float32).t()
+    probs = torch.softmax(logits, dim=-1)
+    k = config.experts_per_token
+    top = torch.argsort(-probs, dim=-1, stable=True)[..., :k]
+    topv = probs.gather(-1, top)
+    if config.moe_norm_topk:            # Mixtral renormalizes; Qwen2-MoE not
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    return top, topv, probs
+
+
+def _moe_mlp(moe, x, config: LlamaConfig):
+    """The sparse-MoE MLP, as the JAX package computes it: every expert
+    runs on every token and is scaled by its routing weight (zero where
+    not chosen) cast to x's dtype, and the experts are summed in index
+    order in x's dtype; Qwen2-MoE adds its shared expert scaled by
+    ``sigmoid(x @ shared_gate.T)`` (f32, cast to x's dtype)."""
+    top, topv, probs = moe_routing(moe["router"], x, config)
+    w = torch.zeros_like(probs).scatter(-1, top, topv)      # [.., E]
+    act = _act(config)
+    out = None
+    for e, exp in enumerate(moe["experts"]):
+        d = _expert(exp, x, act) * w[..., e:e + 1].to(x.dtype)
+        out = d if out is None else out + d
+    if "shared_expert" in moe:
+        g = torch.sigmoid(x.to(torch.float32)
+                          @ moe["shared_gate"].to(torch.float32).t())
+        out = out + _expert(moe["shared_expert"], x, act) * g.to(x.dtype)
+    return out
 
 
 def _embed_tokens(params, tokens, config: LlamaConfig):
-    return params["embed"][tokens].to(config.dtype)
+    x = params["embed"][tokens].to(config.dtype)
+    if config.scale_embeddings:         # Gemma: sqrt(H) rounded to the dtype
+        x = x * torch.tensor(config.hidden_size ** 0.5, dtype=config.dtype,
+                             device=x.device)
+    return x
+
+
+def _layer_window(config: LlamaConfig, li: int) -> Optional[int]:
+    """Layer ``li``'s attention window: the explicit
+    ``sliding_window_layers`` first, then Gemma2's pattern (layers with
+    ``li % p == p - 1`` attend globally), else every layer windowed."""
+    if config.sliding_window is None:
+        return None
+    if config.sliding_window_layers is not None:
+        return (config.sliding_window
+                if config.sliding_window_layers[li] else None)
+    p = config.sliding_window_pattern
+    if p is None:
+        return config.sliding_window
+    return None if li % p == p - 1 else config.sliding_window
+
+
+def _attn_scale(config: LlamaConfig) -> Optional[float]:
+    """Gemma2's ``query_pre_attn_scalar ** -0.5``; None: 1/sqrt(head_dim)."""
+    if config.query_pre_attn_scalar is not None:
+        return config.query_pre_attn_scalar ** -0.5
+    return None
 
 
 def finish_logits(logits, config: LlamaConfig):
-    """The lm logits epilogue: f32."""
-    return logits.to(torch.float32)
+    """The lm logits epilogue: f32, then Gemma2's final softcap."""
+    logits = logits.to(torch.float32)
+    cap = config.final_logit_softcap
+    if cap is not None:
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def head_logits(params, x, config: LlamaConfig):
-    """LM head (tied or separate): x [..., H] -> f32 logits [..., V]."""
+    """LM head (tied or separate, Phi-2's with a bias): x [..., H] -> f32
+    logits [..., V]."""
     head = params.get("lm_head")
     if head is None:
         logits = x @ params["embed"].t().to(x.dtype)
@@ -89,8 +337,12 @@ def head_logits(params, x, config: LlamaConfig):
 
 def init_params(config: LlamaConfig, *, generator: torch.Generator,
                 device) -> Params:
-    """Random ``config.dtype`` params, normal(0, 0.02) weights and unit norm
-    weights, drawn from ``generator`` (which must live on ``device``)."""
+    """Random ``config.dtype`` params, normal(0, 0.02) weights, unit norm
+    weights (zero LayerNorm biases), drawn from ``generator`` (which must
+    live on ``device``); the JAX package's tree for every family (MoE
+    experts under ``layer["moe"]``, no gate without ``gated_mlp``, no
+    ``post_attn_norm`` with ``parallel_blocks``, Gemma2's ``pre_ffn_norm``
+    and ``post_ffn_norm``)."""
     dtype = config.dtype
     h, hd = config.hidden_size, config.hd
     n_q, n_kv = config.num_heads * hd, config.num_kv_heads * hd
@@ -106,20 +358,48 @@ def init_params(config: LlamaConfig, *, generator: torch.Generator,
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * 0.02).to(dtype)
 
+    def ones():
+        return torch.ones((h,), dtype=dtype, device=device)
+
+    def norm_leaf():
+        if config.norm_type == "layernorm":
+            return {"w": ones(), "b": torch.zeros((h,), dtype=dtype,
+                                                  device=device)}
+        return ones()
+
+    def mlp(i):
+        return {"gate_proj": dense((i, h)), "up_proj": dense((i, h)),
+                "down_proj": dense((h, i))}
+
     biased = ("q_proj", "k_proj", "v_proj") if config.attention_bias else ()
     layers = []
     for _ in range(config.num_layers):
         layer = {}
         for name in _LINEAR_NAMES:
+            if name in _MLP_NAMES and (config.num_experts > 0 or (
+                    not config.gated_mlp and name == "gate_proj")):
+                continue
             w = dense(shapes[name])
             layer[name] = ({"w": w, "b": dense(shapes[name][:1])}
                            if name in biased else w)
-        layer["input_norm"] = torch.ones((h,), dtype=dtype, device=device)
-        layer["post_attn_norm"] = torch.ones((h,), dtype=dtype,
-                                             device=device)
+        if config.num_experts > 0:
+            mi = config.moe_intermediate_size or config.intermediate_size
+            layer["moe"] = {
+                "router": dense((config.num_experts, h)),
+                "experts": [mlp(mi) for _ in range(config.num_experts)]}
+            if config.moe_shared_expert_size:
+                layer["moe"]["shared_expert"] = mlp(
+                    config.moe_shared_expert_size)
+                layer["moe"]["shared_gate"] = dense((1, h))
+        layer["input_norm"] = norm_leaf()
+        if not config.parallel_blocks:
+            layer["post_attn_norm"] = norm_leaf()
+        if config.post_norms:
+            layer["pre_ffn_norm"] = ones()
+            layer["post_ffn_norm"] = ones()
         layers.append(layer)
     params = {"embed": dense((config.vocab_size, h)), "layers": layers,
-              "final_norm": torch.ones((h,), dtype=dtype, device=device)}
+              "final_norm": norm_leaf()}
     if not config.tie_embeddings:
         params["lm_head"] = dense((config.vocab_size, h))
     return params
@@ -129,16 +409,16 @@ def quantize_params(params: Params, blocksize: int = 64,
                     quant_type: str = "nf4", dtype=torch.bfloat16,
                     compress_statistics: bool = False,
                     fuse_projections: bool = False) -> Params:
-    """Replace every linear projection (and lm_head) with a
-    :class:`QLinear4`. ``fuse_projections`` concatenates q/k/v into
-    ``qkv_proj`` and gate/up into ``gateup_proj`` (4 matmuls per layer in
-    place of 7); 4-bit blocks run along K, so fusing rows changes no
-    quantized value."""
+    """Replace every linear projection (the experts', and lm_head) with a
+    :class:`QLinear4`; MoE routers and shared-expert gates stay in full
+    precision. ``fuse_projections`` concatenates q/k/v into ``qkv_proj``
+    and each gated MLP's (and expert's) gate/up into ``gateup_proj``;
+    4-bit blocks run along K, so fusing rows changes no quantized value."""
     def wb(leaf):
         return (leaf["w"], leaf.get("b")) if isinstance(leaf, dict) else (
             leaf, None)
 
-    def q(leaves):
+    def q(*leaves):
         ws, bs = zip(*(wb(l) for l in leaves))
         bias = None
         if any(b is not None for b in bs):
@@ -150,36 +430,56 @@ def quantize_params(params: Params, blocksize: int = 64,
             quant_type=quant_type, dtype=dtype, bias=bias,
             compress_statistics=compress_statistics)
 
+    def q_mlp(m):
+        """A gated MLP's (or expert's) linears, fused or not; a non-gated
+        MLP's up/down."""
+        if fuse_projections and "gate_proj" in m:
+            return {"gateup_proj": q(m["gate_proj"], m["up_proj"]),
+                    "down_proj": q(m["down_proj"])}
+        return {n: q(m[n]) for n in _MLP_NAMES if n in m}
+
     out = dict(params)
     out["layers"] = []
     for layer in params["layers"]:
         ql = {k: v for k, v in layer.items() if k not in _LINEAR_NAMES}
-        if fuse_projections:
-            ql["qkv_proj"] = q([layer["q_proj"], layer["k_proj"],
-                                layer["v_proj"]])
-            ql["o_proj"] = q([layer["o_proj"]])
-            ql["gateup_proj"] = q([layer["gate_proj"], layer["up_proj"]])
-            ql["down_proj"] = q([layer["down_proj"]])
+        if "moe" in layer:
+            moe = layer["moe"]
+            ql["moe"] = {"router": moe["router"],
+                         "experts": [q_mlp(e) for e in moe["experts"]]}
+            if "shared_expert" in moe:
+                ql["moe"]["shared_expert"] = q_mlp(moe["shared_expert"])
+                ql["moe"]["shared_gate"] = moe["shared_gate"]
         else:
-            for name in _LINEAR_NAMES:
-                ql[name] = q([layer[name]])
+            ql.update(q_mlp(layer))
+        if fuse_projections:
+            ql["qkv_proj"] = q(layer["q_proj"], layer["k_proj"],
+                               layer["v_proj"])
+            ql["o_proj"] = q(layer["o_proj"])
+        else:
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                ql[name] = q(layer[name])
         out["layers"].append(ql)
     if "lm_head" in params:
-        out["lm_head"] = q([params["lm_head"]])
+        out["lm_head"] = q(params["lm_head"])
     return out
 
 
 def build_runtime_cache(params: Params, fmt: str = "int8",
                         drop_packed: bool = False) -> Params:
     """Attach a runtime execution cache ("int8", "int4" or "bf16"; see
-    :meth:`QLinear4.with_runtime_cache`) to every :class:`QLinear4`."""
-    def conv(w):
-        return (w.with_runtime_cache(fmt, drop_packed=drop_packed)
-                if isinstance(w, QLinear4) else w)
+    :meth:`QLinear4.with_runtime_cache`) to every :class:`QLinear4` of the
+    layers (experts included) and the lm_head."""
+    def conv(t):
+        if isinstance(t, QLinear4):
+            return t.with_runtime_cache(fmt, drop_packed=drop_packed)
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [conv(v) for v in t]
+        return t
 
     out = dict(params)
-    out["layers"] = [{k: conv(v) for k, v in layer.items()}
-                     for layer in params["layers"]]
+    out["layers"] = conv(params["layers"])
     if "lm_head" in params:
         out["lm_head"] = conv(params["lm_head"])
     return out
@@ -209,8 +509,8 @@ def to_device(tree, device):
 
 @functools.lru_cache(maxsize=8)
 def _rope(config: LlamaConfig, device: torch.device):
-    return rope_table(config.hd, config.max_seq_len, config.rope_theta,
-                      config.rope_scaling, device=device)
+    return rope_table(config.rotary_dim, config.max_seq_len,
+                      config.rope_theta, config.rope_scaling, device=device)
 
 
 def _qkv(layer, h, config: LlamaConfig):
@@ -227,27 +527,47 @@ def _qkv(layer, h, config: LlamaConfig):
             v.reshape(b, s, nkv, hd))
 
 
-def _mlp(layer, h):
-    if "gateup_proj" in layer:
-        gate, up = torch.chunk(linear_apply(layer["gateup_proj"], h), 2,
-                               dim=-1)
-    else:
-        gate = linear_apply(layer["gate_proj"], h)
-        up = linear_apply(layer["up_proj"], h)
-    return linear_apply(layer["down_proj"], torch.nn.functional.silu(gate) * up)
+def _mlp(layer, h, config: LlamaConfig):
+    if "moe" in layer:
+        return _moe_mlp(layer["moe"], h, config)
+    if not config.gated_mlp:            # Phi-2: up -> act -> down
+        return linear_apply(layer["down_proj"],
+                            _act(config)(linear_apply(layer["up_proj"], h)))
+    return _expert(layer, h, _act(config))
 
 
-def _layer(layer, x, cos, sin, config: LlamaConfig):
+def _block_out(layer, x, h, o, config: LlamaConfig):
+    """A layer after its attention: ``o`` the o_proj output, ``h`` the
+    input norm's output. Gemma2 norms the attention and MLP outputs
+    (``post_attn_norm``, ``post_ffn_norm``) and the MLP's input with
+    ``pre_ffn_norm``; a parallel block (Phi-2) returns x + o + mlp(h)."""
+    eps, off = config.rms_eps, config.rms_weight_offset
+    if config.post_norms:
+        o = rms_norm(o, layer["post_attn_norm"], eps, off)
+    if not config.parallel_blocks:
+        x = x + o
+        h = _norm(x, layer["pre_ffn_norm" if config.post_norms
+                  else "post_attn_norm"], config)
+    d = _mlp(layer, h, config)
+    if config.post_norms:
+        d = rms_norm(d, layer["post_ffn_norm"], eps, off)
+    if config.parallel_blocks:
+        return x + o + d
+    return x + d
+
+
+def _layer(layer, x, cos, sin, config: LlamaConfig, li: int):
     """One transformer layer of the causal prefill: (x, (k, v))."""
     b, s, _ = x.shape
     h = _norm(x, layer["input_norm"], config)
     q, k, v = _qkv(layer, h, config)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = gqa_attention(q, k, v)
-    x = x + linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
-    x = x + _mlp(layer, _norm(x, layer["post_attn_norm"], config))
-    return x, (k, v)
+    attn = gqa_attention(q, k, v, window=_layer_window(config, li),
+                         scale=_attn_scale(config),
+                         softcap=config.attn_logit_softcap)
+    o = linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
+    return _block_out(layer, x, h, o, config), (k, v)
 
 
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -263,12 +583,12 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     cos, sin = cos_full[None, :s], sin_full[None, :s]
     x = _embed_tokens(params, tokens, config)
     new_kv = []
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         if remat:
             x, kv = torch.utils.checkpoint.checkpoint(
-                _layer, layer, x, cos, sin, config, use_reentrant=False)
+                _layer, layer, x, cos, sin, config, li, use_reentrant=False)
         else:
-            x, kv = _layer(layer, x, cos, sin, config)
+            x, kv = _layer(layer, x, cos, sin, config, li)
         if return_kv:
             new_kv.append(kv)
     x = _norm(x, params["final_norm"], config)
@@ -278,7 +598,7 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
 
 def decode_layer(layer, x, cos, sin, positions, cache, li: int,
                  config: LlamaConfig, *, attn_span: Optional[int] = None,
-                 slot: Optional[int] = None):
+                 slot: Optional[int] = None, attn_start: int = 0):
     """One transformer layer of the cached decode step.
 
     x [B, 1, H] with ``positions`` [B] int32, each slot's write position;
@@ -296,8 +616,12 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     inside a decode chunk), or over the dequantized cache outside one;
     several queries per slot (a verify step, a slot's chunk) through
     :func:`gqa_attention_kv_quant` in half precision; an unquantized cache
-    through :func:`gqa_attention_hm`. ``attn_span`` bounds the KV read to
-    the first ``attn_span`` positions. Returns (x, cache).
+    through :func:`gqa_attention_hm`. ``attn_span`` and ``attn_start``
+    bound the KV read to positions [attn_start, attn_span) (a
+    fully-windowed model's lower bound). A ring cache (``cache.ring``) is
+    read whole, never by K2, under the ring mask. Each layer attends with
+    its window (:func:`_layer_window`), :func:`_attn_scale` and the
+    attention softcap. Returns (x, cache).
     """
     b, s, _ = x.shape
     pos2d = positions if positions.dim() == 2 else positions[:, None]
@@ -306,34 +630,41 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     half = config.dtype in (torch.bfloat16, torch.float16)
+    ring = cache.max_seq if cache.ring else None
+    if ring is not None:
+        # the whole ring is read; the ring mask maps entries to positions
+        attn_span, attn_start = None, 0
     if slot is None:
         cache = cache.write_decode(li, k, v, positions)
-        kq, ks, vq, vs = cache.read_raw(li, attn_span)
+        kq, ks, vq, vs = cache.read_raw(li, attn_span, attn_start)
     else:
         cache = cache.write_decode(li, k, v, pos2d, slots=slot)
-        kq, ks, vq, vs = cache.read_raw_slot(li, slot, attn_span)
+        kq, ks, vq, vs = cache.read_raw_slot(li, slot, attn_span, attn_start)
     staged = cache.read_stage(li) if cache.stage is not None else None
+    kw = dict(window=_layer_window(config, li), scale=_attn_scale(config),
+              softcap=config.attn_logit_softcap, kpos_start=attn_start)
     if not cache.quantized:
-        attn = gqa_attention_hm(q, kq, vq, causal_offset=pos2d)
-    elif half and slot is None and s == 1:
+        attn = gqa_attention_hm(q, kq, vq, causal_offset=pos2d, ring=ring,
+                                **kw)
+    elif half and slot is None and s == 1 and ring is None:
         attn = flash_decode_attention(
-            q[:, 0], kq, ks, vq, vs, positions,
-            staged=staged)[:, None].to(q.dtype)
+            q[:, 0], kq, ks, vq, vs, positions, staged=staged,
+            **kw)[:, None].to(q.dtype)
     elif staged is not None:
         attn = gqa_attention_kv_quant(q, kq, ks, vq, vs, causal_offset=pos2d,
-                                      staged=staged)
+                                      staged=staged, **kw)
     elif half:
-        attn = gqa_attention_kv_quant(q, kq, ks, vq, vs, causal_offset=pos2d)
+        attn = gqa_attention_kv_quant(q, kq, ks, vq, vs, causal_offset=pos2d,
+                                      ring=ring, **kw)
     else:
         k_all = (kq.to(torch.float32) * (ks[..., None] / 127.0)).to(
             config.dtype)
         v_all = (vq.to(torch.float32) * (vs[..., None] / 127.0)).to(
             config.dtype)
-        attn = gqa_attention(q, k_all.transpose(1, 2), v_all.transpose(1, 2),
-                             causal_offset=pos2d)
-    x = x + linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
-    x = x + _mlp(layer, _norm(x, layer["post_attn_norm"], config))
-    return x, cache
+        attn = gqa_attention_hm(q, k_all, v_all, causal_offset=pos2d,
+                                ring=ring, **kw)
+    o = linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
+    return _block_out(layer, x, h, o, config), cache
 
 
 def decode_embed_and_rope(params, tokens, positions, config: LlamaConfig):

@@ -7,9 +7,10 @@ tuples, tensors (and numpy arrays), None, scalars, strings and dtypes, and
 the model types under the JAX package's tags: ``QuantState``,
 ``QLinear4`` (its packed codes, absmax or the double-quantized
 ``absmax_q`` with ``absmax_state``, and the bias; a runtime cache is not
-stored), ``LoRALinear`` and ``Module`` (the quantized ``nn`` modules, by
-class name). bfloat16 arrays are stored as their uint16 bits with the
-dtype name "bfloat16", as the JAX package stores them. Arrays load as CPU
+stored), ``LoRALinear`` and ``Module`` (the quantized ``nn`` modules and
+the GPT-2 modules of ``models/gpt2.py``, by class name). bfloat16 arrays
+are stored as their uint16 bits with the dtype name "bfloat16", as the
+JAX package stores them. Arrays load as CPU
 tensors.
 """
 
@@ -27,9 +28,6 @@ from ..functional import QuantState, dtype_name, dtype_of
 __all__ = ["save_checkpoint", "load_checkpoint", "load_quantized"]
 
 _NONE = {"__type__": "none"}
-# the JAX package's GPT-2 modules, which its checkpoints may name
-_GPT2 = {"GPT2LMHeadModel", "GPT2Block", "GPT2Attention", "GPT2MLP",
-         "LayerNorm"}
 # torch.nn attributes the JAX modules do not have
 _TORCH_ONLY = {"training", "max_norm", "norm_type", "scale_grad_by_freq",
                "sparse"}
@@ -41,17 +39,26 @@ def _module_classes():
                nn.LinearFP8, nn.OutlierAwareLinear, nn.SwitchBackLinear,
                nn.Embedding4bit, nn.Embedding8bit, nn.EmbeddingNF4,
                nn.EmbeddingFP4]
-    return {c.__name__: c for c in classes}
+    return {c.__name__: c for c in classes + _gpt2_classes()}
+
+
+def _gpt2_classes():
+    from ..models import gpt2
+    return [gpt2.GPT2LMHeadModel, gpt2.GPT2Block, gpt2.GPT2Attention,
+            gpt2.GPT2MLP, gpt2.LayerNorm]
 
 
 def _module_fields(obj: torch.nn.Module) -> Dict[str, Any]:
     """A port module's attributes under the JAX module's names: its
-    configuration, buffers and parameters (and a ``_weight_cache``)."""
+    configuration, buffers, parameters and submodules (a ``ModuleList``
+    as a list), and a ``_weight_cache``."""
     fields = {k: v for k, v in vars(obj).items()
               if not k.startswith("_") and k not in _TORCH_ONLY}
     fields.update(obj._buffers)
     fields.update({k: v.detach() if v is not None else None
                    for k, v in obj._parameters.items()})
+    fields.update({k: list(m) if isinstance(m, torch.nn.ModuleList) else m
+                   for k, m in obj._modules.items()})
     if "_weight_cache" in vars(obj):
         fields["_weight_cache"] = None
     return fields
@@ -128,14 +135,22 @@ def _module(name: str, fields: Dict[str, Any]) -> torch.nn.Module:
     """A port module from the JAX module's fields: built from those that
     name its constructor's arguments (``bias`` as whether there is one;
     Linear and Embedding take the weight's dtype), then loaded from the
-    tensors under the JAX keys, as its ``load_state_dict`` takes them."""
-    if name in _GPT2:
-        raise NotImplementedError(
-            f"checkpoint: module class {name!r} is the JAX package's GPT-2, "
-            "which the port does not have yet (ROADMAP A4)")
+    tensors under the JAX keys, as its ``load_state_dict`` takes them. A
+    GPT-2 module takes its fields as they are: submodules (a list as a
+    ``ModuleList``), tensors as parameters, and its configuration."""
     cls = _module_classes().get(name)
     if cls is None:
         raise TypeError(f"checkpoint: unknown module class {name!r}")
+    if cls in _gpt2_classes():
+        module = cls.__new__(cls)
+        torch.nn.Module.__init__(module)
+        for k, v in fields.items():
+            if isinstance(v, list):
+                v = torch.nn.ModuleList(v)
+            elif isinstance(v, torch.Tensor):
+                v = torch.nn.Parameter(v, requires_grad=v.is_floating_point())
+            setattr(module, k, v)
+        return module
     params = inspect.signature(cls.__init__).parameters
     kwargs = {k: v for k, v in fields.items()
               if k in params and k != "bias"}
