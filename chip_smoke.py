@@ -22,7 +22,9 @@ Phases (any failure raises: traceback, nonzero exit):
      at phase 5's last positions (``ms_13b_step``); K3 at the 13B path's
      two prefills and at d = 256 (64-key tiles) at one Gemma-7B layer
      (16 heads of 256, S = 2048), which no served path here runs.
-  3. full width against the CPU: a Llama-2-7B-width model with the int4
+  3. (run after phase 11a, in this process while phase 12a's ranks serve
+     on the card; its card runs are not timed) full width against the
+     CPU: a Llama-2-7B-width model with the int4
      cache, and (3b) a Llama-2-13B-width model off its packed NF4 bytes,
      each cut to 2 layers and built once from a numpy seed, run prefill
      and 8 staged decode steps on the card (kernels) and on the CPU (plain
@@ -57,15 +59,17 @@ Phases (any failure raises: traceback, nonzero exit):
      counted by the wrappers; the graphed pass's must equal them. Each
      mode's line has graphs captured, capture seconds, the graph pool's
      MiB and peak device memory. Phase 4 also counts the kernels one
-     decode-shaped matmul launches besides K1 (the A8 quantization).
-  6. The request API on phase 5's model cut to its first 20 layers
+     decode-shaped matmul launches besides K1 (the A8 quantization), and
+     records teacher-forced logits of its graphed engine on its greedy
+     tokens for phase 12.
+  6. The request API on phase 5's model cut to its first 10 layers
      (``prefill_chunk`` 256): nine requests (phase 5's prompts and a queued 300-token one) with
      repetition penalties, logprobs, a sampled request and a cancel,
      streamed through ``generate_stream`` on a graphed engine (pass A); the
      same prompts all greedy on that engine and on an eager one (pass B:
-     tokens identical, logprobs within 1e-5, 81 K4 + 20 K2 per step of a
+     tokens identical, logprobs within 1e-5, 41 K4 + 10 K2 per step of a
      penalty-and-logprobs chunk by the counters and by its graph's nodes);
-     five of them on a bf16 KV cache (pass C: no K2, 81 K4 per step,
+     five of them on a bf16 KV cache (pass C: no K2, 41 K4 per step,
      served once eager and twice graphed, tokens identical to eager);
      every 256-token chunk 80 K5 launches on the wgmma kernel and every
      final chunk 1 K4; then the
@@ -81,7 +85,7 @@ Phases (any failure raises: traceback, nonzero exit):
      ``speculative="ngram"`` (a verify step held at every position
      against decode steps fed the same tokens); the path's launches from
      an eager drive.
-  8. ``runtime_cache="auto"`` on phase 5's model (its first 20 layers) and
+  8. ``runtime_cache="auto"`` on phase 5's model (its first 10 layers) and
      prompts: "auto" must
      pick the int8 cache (``footprint()``), keep the packed codes, and
      serve graphed and eager, as phases 4-5, with
@@ -139,11 +143,39 @@ Phases (any failure raises: traceback, nonzero exit):
      plus the CPU's own bf16-vs-f32 gap; K3's and K2's calls of that run
      against their plain versions and timed. The CPU references of (b)
      and (c) run in phase 11 itself, after every timed phase.
+  12. Tensor parallelism (``parallel/``, ``DecodeEngine(mesh=)``). The
+     card is one, so a tp = 2 mesh is two processes on it over gloo
+     (``--mesh-rank``; each reports through a file, only this process
+     prints; a rank's failure or the time limit fails the phase). (a)
+     Phase 4's model and requests at tp = 2 (fused rows re-laid for the
+     mesh, the int4 cache built per shard, chunks eager): 129 K1 + 32 K2
+     per decode step on each rank, K1 at each shard shape within K1_TOL of
+     its plain version, a row shard's A8 codes equal to the unsharded
+     row's, teacher-forced logits on phase 4's tokens within E2E_TOL of
+     phase 4's (which phase 4 records on its graphed engine), and greedy
+     tokens equal to phase 4's up to any position where phase 4's top-2
+     gap is below ``TP_TIE_GAP``; step ms and tokens/s of two processes
+     sharing one card through host-staged collectives (not a scaling
+     number). (b) Llama-2-13B at full width, 4 layers, off the packed
+     bytes, tp = 2: prompts in the 64, 256 and 1024 buckets (K4, K5, K3
+     on shard shapes) and 8 forced decode steps against the same layers on
+     one device here computing o_proj and down_proj as the shards do (K4
+     quantizes each K slice with its own A8 scale, as JAX's shards do):
+     the ranks take that run's activation at every K4 call (as phase 3b),
+     their own K4 inputs but o_proj's and their logits within E2E_TOL;
+     reported, how far the per-shard scales move the plain single-device
+     run's logits, beside its own bf16-vs-f32 gap; each kernel's first
+     call per shard shape against its plain version. (c) A one-rank NCCL group in
+     this process: phase 4's model at 8 layers served graphed through
+     ``mesh=make_mesh(tp=1)`` (the chunk graphs capture the collectives)
+     with tokens identical to the plain graphed engine's, capture s and
+     step ms of both, their graphs' nodes by type.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -1636,10 +1668,41 @@ def llama7b_workload(dev):
     return cfg, params, prompts, SamplingParams(max_new_tokens=64), kw
 
 
+def teacher_forced(params, cfg, dev, prompts, outs, max_seq, cache,
+                   tp=None):
+    """Each prompt prefilled into its slot of ``cache`` (``prefill_step``),
+    then unstaged decode steps (``decode_step``, every slot active) fed
+    each request's tokens ``outs``: f32 logits [T, B, V] on the CPU, T =
+    len(outs[0]); row 0 the prefills' last logits, row j the step fed the
+    (j-1)-th token. ``tp``: a mesh engine's context (every slot local)."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    rows = []
+    for slot, pr in enumerate(prompts):
+        padded = torch.zeros((1, E._bucket(len(pr), max_seq)),
+                             dtype=torch.int32)
+        padded[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
+        logits, cache = E.prefill_step(params, cache, padded.to(dev), slot,
+                                       len(pr), cfg, tp=tp)
+        rows.append(logits.float().cpu())
+    steps = [torch.stack(rows)]
+    n = len(outs[0])
+    active = torch.ones((len(prompts),), dtype=torch.bool, device=dev)
+    span = E._span_bucket(max(map(len, prompts)) + n, max_seq)
+    for j in range(n - 1):
+        toks = torch.tensor([o[j] for o in outs], dtype=torch.int32)
+        logits, cache = E.decode_step(params, cache, toks.to(dev), active,
+                                      cfg, attn_span=span, tp=tp)
+        steps.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    return torch.stack(steps)
+
+
 def phase_serve(dev, counters, plains):
     """4: Llama-2-7B, 32 layers, int4 runtime cache, eager and graphed.
-    Returns the eager pass's launches (equal to the graphed pass's) and
-    the graphed engine's greedy tokens (an engine not warmed up)."""
+    Returns the eager pass's launches (equal to the graphed pass's), the
+    graphed engine's greedy tokens (an engine not warmed up) and, for
+    phase 12, that engine's teacher-forced logits on them
+    (:func:`teacher_forced`)."""
     cfg, params, prompts, sp, kw = llama7b_workload(dev)
     want = {"K1_int4_matmul": 129, "K2_flash_decode": 32,
             "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
@@ -1672,6 +1735,14 @@ def phase_serve(dev, counters, plains):
                   "k": cfg.hidden_size, "kernels_per_call": per_matmul,
                   "launches_per_call": {k: sum(v.values())
                                         for k, v in per_matmul.items()}})
+        if mode == "graphed":
+            t0 = time.perf_counter()
+            forced = teacher_forced(engine.params, cfg, dev, prompts,
+                                    res["passes"][-1]["outs"],
+                                    kw["max_seq"], engine.cache)
+            emit({"phase": "teacher_forced", "model": "llama2_7b",
+                  "rows": list(forced.shape),
+                  "seconds": time.perf_counter() - t0})
         results[mode] = res
         del engine
         free_memory()
@@ -1679,7 +1750,7 @@ def phase_serve(dev, counters, plains):
         "layers": cfg.num_layers, "batch": 8, "steps_per_sync": 32,
         "prompt_lens": [len(p) for p in prompts], "new_tokens": 64})
     return (results["eager"]["passes"][-1]["launches"],
-            results["graphed"]["passes"][-1]["outs"])
+            results["graphed"]["passes"][-1]["outs"], forced)
 
 
 PACKED_PROMPTS = [24, 60, 100, 200, 700, 1100, 1500, 1800]
@@ -1798,7 +1869,7 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak, workload):
 # ---------------------------------------------------------------------------
 
 CHUNK = 256         # phase 6's prefill_chunk: K5 at M = 256
-REQUESTS_LAYERS = 20    # phases 6 and 8 serve the first 20 of phase 5's
+REQUESTS_LAYERS = 10    # phases 6 and 8 serve the first 10 of phase 5's
 #                         layers (the script's time; the paths are 5's)
 
 
@@ -3388,6 +3459,8 @@ def k2_against_plain(K2, a, kw, what):
     kw = dict(kw)
     st = kw.pop("staged")
     got = K2.flash_decode_attention(q, kq, ks, vq, vs, off, staged=st, **kw)
+    if st is None:      # an unstaged step: the wrapper's masked dummy block
+        st = K2._dummy_stage(q.shape[0], kq.shape[1], q.shape[2], q.device)
     # the wrapper's defaults, which the plain version takes explicitly
     plain_kw = {"window": None, "kpos_start": 0, "softcap": None, **kw}
     if plain_kw.get("scale") is None:
@@ -3489,7 +3562,29 @@ def phase_mixtral(dev, counters, plains):
     return results["eager"]["passes"][-1]["launches"]
 
 
-def phase_mixtral_2l(dev, counters, plains, K2):
+def mixtral_2l_cpu(dev):
+    """11b's model (Mixtral-8x7B at full width, 2 layers, normal weights
+    quantized to NF4 on the card) and its CPU run, with every K4 input and
+    router choice recorded (:func:`phase_mixtral_2l`)."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    cfg = dataclasses.replace(L.LlamaConfig.mixtral_8x7b(), num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(811)
+    params = normal_nf4_params(
+        cfg, lambda shape: torch.randn(shape, generator=gen, device=dev), dev)
+    cpu_params = L.to_device(params, "cpu")
+    prompt = np.random.default_rng(812).integers(1, cfg.vocab_size,
+                                                 MOE_PROMPT).tolist()
+    t0 = time.perf_counter()
+    cpu_x, cpu_routes = [], []
+    with k4_inputs(record=cpu_x), routing_record(cpu_routes):
+        ref_pre, ref_steps, fed = run_prefill_decode(
+            cpu_params, cfg, "cpu", [prompt], None, n_steps=MOE_STEPS)
+    return {"cfg": cfg, "params": params, "prompt": prompt, "fed": fed,
+            "cpu_x": cpu_x, "routes": cpu_routes, "pre": ref_pre,
+            "steps": ref_steps, "cpu_s": time.perf_counter() - t0}
+
+
+def phase_mixtral_2l(dev, counters, plains, K2, cpu):
     """11b: Mixtral-8x7B at full width, 2 layers (normal weights quantized
     to NF4 on the card, copied to the CPU), one 128-token prompt and 4
     decode steps on the CPU (plain versions), then on the card.
@@ -3518,22 +3613,13 @@ def phase_mixtral_2l(dev, counters, plains, K2):
     carry into every later token. Each side's own choice is recorded for
     every token and layer: a token whose top-k differs is a flip, allowed
     only where the CPU's k-th vs (k+1)-th probability gap is below
-    ``MOE_TIE_GAP``."""
+    ``MOE_TIE_GAP``. ``cpu``: :func:`mixtral_2l_cpu`'s model and CPU
+    run."""
     from tpu_bitsandbytes_torch.models import llama as L
-    cfg = dataclasses.replace(L.LlamaConfig.mixtral_8x7b(), num_layers=2)
-    gen = torch.Generator(device=dev).manual_seed(811)
-    params = normal_nf4_params(
-        cfg, lambda shape: torch.randn(shape, generator=gen, device=dev), dev)
-    cpu_params = L.to_device(params, "cpu")
-    prompt = np.random.default_rng(812).integers(1, cfg.vocab_size,
-                                                 MOE_PROMPT).tolist()
-    t0 = time.perf_counter()
-    cpu_x, cpu_routes = [], []
-    with k4_inputs(record=cpu_x), routing_record(cpu_routes):
-        ref_pre, ref_steps, fed = run_prefill_decode(
-            cpu_params, cfg, "cpu", [prompt], None, n_steps=MOE_STEPS)
-    cpu_s = time.perf_counter() - t0
-    del cpu_params
+    cfg, prompt, fed = cpu["cfg"], cpu["prompt"], cpu["fed"]
+    params, cpu_x, cpu_routes = cpu.pop("params"), cpu["cpu_x"], \
+        cpu["routes"]
+    ref_pre, ref_steps, cpu_s = cpu["pre"], cpu["steps"], cpu["cpu_s"]
     routes, k2_calls = [], []
     reset(counters, plains)
     with k4_inputs(feed=cpu_x) as notes, \
@@ -3614,7 +3700,31 @@ def phase_mixtral_2l(dev, counters, plains, K2):
     return launches
 
 
-def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3):
+def gemma2_cpu(dev):
+    """11c's model (Gemma2-9B at full width, 2 layers, bf16 weights drawn
+    on the card) and its CPU runs in f32 and bf16 (:func:`phase_gemma2`)."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    cfg = dataclasses.replace(L.LlamaConfig.gemma2_9b(), num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(813)
+    params = L.init_params(cfg, generator=gen, device=dev)
+    cpu_params = L.to_device(params, "cpu")
+    prompt = np.random.default_rng(814).integers(1, cfg.vocab_size,
+                                                 GEMMA2_PROMPT).tolist()
+    t0 = time.perf_counter()
+    f32_hidden, bf16_hidden = [], []
+    ref32 = run_prefill_decode(
+        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
+        "cpu", [prompt], None, GEMMA2_MAX_SEQ, GEMMA2_STEPS, f32_hidden)
+    fed = ref32[2]
+    ref16 = run_prefill_decode(cpu_params, cfg, "cpu", [prompt], fed,
+                               GEMMA2_MAX_SEQ, GEMMA2_STEPS, bf16_hidden)
+    return {"cfg": cfg, "params": params, "prompt": prompt, "fed": fed,
+            "ref32": ref32, "ref16": ref16, "f32_hidden": f32_hidden,
+            "bf16_hidden": bf16_hidden, "cpu_s": time.perf_counter() - t0}
+
+
+def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3,
+                 cpu):
     """11c: Gemma2-9B at full width, 2 layers (layer 0 windowed at 4,096,
     layer 1 global; bf16, unquantized weights drawn on the card from a
     seed, copied to the CPU), one 4,400-token prompt through K3 (d = 256,
@@ -3629,25 +3739,15 @@ def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3):
     the card's, on an H100 at 700 W). Then K3's and K2's calls of this
     run, each layer's, against their plain versions on the same inputs
     (K3 1e-2 of each row's max, K2 1e-3), timed beside their bounds (and
-    K3 beside SDPA, which takes no window or softcap: null)."""
+    K3 beside SDPA, which takes no window or softcap: null). ``cpu``:
+    :func:`gemma2_cpu`'s model and CPU runs."""
     from tpu_bitsandbytes_torch.models import layers as LY
     from tpu_bitsandbytes_torch.models import llama as L
-    cfg = dataclasses.replace(L.LlamaConfig.gemma2_9b(), num_layers=2)
-    gen = torch.Generator(device=dev).manual_seed(813)
-    params = L.init_params(cfg, generator=gen, device=dev)
-    cpu_params = L.to_device(params, "cpu")
-    prompt = np.random.default_rng(814).integers(1, cfg.vocab_size,
-                                                 GEMMA2_PROMPT).tolist()
-    t0 = time.perf_counter()
-    f32_hidden, bf16_hidden, hidden = [], [], []
-    ref32 = run_prefill_decode(
-        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
-        "cpu", [prompt], None, GEMMA2_MAX_SEQ, GEMMA2_STEPS, f32_hidden)
-    fed = ref32[2]
-    ref16 = run_prefill_decode(cpu_params, cfg, "cpu", [prompt], fed,
-                               GEMMA2_MAX_SEQ, GEMMA2_STEPS, bf16_hidden)
-    cpu_s = time.perf_counter() - t0
-    del cpu_params
+    cfg, params, prompt, fed = (cpu["cfg"], cpu.pop("params"),
+                                cpu["prompt"], cpu["fed"])
+    ref32, ref16, cpu_s = cpu["ref32"], cpu["ref16"], cpu["cpu_s"]
+    f32_hidden, bf16_hidden, hidden = (cpu["f32_hidden"], cpu["bf16_hidden"],
+                                       [])
     k2_calls, k3_calls = [], []
     reset(counters, plains)
     with recorded_calls(L, "flash_decode_attention", k2_calls), \
@@ -3760,6 +3860,735 @@ def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3):
     return launches, kern_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: tensor- and data-parallel serving over torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_TP = 2
+# greedy tokens of the tp = 2 engine must equal phase 4's wherever phase
+# 4's top-2 logit gap is at least this share of the row's max|logit|: two
+# logit rows within E2E_TOL of max|ref| of each other can swap their
+# top two only where the gap is below twice that
+TP_TIE_GAP = 2 * E2E_TOL
+MESH_TIMEOUT_S = 420    # a world of ranks that outlives this is killed
+MESH13_LAYERS = 4
+MESH13_PROMPTS = [50, 200, 1000]   # buckets 64 (K4), 256 (K5), 1024 (K3)
+MESH13_STEPS = 8
+NCCL_LAYERS = 8
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "mesh")
+
+
+class _FirstCalls:
+    """Stands in for a kernel wrapper: keeps the (args, kwargs) of its
+    first call at each set of argument shapes, calls it, and passes every
+    attribute through to it (a wrapper bumps its own launch counter
+    through its module's name for it, which is this stand-in)."""
+
+    def __init__(self, orig, calls):
+        object.__setattr__(self, "_orig", orig)
+        object.__setattr__(self, "_calls", calls)
+
+    def __call__(self, *a, **kw):
+        key = tuple(tuple(t.shape) if isinstance(t, torch.Tensor) else t
+                    for t in a if not isinstance(t, (tuple, list)))
+        self._calls.setdefault(key, (a, dict(kw)))
+        return self._orig(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._orig, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._orig, name, value)
+
+
+@contextlib.contextmanager
+def first_calls(module, name, calls):
+    """Keeps the (args, kwargs) of the first call of ``module.name`` at each
+    set of argument shapes in ``calls`` (shape key -> call) while open."""
+    orig = getattr(module, name)
+    setattr(module, name, _FirstCalls(orig, calls))
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def kernel_calls_against_plain(rec):
+    """Replays each recorded kernel call and its plain version on the same
+    inputs; raises past the kernel's tolerance. ``rec``: kernel name ->
+    {shape key: (args, kwargs)}. Returns name -> [{shape, rel_err}]."""
+    from tpu_bitsandbytes_torch.ops import flash_decode as K2
+    from tpu_bitsandbytes_torch.ops import flash_prefill as K3
+    from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import matmul4bit as K5
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
+    out = {}
+    for name, calls in rec.items():
+        rows = []
+        for key, (a, kw) in calls.items():
+            if name == "K2_flash_decode":
+                r = k2_against_plain(K2, a, kw, "phase 12")
+            elif name == "K3_flash_prefill":
+                q, k, v = a
+                got = K3.flash_prefill_attention(q, k, v, **kw)
+                ref = K3.flash_prefill_plain(
+                    q, k, v, block_k=K3.KEY_TILE[q.shape[-1]], **kw)
+                s = kw["s_real"]
+                r = row_err(got[:, :s], ref[:, :s])
+                if not r <= K3_TOL:
+                    raise AssertionError(f"phase 12 K3 {key}: {r}")
+            else:
+                fn, plain, tol = {
+                    "K1_int4_matmul": (K1.int4_mm, K1.int4_mm_plain, K1_TOL),
+                    "K4_w4a8_matmul": (K4.w4a8_mm, K4.w4a8_mm_plain, K4_TOL),
+                    "K5_matmul4bit": (K5.matmul4bit_mm, K5.matmul4bit_plain,
+                                      K5_TOL.get(a[-1] if a else "bf16",
+                                                 K5_TOL["bf16"]))}[name]
+                got, ref = fn(*a, **kw), plain(*a, **kw)
+                r = err(got, ref)[1]
+                if not (r <= tol and torch.isfinite(got).all()):
+                    raise AssertionError(f"phase 12 {name} {key}: {r}")
+            rows.append({"shape": [list(x) if isinstance(x, tuple) else x
+                                   for x in key], "rel_err": r})
+        out[name] = rows
+    torch.cuda.synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(rec):
+    """Records each kernel wrapper's first call per argument shapes into
+    ``rec`` (:func:`first_calls`) where the model code reaches it."""
+    from tpu_bitsandbytes_torch.models import layers as LY
+    from tpu_bitsandbytes_torch.models import llama as L
+    from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import matmul4bit as K5
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
+    taps = [(K1, "int4_mm", "K1_int4_matmul"),
+            (L, "flash_decode_attention", "K2_flash_decode"),
+            (LY, "flash_prefill_attention", "K3_flash_prefill"),
+            (K4, "w4a8_mm", "K4_w4a8_matmul"),
+            (K5, "matmul4bit_mm", "K5_matmul4bit")]
+    with contextlib.ExitStack() as stack:
+        for mod, fn, name in taps:
+            stack.enter_context(first_calls(mod, fn, rec.setdefault(name,
+                                                                    {})))
+        yield rec
+
+
+def mesh13_model(dev):
+    """12b's model: Llama-2-13B at full width, ``MESH13_LAYERS`` layers,
+    normal(0, 0.02) weights drawn on the card from a seed and quantized to
+    NF4 (blocksize 64), fused projections at tp = 1."""
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(),
+                              num_layers=MESH13_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    return cfg, normal_nf4_params(
+        cfg, lambda s: torch.randn(s, generator=gen, device=dev), dev)
+
+
+class RowShards:
+    """A row-parallel linear as a tp-way mesh computes it, on one device:
+    each K slice of x through its shard (K4 quantizes each slice with its
+    own A8 scale, as JAX's shards do), the outputs summed in the output
+    dtype in rank order, the bias added once."""
+
+    def __init__(self, w, tp):
+        from tpu_bitsandbytes_torch.parallel.sharding import (_linear_spec,
+                                                              shard_local)
+        spec = _linear_spec(w, col=False)
+        self.shards = [dataclasses.replace(
+            shard_local(w, spec, tp, r, w.packed.device), bias=None)
+            for r in range(tp)]
+        self.bias = w.bias
+
+    rank = None     # the shard being applied, for :func:`k4_calls`
+
+    def __call__(self, x):
+        k = x.shape[-1] // len(self.shards)
+        out = None
+        for r, w in enumerate(self.shards):
+            RowShards.rank = r
+            try:
+                part = w(x[..., r * k:(r + 1) * k])
+            finally:
+                RowShards.rank = None
+            out = part if out is None else out + part
+        return out if self.bias is None else out + self.bias.to(out.dtype)
+
+
+def row_sharded(params, tp):
+    """``params`` with every row-parallel linear (o_proj, down_proj) a
+    :class:`RowShards`: the single-device model with the arithmetic a
+    tp-way mesh gives it."""
+    layers = [{k: RowShards(w, tp) if k in ("o_proj", "down_proj") else w
+               for k, w in layer.items()} for layer in params["layers"]]
+    return dict(params, layers=layers)
+
+
+def prefill_then_steps(params, cfg, dev, prompts, forced, max_seq, tp=None):
+    """12b's run: each prompt prefilled into its slot of a fresh int8 cache
+    (``prefill_step``, its dp group's: every slot local here), then
+    unstaged decode steps fed ``forced`` [steps, B]; returns f32 (prefill
+    logits [B, V], step logits [steps, B, V]) on the CPU and the launches
+    of each prefill and of each step."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.engine.kvcache import KVCache
+    n_tp = 1 if tp is None else tp.tp
+    cache = KVCache.create(cfg.num_layers, len(prompts), max_seq,
+                           cfg.num_kv_heads // n_tp, cfg.hd, dtype=cfg.dtype,
+                           device=dev)
+    counters = kernel_counters()
+    pre, steps, launches = [], [], {"prefill": [], "step": []}
+    for slot, pr in enumerate(prompts):
+        padded = torch.zeros((1, E._bucket(len(pr), max_seq)),
+                             dtype=torch.int32)
+        padded[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
+        reset(counters, ())
+        logits, cache = E.prefill_step(params, cache, padded.to(dev), slot,
+                                       len(pr), cfg, tp=tp)
+        launches["prefill"].append(counts(counters))
+        pre.append(logits.float().cpu())
+    active = torch.ones((len(prompts),), dtype=torch.bool, device=dev)
+    span = E._span_bucket(max(map(len, prompts)) + len(forced), max_seq)
+    for toks in forced:
+        reset(counters, ())
+        logits, cache = E.decode_step(params, cache,
+                                      torch.tensor(toks, dtype=torch.int32,
+                                                   device=dev),
+                                      active, cfg, attn_span=span, tp=tp)
+        launches["step"].append(counts(counters))
+        steps.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    return torch.stack(pre), torch.stack(steps), launches
+
+
+def kernel_counters():
+    from tpu_bitsandbytes_torch.ops import flash_decode as K2
+    from tpu_bitsandbytes_torch.ops import flash_prefill as K3
+    from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import matmul4bit as K5
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
+    return {"K1_int4_matmul": K1.int4_mm,
+            "K2_flash_decode": K2.flash_decode_attention,
+            "K3_flash_prefill": K3.flash_prefill_attention,
+            "K4_w4a8_matmul": K4.w4a8_mm,
+            "K5_matmul4bit": K5.matmul4bit_mm}
+
+
+def kernel_plains():
+    from tpu_bitsandbytes_torch.ops import flash_decode as K2
+    from tpu_bitsandbytes_torch.ops import flash_prefill as K3
+    from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops import matmul4bit as K5
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
+    return (K1.int4_mm_plain, K2.flash_decode_plain, K3.flash_prefill_plain,
+            K4.w4a8_mm_plain, K5.matmul4bit_plain)
+
+
+def mesh_rank_7b(mesh, dev, job):
+    """12a, one rank: phase 4's model and requests on a tp = 2 engine over
+    gloo (the int4 cache built per shard, chunks eager). K1 at each shard
+    shape against its plain version; a row shard's A8 codes against the
+    unsharded row's; the served tokens, launches and step time; the
+    launches of one more decode step, counted alone; teacher-forced logits
+    on phase 4's tokens."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.ops import int4cache as K1
+    from tpu_bitsandbytes_torch.ops.w4a8 import quantize_a8
+    from tpu_bitsandbytes_torch.parallel.sharding import interleave_fused
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    counters, plains = kernel_counters(), kernel_plains()
+    t0 = time.perf_counter()
+    cfg, params, prompts, sp, kw = llama7b_workload(dev)
+    params = interleave_fused(params, cfg, MESH_TP)
+    engine = E.DecodeEngine(params, cfg, device=dev, mesh=mesh,
+                            cuda_graphs=False, **kw)
+    del params
+    free_memory()
+    out = {"build_s": time.perf_counter() - t0, "layers": cfg.num_layers}
+    ctx = engine._tp
+    # K1 at each shard shape (M = 8), against its plain version
+    gen = torch.Generator(device=dev).manual_seed(12)
+    k1 = []
+    layer = engine.params["layers"][0]
+    for name, w in [(n, layer[n]) for n in ("qkv_proj", "o_proj",
+                                            "gateup_proj", "down_proj")] + [
+            ("lm_head", engine.params["lm_head"])]:
+        n, kp = w.w_cache.shape[0], w.w_cache.shape[1] * 2
+        x = torch.randn((8, kp), generator=gen, device=dev).to(cfg.dtype)
+        xq, s_x = quantize_a8(x, kp)
+        got = K1.int4_mm(xq, w.w_cache, w.cache_scale, s_x)
+        ref = K1.int4_mm_plain(xq, w.w_cache, w.cache_scale, s_x)
+        r = err(got, ref)[1]
+        if not (r <= K1_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"12a K1 {name} {n}x{kp}: rel err {r}")
+        k1.append({"linear": name, "n": n, "k_pad": kp, "rel_err": r,
+                   "takes_kernel": K1.takes_kernel(8, n, kp, 128)})
+    out["k1_shards"] = k1
+    # a row shard's A8 codes: the row scale all-reduced over tp
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, cfg.hidden_size), generator=g, device=dev).to(
+        cfg.dtype)
+    k = cfg.hidden_size // ctx.tp
+    sl = slice(ctx.tp_rank * k, (ctx.tp_rank + 1) * k)
+    q_sh, s_sh = quantize_a8(x[:, sl], k, ctx.tp_group)
+    q_full, s_full = quantize_a8(x, cfg.hidden_size)
+    q_own, _ = quantize_a8(x[:, sl], k)
+    out["a8"] = {"codes_equal": bool(torch.equal(q_sh, q_full[:, sl])),
+                 "scales_equal": bool(torch.equal(s_sh, s_full)),
+                 "own_scale_codes_equal": bool(torch.equal(q_own,
+                                                           q_full[:, sl]))}
+    # phase 4's requests: the step loop, as phase 4 serves them
+    reset(counters, plains)
+    engine.metrics = MetricsLogger()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, sp, pipeline_depth=1)
+    torch.cuda.synchronize()
+    hist = engine.metrics.history
+    steps = len(hist) * engine.steps_per_sync
+    out.update(outs=outs, generate_s=time.perf_counter() - t0,
+               launches=counts(counters), decode_steps=steps,
+               decode_step_ms=sum(m.wall_s for m in hist) / steps * 1e3,
+               decode_tokens_per_s=engine.metrics.summary()["tokens_per_s"],
+               plain_calls_on_cuda=sum(f.cuda_calls for f in plains),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30)
+    # one more decode step from the slots' final positions, counted alone
+    toks = torch.tensor([o[-1] for o in outs], dtype=torch.int32,
+                        device=dev)
+    span = E._span_bucket(int(engine.cache.lengths.max()) + 1,
+                          engine.max_seq)
+    reset(counters, plains)
+    logits, _ = E.decode_step(engine.params, engine.cache, toks,
+                              torch.ones_like(toks, dtype=torch.bool), cfg,
+                              attn_span=span, tp=ctx)
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("12a: a decode step's logits are not finite")
+    out["launches_per_step"] = counts(counters)
+    # teacher-forced logits on phase 4's tokens
+    out["forced"] = teacher_forced(engine.params, cfg, dev, prompts,
+                                   job["outs"], kw["max_seq"], engine.cache,
+                                   tp=ctx)
+    return out
+
+
+def mesh_rank_13b(mesh, dev, job):
+    """12b, one rank: 12b's model (:func:`mesh13_model`) on tp = 2 shards
+    off the packed bytes: ``prefill_then_steps`` of 12b's prompts and
+    forced tokens, each kernel's first call per shape recorded and held
+    against its plain version."""
+    from tpu_bitsandbytes_torch.parallel import shard_params
+    from tpu_bitsandbytes_torch.parallel.sharding import interleave_fused
+    from tpu_bitsandbytes_torch.parallel.tp import TPContext
+    cfg, params = mesh13_model(dev)
+    local = shard_params(interleave_fused(params, cfg, MESH_TP), mesh)
+    del params
+    free_memory()
+    ctx = TPContext(mesh, cfg)
+    rec = {}
+    t0 = time.perf_counter()
+    with recorded_kernel_calls(rec), \
+            k4_inputs(feed=job["feeds"][ctx.tp_rank]) as notes:
+        pre, steps, launches = prefill_then_steps(
+            local, cfg, dev, job["prompts"], job["forced"], 1024, tp=ctx)
+    run_s = time.perf_counter() - t0
+    if len(notes) != len(job["feeds"][ctx.tp_rank]):
+        raise AssertionError(f"12b: {len(notes)} K4 calls fed of "
+                             f"{len(job['feeds'][ctx.tp_rank])}")
+    return {"pre": pre, "steps": steps, "launches": launches,
+            "k4_inputs": [{k: n[k] for k in ("shape", "m", "rel_err")}
+                          for n in notes],
+            "run_s": run_s, "kernels": kernel_calls_against_plain(rec),
+            "shard_shapes": {k: list(w.shape) for k, w in
+                             local["layers"][0].items()
+                             if hasattr(w, "packed")}}
+
+
+@contextlib.contextmanager
+def k4_calls(out):
+    """Appends (the :class:`RowShards` shard applied or None, activation on
+    the CPU) of every K4 call that a ``QLinear4`` makes to ``out`` while
+    open."""
+    from tpu_bitsandbytes_torch.models import layers
+    orig = layers.w4a8_matmul_4bit
+
+    def tap(x, packed_flat, st, **kw):
+        out.append((RowShards.rank, x.cpu()))
+        return orig(x, packed_flat, st, **kw)
+
+    layers.w4a8_matmul_4bit = tap
+    try:
+        yield out
+    finally:
+        layers.w4a8_matmul_4bit = orig
+
+
+def rank_feeds(calls, tp):
+    """Each tp rank's K4 inputs from a :func:`row_sharded` run's
+    :func:`k4_calls`: a column-parallel call's whole activation, and of a
+    row-parallel linear's shard calls the rank's own."""
+    return [[x for shard, x in calls if shard in (None, r)]
+            for r in range(tp)]
+
+
+def mesh_rank_main(argv) -> int:
+    """``chip_smoke.py --mesh-rank PART RANK WORLD PORT DIR``: one rank of
+    phase 12's world over gloo on device 0; writes its results to
+    ``DIR/rankRANK.pt``."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from tpu_bitsandbytes_torch.ops import _build
+    from tpu_bitsandbytes_torch.parallel import make_mesh
+    part, rank, world, port, d = (argv[0], int(argv[1]), int(argv[2]),
+                                  int(argv[3]), argv[4])
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(d, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank, timeout=timeout)
+    try:
+        _build.load_all()
+        mesh = make_mesh(tp=MESH_TP, dp=world // MESH_TP, device_type="cuda",
+                         timeout=timeout)
+        fn = {"7b": mesh_rank_7b, "13b": mesh_rank_13b}[part]
+        torch.save(fn(mesh, dev, job), os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+class MeshWorld:
+    """``world`` ranks of ``part`` (:func:`mesh_rank_main`), each a process
+    of its own on device 0, started now; :meth:`join` waits for them and
+    returns their results. A rank that fails, or a world that outlives
+    ``MESH_TIMEOUT_S`` (its processes then killed), raises with every
+    failed rank's output."""
+
+    def __init__(self, part, job, world=MESH_TP):
+        import pickle
+        import socket
+        self.part, self.world = part, world
+        self.dir = os.path.join(MESH_DIR, part)
+        os.makedirs(self.dir, exist_ok=True)
+        with open(os.path.join(self.dir, "job.pkl"), "wb") as f:
+            pickle.dump(job, f)
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        self.t0 = time.perf_counter()
+        self.deadline = time.monotonic() + MESH_TIMEOUT_S
+        self.procs = []
+        atexit.register(self.kill)      # no rank outlives this process
+        for r in range(world):
+            log = open(os.path.join(self.dir, f"rank{r}.log"), "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 part, str(r), str(world), str(port), self.dir],
+                stdout=log, stderr=subprocess.STDOUT), log))
+
+    def kill(self) -> bool:
+        """Kills the ranks still running; True if there were any."""
+        alive = False
+        for p, log in self.procs:
+            if p.poll() is None:
+                alive = True
+                p.kill()
+                p.wait()
+            log.close()
+        return alive
+
+    def join(self):
+        for p, _ in self.procs:
+            try:
+                p.wait(timeout=max(0.1, self.deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        timed_out = self.kill()
+        bad = [r for r, (p, _) in enumerate(self.procs) if p.returncode != 0]
+        if bad:
+            tails = "\n".join(
+                f"--- rank {r} (exit {self.procs[r][0].returncode}) ---\n"
+                + open(os.path.join(self.dir, f"rank{r}.log")).read()[-4000:]
+                for r in bad)
+            raise AssertionError(f"phase 12 {self.part}: ranks {bad} failed"
+                                 + (" (killed at the time limit)"
+                                    if timed_out else "") + f"\n{tails}")
+        self.wall_s = time.perf_counter() - self.t0
+        return [torch.load(os.path.join(self.dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(self.world)]
+
+
+def token_rule(outs, ref_outs, forced):
+    """12a's token rule: request by request, the tp engine's greedy tokens
+    equal phase 4's up to the first position where they differ; there
+    phase 4's top-2 gap (of its teacher-forced logits ``forced``, as a
+    share of the row's max|logit|) must be below ``TP_TIE_GAP``, and the
+    rest of that request is not compared. Returns the positions compared
+    and where requests stopped."""
+    compared, stops = 0, []
+    for b, (got, ref) in enumerate(zip(outs, ref_outs)):
+        for j, (a, r) in enumerate(zip(got, ref)):
+            row = forced[j, b]
+            top = row.topk(2).values
+            gap = float((top[0] - top[1]) / row.abs().max())
+            if a == r:
+                compared += 1
+                continue
+            if gap >= TP_TIE_GAP:
+                raise AssertionError(
+                    f"12a: request {b} token {j}: {a} != phase 4's {r} at a "
+                    f"top-2 gap of {gap:.4f} of max|logit| (>= {TP_TIE_GAP})")
+            stops.append({"request": b, "token": j, "gap": gap})
+            break
+    return compared, stops
+
+
+def phase_mesh_7b(world, outs_7b, forced_7b, smi):
+    """12a: Llama-2-7B at full width and depth on tp = 2 (two ranks over
+    gloo on the one card, ``world``, started with ``{"outs": outs_7b}``),
+    against phase 4's run."""
+    res = world.join()
+    r0 = res[0]
+    # phase 4's: 129 K1 (4 fused linears a layer and the lm_head) and 32
+    # K2 at 32 layers; every shard shape takes K1 by JAX's rule
+    n_l = r0["layers"]
+    want = {"K1_int4_matmul": 4 * n_l + 1, "K2_flash_decode": n_l,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    for r, out in enumerate(res):
+        if out["launches_per_step"] != want:
+            raise AssertionError(f"12a rank {r}: launches per decode step "
+                                 f"{out['launches_per_step']}, expected "
+                                 f"{want}")
+        steps = out["decode_steps"]
+        if (out["launches"]["K2_flash_decode"] != n_l * steps
+                or out["launches"]["K1_int4_matmul"] < (4 * n_l + 1) * steps
+                or out["plain_calls_on_cuda"]):
+            raise AssertionError(f"12a rank {r}: launches {out['launches']}"
+                                 f" for {steps} steps, "
+                                 f"{out['plain_calls_on_cuda']} plain calls")
+        if not (out["a8"]["codes_equal"] and out["a8"]["scales_equal"]):
+            raise AssertionError(f"12a rank {r}: row-shard A8 {out['a8']}")
+        if out["outs"] != r0["outs"] or not torch.equal(out["forced"],
+                                                        r0["forced"]):
+            raise AssertionError(f"12a: rank {r}'s output differs from "
+                                 "rank 0's")
+    got = r0["forced"]
+    if got.shape != forced_7b.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"12a: teacher-forced logits {got.shape}")
+    rel = ((got - forced_7b).abs().amax(dim=(1, 2))
+           / forced_7b.abs().amax(dim=(1, 2)))
+    if not (rel <= E2E_TOL).all():
+        raise AssertionError(f"12a: teacher-forced logits off phase 4's by "
+                             f"{rel.max().item()} of max|ref|")
+    compared, stops = token_rule(r0["outs"], outs_7b, forced_7b)
+    emit({"phase": "mesh_7b_tp2", "model": "llama2_7b", "tp": MESH_TP,
+          "dp": 1, "ranks": len(res), "backend": "gloo", "layers": 32,
+          "batch": 8, "new_tokens": 64, "card": smi,
+          "note": "two processes sharing one card through host-staged "
+                  "gloo collectives, beside phase 3 and phase 11's CPU "
+                  "references in the parent: not a scaling number",
+          "world_wall_s": world.wall_s,
+          "build_s": [o["build_s"] for o in res],
+          "generate_s": [o["generate_s"] for o in res],
+          "decode_step_ms": [o["decode_step_ms"] for o in res],
+          "decode_tokens_per_s": [o["decode_tokens_per_s"] for o in res],
+          "max_memory_allocated_gib": [o["max_memory_allocated_gib"]
+                                       for o in res],
+          "launches": r0["launches"],
+          "launches_per_step": r0["launches_per_step"],
+          "k1_shards": r0["k1_shards"], "a8_row_shard": r0["a8"],
+          "teacher_forced_rel_err_max": rel.max().item(),
+          "teacher_forced_rel_err_by_step": rel.tolist(),
+          "tie_gap": TP_TIE_GAP, "tokens_compared": compared,
+          "tokens_total": sum(map(len, outs_7b)), "token_stops": stops,
+          "tokens_identical": r0["outs"] == outs_7b})
+    return r0["launches"]
+
+
+def phase_mesh_13b(dev, smi):
+    """12b: Llama-2-13B at full width, 4 layers, off the packed bytes, on
+    tp = 2 (two ranks over gloo), against the same 4 layers on one device
+    in this process: with the row-parallel linears split as the shards
+    split them (:func:`row_sharded`, gated), plain, and in f32."""
+    rng = np.random.default_rng(1212)
+    cfg, params = mesh13_model(dev)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in MESH13_PROMPTS]
+    forced = rng.integers(1, cfg.vocab_size,
+                          (MESH13_STEPS, len(prompts))).tolist()
+    pre, steps, launches = prefill_then_steps(params, cfg, dev, prompts,
+                                              forced, 1024)
+    # the same layers in f32: the single-device run's own bf16 gap
+    pre32, steps32, _ = prefill_then_steps(
+        as_f32(params), dataclasses.replace(cfg, dtype=torch.float32), dev,
+        prompts, forced, 1024)
+    # and with the mesh's row-parallel arithmetic (each K slice its own A8
+    # scale) on this one device, every K4 input recorded to feed the ranks
+    rs_params = row_sharded(params, MESH_TP)
+    calls = []
+    with k4_calls(calls):
+        pre_rs, steps_rs, _ = prefill_then_steps(rs_params, cfg, dev,
+                                                 prompts, forced, 1024)
+    del params, rs_params
+    free_memory()
+    feeds = rank_feeds(calls, MESH_TP)
+    res = MeshWorld("13b", {"prompts": prompts, "forced": forced,
+                            "feeds": feeds}).join()
+    r0 = res[0]
+    for r, out in enumerate(res):
+        if not (torch.equal(out["pre"], r0["pre"])
+                and torch.equal(out["steps"], r0["steps"])):
+            raise AssertionError(f"12b: rank {r}'s logits differ from "
+                                 "rank 0's")
+    def gaps(a_pre, a_steps, b_pre, b_steps):
+        return ((a_pre - b_pre).abs().amax(-1) / b_pre.abs().amax(-1),
+                (a_steps - b_steps).abs().amax(dim=(1, 2))
+                / b_steps.abs().amax(dim=(1, 2)))
+
+    own_pre, own_steps = gaps(pre, steps, pre32, steps32)
+    jax_pre, jax_steps = gaps(pre_rs, steps_rs, pre, steps)
+    rs_pre, rs_steps = gaps(r0["pre"], r0["steps"], pre_rs, steps_rs)
+    # K4 quantizes each row-parallel shard's slice with its own A8 scale
+    # (JAX's arithmetic), so the mesh is held to the single-device model
+    # computing its row-parallel linears the way the shards do
+    # (:func:`row_sharded`). K4's A8 codes turn one bf16 ulp at a row's
+    # largest element into a rescaled row (phase 3b), and the two runs'
+    # kernels split their sums differently, so the ranks take that run's
+    # activation at every K4 call; each of their own K4 inputs but
+    # o_proj's (K2's outputs) is held to the fed one at E2E_TOL, and so
+    # are the logits. How far JAX's per-shard scales move the logits from
+    # the plain single-device run is reported beside that run's own
+    # bf16-vs-f32 gap.
+    o_shape = [cfg.hidden_size, cfg.num_heads * cfg.hd // MESH_TP]
+    k4 = [n for out in res for n in out["k4_inputs"]]
+    worst = max(n["rel_err"] for n in k4 if list(n["shape"]) != o_shape)
+    worst_o = max((n["rel_err"] for n in k4 if list(n["shape"]) == o_shape),
+                  default=None)
+    if not ((rs_pre <= E2E_TOL).all() and (rs_steps <= E2E_TOL).all()
+            and worst <= E2E_TOL and torch.isfinite(r0["steps"]).all()):
+        raise AssertionError(
+            f"12b: logits off the single-device run with the mesh's "
+            f"row-parallel arithmetic by {rs_pre.tolist()} / "
+            f"{rs_steps.tolist()}, K4 inputs by {worst} (tol {E2E_TOL})")
+    lp = r0["launches"]
+    # the prompts' routes: K4 at 64, K5 at 256, K3 at 1024
+    if not (lp["prefill"][0]["K4_w4a8_matmul"] > 0
+            and lp["prefill"][1]["K5_matmul4bit"] > 0
+            and lp["prefill"][2]["K3_flash_prefill"] == MESH13_LAYERS
+            and all(s["K4_w4a8_matmul"] == 4 * MESH13_LAYERS + 1
+                    and s["K2_flash_decode"] == MESH13_LAYERS
+                    for s in lp["step"])):
+        raise AssertionError(f"12b: launches {lp}")
+    emit({"phase": "mesh_13b_tp2", "model": "llama2_13b", "tp": MESH_TP,
+          "layers": MESH13_LAYERS, "prompt_lens": MESH13_PROMPTS,
+          "decode_steps": MESH13_STEPS, "backend": "gloo", "card": smi,
+          "shard_shapes": r0["shard_shapes"],
+          "rel_err_prefill": rs_pre.tolist(),
+          "rel_err_steps": rs_steps.tolist(),
+          "k4_inputs_fed": len(k4), "k4_input_worst_rel_err": worst,
+          "k4_input_worst_rel_err_o_proj": worst_o,
+          "row_sharded_vs_single_prefill": jax_pre.tolist(),
+          "row_sharded_vs_single_steps": jax_steps.tolist(),
+          "single_bf16_vs_f32_prefill": own_pre.tolist(),
+          "single_bf16_vs_f32_steps": own_steps.tolist(), "tol": E2E_TOL,
+          "launches_rank0": lp, "launches_single_device": launches,
+          "kernels_against_plain": r0["kernels"],
+          "run_s": [o["run_s"] for o in res]})
+    total = {k: sum(d[k] for d in lp["prefill"] + lp["step"])
+             for k in lp["step"][0]}
+    return total
+
+
+def phase_nccl_tp1(dev, counters, plains, smi):
+    """12c: a one-rank NCCL group in this process: phase 4's model cut to
+    ``NCCL_LAYERS`` layers served graphed through ``mesh=make_mesh(tp=1)``
+    (the chunk's graph holds the collectives) and on the plain engine;
+    greedy tokens identical, capture seconds and step ms of both."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.parallel import make_mesh
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    cfg, params, prompts, sp, kw = cut_depth(llama7b_workload(dev),
+                                             NCCL_LAYERS)
+
+    def serve(engine):
+        res = []
+        for _ in range(2):      # the first pass captures, the second replays
+            engine.metrics = MetricsLogger()
+            reset(counters, plains)
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts, sp, pipeline_depth=1)
+            torch.cuda.synchronize()
+            hist = engine.metrics.history
+            steps = len(hist) * engine.steps_per_sync
+            res.append({"outs": outs, "generate_s": time.perf_counter() - t0,
+                        "decode_step_ms": sum(m.wall_s for m in hist)
+                        / steps * 1e3, "launches": counts(counters)})
+        key = engine.graph_keys()[-1]
+        census = {"kernels": dict(engine._graphs.kernel_names(key)),
+                  "nodes": dict(engine._graphs.node_types(key)),
+                  "key": list(key)}
+        return res, engine.graph_stats(), census
+
+    plain = E.DecodeEngine(params, cfg, device=dev, **kw)
+    p_res, p_graphs, p_census = serve(plain)
+    del plain
+    free_memory()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(tp=1, dp=1, device_type="cuda")
+        engine = E.DecodeEngine(params, cfg, device=dev, mesh=mesh, **kw)
+        m_res, m_graphs, m_census = serve(engine)
+        del engine
+        free_memory()
+    finally:
+        dist.destroy_process_group()
+    for i in range(2):
+        if m_res[i]["outs"] != p_res[i]["outs"]:
+            raise AssertionError(f"12c: pass {i + 1}: the one-rank NCCL mesh "
+                                 "engine's tokens differ from the plain "
+                                 "engine's")
+    nccl = {k: v for k, v in m_census["kernels"].items()
+            if "nccl" in k.lower()}
+    emit({"phase": "mesh_nccl_tp1", "model": "llama2_7b",
+          "layers": NCCL_LAYERS, "backend": "nccl", "ranks": 1,
+          "card": smi, "tokens_identical": True,
+          "capture_s": {"mesh": m_graphs["capture_s"],
+                        "plain": p_graphs["capture_s"]},
+          "decode_step_ms": {"mesh": m_res[1]["decode_step_ms"],
+                             "plain": p_res[1]["decode_step_ms"]},
+          "first_pass_decode_step_ms": {"mesh": m_res[0]["decode_step_ms"],
+                                        "plain": p_res[0]["decode_step_ms"]},
+          "graph_nodes": {"mesh": m_census["nodes"],
+                          "plain": p_census["nodes"]},
+          "nccl_kernel_nodes": nccl,
+          "graph_kernel_nodes": {"mesh": sum(m_census["kernels"].values()),
+                                 "plain": sum(p_census["kernels"].values())},
+          "launches": {"mesh": m_res[1]["launches"],
+                       "plain": p_res[1]["launches"]}})
+    if m_res[1]["launches"] != p_res[1]["launches"]:
+        raise AssertionError(f"12c: launches {m_res[1]['launches']} != the "
+                             f"plain engine's {p_res[1]['launches']}")
+    return m_res[1]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3818,31 +4647,13 @@ def main() -> int:
     phase_cache_dots(dev, gen, bw)
     torch.cuda.empty_cache()
     profiler_check(dev)
-    counters = {"K1_int4_matmul": K1.int4_mm,
-                "K2_flash_decode": K2.flash_decode_attention,
-                "K3_flash_prefill": K3.flash_prefill_attention,
-                "K4_w4a8_matmul": K4.w4a8_mm,
-                "K5_matmul4bit": K5.matmul4bit_mm}
-    plains = (K1.int4_mm_plain, K2.flash_decode_plain,
-              K3.flash_prefill_plain, K4.w4a8_mm_plain,
-              K5.matmul4bit_plain)
+    counters, plains = kernel_counters(), kernel_plains()
 
     phase_end("2")
-    # 3. full width against the CPU
-    phase_full_width(dev)
-    torch.cuda.empty_cache()
-    packed_2l = phase_full_width_packed(dev, counters)
-    torch.cuda.empty_cache()
-    phase_full_width_caches(dev, counters, *packed_2l)
-    del packed_2l
-    torch.cuda.empty_cache()
-    phase_chunked_prefill(dev, counters)
-    torch.cuda.empty_cache()
-
-    phase_end("3")
     # 4. Llama-2-7B through the int4 cache
     by_path = {}
-    by_path["llama2_7b_int4"], outs_7b = phase_serve(dev, counters, plains)
+    by_path["llama2_7b_int4"], outs_7b, forced_7b = phase_serve(
+        dev, counters, plains)
     torch.cuda.empty_cache()
 
     phase_end("4")
@@ -3853,14 +4664,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_end("5")
-    # 6. the request API on the same model, cut to its first 20 layers
+    # 6. the request API on the same model, cut to its first 10 layers
     by_path["llama2_13b_requests"] = phase_requests(
         dev, counters, plains, cut_depth(workload, REQUESTS_LAYERS))
     free_memory()
 
     phase_end("6")
     # 8. runtime_cache="auto" (the int8 cache) on the same model, cut to its
-    # first 20 layers
+    # first 10 layers
     by_path["llama2_13b_auto_int8"] = phase_auto(
         dev, counters, plains, cut_depth(workload, REQUESTS_LAYERS))
     del workload
@@ -3883,19 +4694,48 @@ def main() -> int:
     # at 2 layers against the CPU
     free_memory()
     by_path["mixtral_8x7b_packed"] = phase_mixtral(dev, counters, plains)
-    by_path["mixtral_2l"] = phase_mixtral_2l(dev, counters, plains, K2)
+    free_memory()
+    # 12a's two ranks serve on the card while this process runs phase 3
+    # (full width against the CPU: CPU references and untimed card runs)
+    # and 11b's and 11c's CPU references
+    world_7b = MeshWorld("7b", {"outs": outs_7b})
+    phase_full_width(dev)
+    torch.cuda.empty_cache()
+    packed_2l = phase_full_width_packed(dev, counters)
+    torch.cuda.empty_cache()
+    phase_full_width_caches(dev, counters, *packed_2l)
+    del packed_2l
+    torch.cuda.empty_cache()
+    phase_chunked_prefill(dev, counters)
+    torch.cuda.empty_cache()
+    phase_end("3")
+    moe_cpu, g2_cpu = mixtral_2l_cpu(dev), gemma2_cpu(dev)
+    res_7b = phase_mesh_7b(world_7b, outs_7b, forced_7b, smi)
+    by_path["mixtral_2l"] = phase_mixtral_2l(dev, counters, plains, K2,
+                                             moe_cpu)
     by_path["gemma2_9b_2l"], g2_rows = phase_gemma2(
-        dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3)
+        dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3, g2_cpu)
+    del moe_cpu, g2_cpu
     kernels[1]["gemma2_9b_decode_layers"] = g2_rows["K2"]
     kernels[2]["gemma2_9b_prefill_layers"] = g2_rows["K3"]
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
+    phase_end("11")
+    # 12. tensor parallelism: tp = 2 over gloo (two ranks on the one card)
+    # at Llama-2-7B's full width and depth (12a, above) and at Llama-2-13B's
+    # width, and a one-rank NCCL mesh whose chunk graphs hold the
+    # collectives
+    free_memory()
+    by_path["llama2_7b_tp2_rank0"] = res_7b
+    by_path["llama2_13b_4l_tp2_rank0"] = phase_mesh_13b(dev, smi)
+    by_path["llama2_7b_8l_nccl_tp1"] = phase_nccl_tp1(dev, counters, plains,
+                                                      smi)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
-    phase_end("11")
+    phase_end("12")
     emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script,
           "seconds_at_end_of_phase": ends})
     emit({"kernels": kernels})
@@ -3906,4 +4746,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -1769,3 +1769,149 @@ def test_flash_prefill_d256_window_at_4400(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert row_rel_err(got, ref) <= 1e-2
+
+
+# -- tensor parallelism on the one card ------------------------------------
+
+@pytest.fixture
+def nccl_group(cuda):
+    """A one-rank NCCL process group in this process."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    yield cuda
+    dist.destroy_process_group()
+
+
+def _tp_tree(seed, hidden=512, inter=1024, tp=2):
+    """A bf16 Llama of hidden ``hidden`` (4 heads of 128), NF4 at
+    blocksize 64, fused and laid out for ``tp``."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=hidden,
+                            intermediate_size=inter, num_layers=2,
+                            num_heads=4, num_kv_heads=4, max_seq_len=256)
+    gen = torch.Generator().manual_seed(seed)
+    params = llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True, tp=tp)
+    return cfg, params
+
+
+def test_sharded_int4_cache_and_k1_shard_routes(cuda):
+    """Each tp = 2 shard's int4 cache built on the card equals the CPU's,
+    codes and scales; K1 takes every shard shape at decode M = 8 and the
+    card's product stays within 1e-5 of the CPU's."""
+    from tpu_bitsandbytes_torch.parallel import (build_sharded_int4_cache,
+                                                 llama_param_specs)
+    from tpu_bitsandbytes_torch.parallel.sharding import shard_local
+    cfg, params = _tp_tree(31)
+    specs = llama_param_specs(params)
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (8, 1024)).astype(np.float32)).to(torch.bfloat16)
+    for r in range(2):
+        cpu = build_sharded_int4_cache(shard_local(params, specs, 2, r,
+                                                   "cpu"))
+        card = build_sharded_int4_cache(shard_local(params, specs, 2, r,
+                                                    cuda))
+        for name in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"):
+            c, g = cpu["layers"][0][name], card["layers"][0][name]
+            assert torch.equal(g.w_cache.cpu(), c.w_cache)
+            assert torch.equal(g.cache_scale.cpu(), c.cache_scale)
+            n, k = c.shape
+            assert K1.takes_kernel(8, n, c.w_cache.shape[1] * 2, 128)
+            before = K1.int4_mm.launches
+            got = g(x[:, :k].to(cuda))
+            assert K1.int4_mm.launches == before + 1
+            assert rel_err(got, c(x[:, :k])) <= 1e-5
+
+
+def test_shard_routes_k4_k5(cuda):
+    """A row-parallel NF4 shard (K/tp = 512, k2 = 256) off its packed
+    bytes: its layer call takes K4 at M = 8 (its own A8 scale) and K5's
+    wgmma kernel at M = 256; each kernel's f32 product on the shard's
+    tensors within 1e-5 (K4) and 1e-4 (K5, bf16) of its plain version on
+    the CPU."""
+    from tpu_bitsandbytes_torch.models.layers import QLinear4
+    from tpu_bitsandbytes_torch.parallel.sharding import (_linear_spec,
+                                                          shard_local)
+    rng = np.random.default_rng(32)
+    w = QLinear4.quantize(torch.from_numpy(
+        (0.05 * rng.standard_normal((512, 1024))).astype(np.float32)))
+    spec = _linear_spec(w, col=False)
+    book = TF.codebook("nf4", "cpu")
+    for r in range(2):
+        c = shard_local(w, spec, 2, r, "cpu")
+        g = shard_local(w, spec, 2, r, cuda)
+        assert g.shape == (512, 512)
+        for m, kernel in ((8, K4.w4a8_mm), (256, K5.matmul4bit_mm)):
+            x = torch.from_numpy(rng.standard_normal((m, 512)).astype(
+                np.float32)).to(torch.bfloat16)
+            before = kernel.launches
+            g(x.to(cuda))
+            assert kernel.launches == before + 1
+        xq, s_x = K4.quantize_a8(x[:8], 512)
+        got = K4.w4a8_mm(xq.to(cuda), g.packed, g.absmax, s_x.to(cuda))
+        assert rel_err(got, K4.w4a8_mm_plain(xq, c.packed, c.absmax,
+                                             s_x)) <= 1e-5
+        wg = K5.matmul4bit_mm.wgmma_launches
+        got = K5.matmul4bit_mm(x.to(cuda), g.packed, g.absmax,
+                               book.to(cuda), "bf16")
+        assert K5.matmul4bit_mm.wgmma_launches == wg + 1
+        assert rel_err(got, K5.matmul4bit_plain(x, c.packed, c.absmax, book,
+                                                "bf16")) <= 1e-4
+
+
+def test_a8_row_scale_all_reduce_over_nccl(nccl_group):
+    """The row-parallel A8 scale's MAX all-reduce on a CUDA tensor over a
+    one-rank NCCL group changes nothing."""
+    from tpu_bitsandbytes_torch.parallel import make_mesh
+    mesh = make_mesh(tp=1, device_type="cuda")
+    x = torch.randn((8, 4096), device=nccl_group).to(torch.bfloat16)
+    q, s = K4.quantize_a8(x, 4096, mesh.get_group("tp"))
+    q0, s0 = K4.quantize_a8(x, 4096)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+
+
+def _mesh_engine_pair(dev, mesh, **kw):
+    cfg, params = _tp_tree(33, hidden=256, inter=512, tp=1)
+    params = llama.to_device(params, dev)
+    prompts = _prompts([5, 30, 50, 17], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=24)
+    common = dict(max_batch=4, max_seq=256, steps_per_sync=8,
+                  runtime_cache="int4", device=dev)
+    plain = E.DecodeEngine(params, cfg, cuda_graphs=kw.get(
+        "cuda_graphs", True), **common).generate(prompts, sp)
+    return params, cfg, prompts, sp, common, plain
+
+
+def test_mesh_engine_one_rank_nccl_graphed_matches_plain(nccl_group):
+    """``DecodeEngine(mesh=make_mesh(tp=1))`` on NCCL: its decode chunks
+    are CUDA graphs holding the collectives, and its tokens are the plain
+    engine's (one rank changes no arithmetic)."""
+    from tpu_bitsandbytes_torch.parallel import make_mesh
+    mesh = make_mesh(tp=1, device_type="cuda")
+    params, cfg, prompts, sp, common, plain = _mesh_engine_pair(nccl_group,
+                                                                mesh)
+    eng = E.DecodeEngine(params, cfg, mesh=mesh, **common)
+    assert eng.generate(prompts, sp) == plain
+    assert eng.generate(prompts, sp) == plain       # replays
+    assert eng.graph_stats()["graphs"] > 0
+
+
+def test_mesh_engine_on_gloo_refuses_graphs_and_serves_eager(nccl_group):
+    """A CUDA engine on a gloo mesh: ``cuda_graphs=True`` raises naming
+    NCCL; ``cuda_graphs=False`` serves the plain eager engine's tokens."""
+    from tpu_bitsandbytes_torch.parallel import make_mesh
+    mesh = make_mesh(tp=1, device_type="cuda", backend="gloo")
+    params, cfg, prompts, sp, common, plain = _mesh_engine_pair(
+        nccl_group, mesh, cuda_graphs=False)
+    with pytest.raises(ValueError, match="NCCL"):
+        E.DecodeEngine(params, cfg, mesh=mesh, **common)
+    eng = E.DecodeEngine(params, cfg, mesh=mesh, cuda_graphs=False,
+                         **common)
+    assert eng.generate(prompts, sp) == plain

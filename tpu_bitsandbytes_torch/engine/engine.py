@@ -28,12 +28,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 import warnings
 from typing import Any, Callable, Counter, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import llama
 from ..ops import _build
@@ -41,29 +43,44 @@ from ..utils import graph_census
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.metrics import (MetricsLogger, device_memory_bytes,
                              kv_cache_bytes, param_footprint,
-                             serving_act_bytes)
+                             per_device_footprint, serving_act_bytes)
 from . import speculative as spec
 from .kvcache import KVCache
 from .sampler import SamplingArrays, SamplingParams, sample, sample_batched
 
 
+def _hooks(tp) -> dict:
+    """The model code's tensor-parallel hooks of ``tp`` (a
+    :class:`~..parallel.tp.TPContext`), or none."""
+    return {} if tp is None else tp.hooks
+
+
+def _head(params, x, config: llama.LlamaConfig, tp=None):
+    if tp is None:
+        return llama.head_logits(params, x, config)
+    return tp.head_logits(params, x, config)
+
+
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
                 active: torch.Tensor, config: llama.LlamaConfig,
-                attn_span: Optional[int] = None, attn_start: int = 0):
+                attn_span: Optional[int] = None, attn_start: int = 0,
+                tp=None):
     """Advance every slot one token: tokens int32 [B], active bool [B].
     Returns (f32 logits [B, V], cache) with the lengths of active slots
     advanced in place. ``attn_span`` must cover every active slot's
     length + 1; ``attn_start`` (a fully-windowed model's lower bound) must
-    lie at or below every active slot's length minus the window."""
+    lie at or below every active slot's length minus the window. ``tp``:
+    a :class:`~..parallel.tp.TPContext`, to run on this rank's shards (B
+    its dp group's slots)."""
     positions = cache.lengths.clone()
     x, cos, sin = llama.decode_embed_and_rope(params, tokens, positions,
                                               config)
     for li, layer in enumerate(params["layers"]):
         x, cache = llama.decode_layer(layer, x, cos, sin, positions, cache,
                                       li, config, attn_span=attn_span,
-                                      attn_start=attn_start)
+                                      attn_start=attn_start, **_hooks(tp))
     x = llama._norm(x, params["final_norm"], config)
-    logits = llama.head_logits(params, x[:, 0], config)
+    logits = _head(params, x[:, 0], config, tp)
     cache.lengths += active.to(torch.int32)
     cache.advance_stage()
     return logits, cache
@@ -75,7 +92,8 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
                  n_steps: int = 8, all_greedy: bool = False,
                  attn_span: Optional[int] = None,
                  seen_mask: Optional[torch.Tensor] = None,
-                 want_logprobs: bool = False, attn_start: int = 0):
+                 want_logprobs: bool = False, attn_start: int = 0,
+                 tp=None):
     """Advance every slot up to ``n_steps`` tokens without reading anything
     back to the host; a slot that emits its EOS, or reaches ``max_seq - 1``,
     goes inactive on the device and its later emissions carry
@@ -88,7 +106,7 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
     repetition penalty (``samp.rep_pen``; greedy rows too); it is updated in
     place as tokens are emitted. ``want_logprobs``: also return the model's
     log-softmax at each emitted token, from the raw logits (before the
-    penalty and the temperature).
+    penalty and the temperature). ``tp``: as :func:`decode_step`'s.
 
     Returns (tokens_seq int32 [n_steps, B], active_seq bool [n_steps, B],
     cache, last tokens [B], active [B], logprobs_seq f32 [n_steps, B] or
@@ -100,7 +118,7 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
     toks_seq, act_seq, lp_seq = [], [], []
     for _ in range(n_steps):
         logits, cache = decode_step(params, cache, tokens, active, config,
-                                    attn_span, attn_start)
+                                    attn_span, attn_start, tp)
         toks = sample_batched(logits, generator, samp, seen_mask,
                               all_greedy=all_greedy)
         toks = torch.where(active, toks, tokens)
@@ -121,13 +139,23 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
             seen_mask)
 
 
+def _forward(params, tokens, config: llama.LlamaConfig, tp=None):
+    """The prefill forward: (f32 logits [B, S, V], per-layer (k, v));
+    under ``tp`` on this rank's shards, the head's shards gathered."""
+    if tp is None:
+        return llama.forward(params, tokens, config, return_kv=True)
+    x, new_kv = llama.prefill_hidden(params, tokens, config, **tp.hooks)
+    x = llama._norm(x, params["final_norm"], config)
+    return tp.head_logits(params, x, config), new_kv
+
+
 def prefill_step(params, cache: KVCache, tokens: torch.Tensor, slot: int,
-                 true_len: int, config: llama.LlamaConfig):
+                 true_len: int, config: llama.LlamaConfig, tp=None):
     """Prefill one request of (padded) shape [1, S_pad] into ``slot``.
     Positions past ``true_len`` write garbage KV that decode overwrites
     before attending to it (a ring cache drops them). Returns (f32
-    last-token logits [V], cache)."""
-    logits, new_kv = llama.forward(params, tokens, config, return_kv=True)
+    last-token logits [V], cache). ``tp``: as :func:`decode_step`'s."""
+    logits, new_kv = _forward(params, tokens, config, tp)
     for li, (k, v) in enumerate(new_kv):
         cache.write_prefill(li, slot, k[0], v[0], valid_len=true_len)
     cache.lengths[slot] = true_len
@@ -138,13 +166,13 @@ def prefill_batch(params, cache: KVCache, tokens: torch.Tensor,
                   slots: torch.Tensor, true_lens: torch.Tensor,
                   generator: torch.Generator, samp: SamplingArrays,
                   config: llama.LlamaConfig,
-                  seen_mask: Optional[torch.Tensor] = None):
+                  seen_mask: Optional[torch.Tensor] = None, tp=None):
     """Prefill R same-bucket requests in one forward: tokens [R, S_pad],
     target ``slots`` [R], ``true_lens`` [R]. Duplicate slots must be
     identical rows. ``seen_mask`` [R, V]: each row's prompt tokens, for its
     repetition penalty. Returns (first tokens [R] sampled with ``samp``,
-    cache)."""
-    logits, new_kv = llama.forward(params, tokens, config, return_kv=True)
+    cache). ``tp``: as :func:`decode_step`'s."""
+    logits, new_kv = _forward(params, tokens, config, tp)
     pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(
         tokens.shape)
     for li, (k, v) in enumerate(new_kv):
@@ -159,7 +187,7 @@ def prefill_chunk_step(params, cache: KVCache, tokens: torch.Tensor,
                        slot: int, start: int, new_len: int,
                        config: llama.LlamaConfig,
                        attn_span: Optional[int] = None,
-                       attn_start: int = 0):
+                       attn_start: int = 0, tp=None):
     """One chunk of a chunked prefill: tokens [1, C] written into ``slot``
     at positions [start, start + C) (those past ``max_seq`` dropped), the
     chunk's queries attending to the slot's own history (``decode_layer``
@@ -174,7 +202,8 @@ def prefill_chunk_step(params, cache: KVCache, tokens: torch.Tensor,
     decode step, writes real KV before anything attends to it.
 
     Returns (hidden [1, C, H], cache); the final chunk's hidden goes to
-    :func:`prefill_final_logits`."""
+    :func:`prefill_final_logits`. ``tp``: as :func:`decode_step`'s (the
+    slot local to this rank's dp group)."""
     c = tokens.shape[1]
     positions = start + torch.arange(c, dtype=torch.int32,
                                      device=tokens.device)[None, :]
@@ -183,18 +212,19 @@ def prefill_chunk_step(params, cache: KVCache, tokens: torch.Tensor,
     for li, layer in enumerate(params["layers"]):
         x, cache = llama.decode_layer(layer, x, cos, sin, positions, cache,
                                       li, config, attn_span=attn_span,
-                                      slot=slot, attn_start=attn_start)
+                                      slot=slot, attn_start=attn_start,
+                                      **_hooks(tp))
     cache.lengths[slot] = new_len
     return x, cache
 
 
 def prefill_final_logits(params, x: torch.Tensor, idx: int,
-                         config: llama.LlamaConfig) -> torch.Tensor:
+                         config: llama.LlamaConfig, tp=None) -> torch.Tensor:
     """f32 logits [V] of the prompt's last token: x [1, C, H] from the final
     prefill chunk, ``idx`` its index in the chunk. The lm_head runs once per
-    admission, at M = 1."""
+    admission, at M = 1 (its shard, gathered, under ``tp``)."""
     xl = llama._norm(x[:, idx], params["final_norm"], config)
-    return llama.head_logits(params, xl, config)[0]
+    return _head(params, xl, config, tp)[0]
 
 
 def _token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
@@ -227,6 +257,19 @@ class Request:
     logprobs: List[float] = dataclasses.field(default_factory=list)
     # the first token's logprob: a device scalar until _host_inputs reads it
     pending_first_lp: Optional[Any] = None
+
+
+def _dp_seed(seed: int, dp_rank: int) -> int:
+    """dp group ``dp_rank``'s decode-chunk seed under a mesh: a stream of
+    its own, apart from the first tokens' (``seed``)."""
+    return (seed * 1000003 + 1 + dp_rank) % (2 ** 63)
+
+
+def rank_path(path: str) -> str:
+    """This rank's snapshot file under a mesh: ``a/b.npz`` ->
+    ``a/b.rank{r}.npz``, r the rank in the default process group."""
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{dist.get_rank()}{ext}"
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -341,6 +384,10 @@ class ChunkGraphs:
         demangled names, each with its number of launches."""
         return graph_census.kernel_names(self._graphs[key][0].raw_cuda_graph())
 
+    def node_types(self, key) -> Counter[str]:
+        """The nodes of ``key``'s graph by type (kernel, memcpy, ...)."""
+        return graph_census.node_types(self._graphs[key][0].raw_cuda_graph())
+
     def pool_bytes(self) -> int:
         """Device bytes the graphs' memory pool holds."""
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -358,7 +405,7 @@ class DecodeEngine:
                  speculative: Optional[str] = None, spec_gamma: int = 4,
                  prefill_chunk: Optional[int] = None,
                  ring_kv: bool = False, drop_packed="auto",
-                 device="cuda", cuda_graphs: bool = True):
+                 device="cuda", cuda_graphs: bool = True, mesh=None):
         """``params`` must live on ``device``. ``quantized_kv``: an int8 KV
         cache (staged within a decode chunk); False keeps K/V in the
         config's dtype (the JAX package's exact-attention mode).
@@ -396,7 +443,26 @@ class DecodeEngine:
         span bucket, chunk length, all-greedy flag, penalty flag and
         logprobs flag, captured at first use; a verify step, one graph per
         span bucket and all-greedy flag); False runs the same chunk eagerly
-        there. CPU devices run it eagerly."""
+        there. CPU devices run it eagerly.
+
+        ``mesh``: a ("dp", "tp") mesh (:func:`~..parallel.make_mesh`) for
+        tensor- and data-parallel serving, one process per device, each
+        running this engine on the same requests. ``params`` (the whole
+        tree, on any device) are sharded onto this rank's device
+        (:func:`~..parallel.shard_params`; an int4 cache is built per
+        shard), its KV cache holds its dp group's ``max_batch / dp`` slots
+        and its ``H_kv / tp`` heads, and the steps run on the shards
+        (:mod:`~..parallel.tp`). With dp > 1 admissions prefill one
+        request at a time (the owning dp group writes the KV; the others
+        receive its logits), with dp = 1 in groups as one device does; each
+        chunk's sampled tokens and logprobs are gathered over dp, so every
+        rank keeps the same host state and returns the same
+        :meth:`generate` output. Fused projections must be laid out for
+        the mesh's tp (``quantize_params(tp=)``,
+        :func:`~..parallel.sharding.interleave_fused`).
+        ``max_batch`` must divide by dp and the head counts by tp. CUDA
+        graphs under a mesh need NCCL groups (the graph holds the
+        collectives): ``cuda_graphs=True`` on a gloo mesh raises."""
         if prefill_chunk is not None and prefill_chunk < 16:
             raise ValueError("prefill_chunk must be >= 16")
         if speculative not in (None, "ngram"):
@@ -408,6 +474,12 @@ class DecodeEngine:
                              "(None, 'int4', 'int8', 'bf16' or 'auto')")
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._tp = None             # parallel.tp.TPContext under a mesh
+        self._shards = (1, 1)       # (tp, dp)
+        if mesh is not None:
+            self._check_mesh(mesh, max_batch, cuda_graphs)
+        n_tp, n_dp = self._shards
         self.max_batch = max_batch
         self.max_seq = max_seq or config.max_seq_len
         self.steps_per_sync = max(1, int(steps_per_sync))
@@ -449,20 +521,42 @@ class DecodeEngine:
                         f"GiB > {0.92 * est['budget'] / 2**30:.1f} GiB HBM "
                         "budget (pass drop_packed=False to force-retain; "
                         "a dropped engine cannot re-checkpoint NF4)")
-            params = llama.build_runtime_cache(params, runtime_cache,
-                                               drop_packed=bool(drop))
+            if mesh is None or runtime_cache != "int4":
+                params = llama.build_runtime_cache(params, runtime_cache,
+                                                   drop_packed=bool(drop))
+        if mesh is not None:
+            # int4 is built shard by shard, from each rank's NF4 slices
+            from ..parallel.sharding import (build_sharded_int4_cache,
+                                             shard_params)
+            from ..parallel.tp import TPContext
+            params = shard_params(params, mesh)
+            if runtime_cache == "int4":
+                params = build_sharded_int4_cache(params,
+                                                  drop_packed=bool(drop))
+            self._tp = TPContext(mesh, config)
         self.params = params
-        self.cache = KVCache.create(config.num_layers, max_batch,
-                                    self.max_seq, config.num_kv_heads,
+        # this rank's slots [lo, hi) of the max_batch the host schedules
+        b = max_batch // n_dp
+        self._lo = 0 if self._tp is None else self._tp.dp_rank * b
+        self._hi = self._lo + b
+        self.cache = KVCache.create(config.num_layers, b, self.max_seq,
+                                    config.num_kv_heads // n_tp,
                                     config.hd, quantized=quantized_kv,
                                     dtype=config.dtype, device=self.device,
                                     ring_size=self.ring_size)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # a decode chunk's draws; under a mesh each dp group draws its own
+        # stream, and first tokens come from a generator every rank holds
+        # in the same state (so every rank samples the same first token)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed if self._tp is None else _dp_seed(seed, self._tp.dp_rank))
+        self._first_gen = (self.generator if self._tp is None else
+                           torch.Generator(device=self.device).manual_seed(
+                               seed))
         # the chunk's static inputs: tokens, active and the seen mask staged
         # through (pinned, on CUDA) host buffers, and the sampling arrays,
         # refilled only when the active set's parameters change
         pin = self.device.type == "cuda"
-        b, vocab = max_batch, config.vocab_size
+        vocab = config.vocab_size
         self._tokens_host = torch.zeros((b,), dtype=torch.int32,
                                         pin_memory=pin)
         self._active_host = torch.zeros((b,), dtype=torch.bool,
@@ -492,14 +586,39 @@ class DecodeEngine:
         self.finished: List[Request] = []
         self.metrics = MetricsLogger()
 
+    def _check_mesh(self, mesh, max_batch: int, cuda_graphs: bool):
+        from ..parallel.mesh import axis_size
+        from ..parallel.tp import graphs_allowed
+        n_tp, n_dp = axis_size(mesh, "tp"), axis_size(mesh, "dp")
+        if max_batch % n_dp != 0:
+            raise ValueError(f"max_batch {max_batch} must divide by "
+                             f"dp={n_dp}")
+        if (cuda_graphs and self.device.type == "cuda"
+                and not graphs_allowed(mesh)):
+            raise ValueError(
+                "cuda_graphs=True under a mesh needs NCCL process groups: a "
+                "decode chunk's graph holds its collectives, and gloo's run "
+                "on the host. Pass cuda_graphs=False to run the chunks "
+                "eagerly over gloo.")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh serves on "
+                             f"{mesh.device_type}, not {self.device}")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._shards = (n_tp, n_dp)
+
     # -- device-memory budget ---------------------------------------------
     def _footprint_from(self, pf: dict, quantized_kv: bool,
-                        kv_bytes_actual: Optional[int] = None) -> dict:
+                        kv_bytes_actual: Optional[int] = None,
+                        shards=(1, 1)) -> dict:
         """The footprint table from parameter-category bytes: the KV cache
         (its allocation, or what one would take), the serving activation
         estimate, their total, the device's memory as the budget, and
-        whether the total fits 0.92 of it."""
+        whether the total fits 0.92 of it. ``shards``: (tp, dp) to divide
+        a whole tree's weights (by tp) and KV estimate (by tp * dp) by, as
+        the JAX package's per-chip table does."""
         cfg = self.config
+        n_tp, n_dp = shards
         kv = kv_bytes_actual
         if kv is None:
             kv = kv_cache_bytes(cfg.num_layers, self.max_batch,
@@ -509,20 +628,17 @@ class DecodeEngine:
         act = serving_act_bytes(cfg, self.max_batch,
                                 _bucket(self.max_seq - 1, self.max_seq),
                                 self.steps_per_sync)
-        out = {"packed": pf["packed"], "exec_cache": pf["exec_cache"],
-               "fp": pf["fp"], "kv": kv, "activations_est": act}
-        out["total"] = sum(out.values())
-        out["budget"] = device_memory_bytes(self.device)
-        out["fits"] = out["total"] <= 0.92 * out["budget"]
-        return out
+        return per_device_footprint(pf, kv, act,
+                                    device_memory_bytes(self.device),
+                                    tp=n_tp, dp=n_dp)
 
     def _footprint_est(self, params, runtime_cache: Optional[str],
                        quantized_kv: bool) -> dict:
         """The footprint before the runtime cache is built (what
-        ``drop_packed="auto"`` decides from)."""
+        ``drop_packed="auto"`` decides from), per device under a mesh."""
         return self._footprint_from(
             param_footprint(params, runtime_cache=runtime_cache),
-            quantized_kv)
+            quantized_kv, shards=self._shards)
 
     def _auto_runtime_cache(self, params, quantized_kv: bool
                             ) -> Optional[str]:
@@ -562,7 +678,9 @@ class DecodeEngine:
         runtime cache, the fp parameters, the KV cache as allocated, a
         serving activation estimate; their ``total``, the device's memory
         (``budget``: a card's total memory, the host's RAM for a CPU
-        engine) and ``fits`` (total within 0.92 of it). Render it with
+        engine) and ``fits`` (total within 0.92 of it). Under a mesh,
+        what this rank's device holds: its weight shards and its KV cache.
+        Render it with
         :func:`~tpu_bitsandbytes_torch.utils.metrics.format_footprint`."""
         c = self.cache
         kv = sum(t.numel() * t.element_size()
@@ -621,6 +739,9 @@ class DecodeEngine:
         if key != self._samp_key:
             src = SamplingArrays.build(dict(key), self.max_batch,
                                        device="cpu")
+            if self._tp is not None:        # this rank's slots
+                src = SamplingArrays(*(t[self._lo:self._hi].contiguous()
+                                       for t in src.tensors()))
             if self.device.type == "cuda":
                 src = SamplingArrays(*(t.pin_memory() for t in src.tensors()))
             self._samp_static.copy_(src)
@@ -656,7 +777,9 @@ class DecodeEngine:
         (the batched prefill samples first tokens only, a long prompt goes
         in chunk by chunk, and only a single prefill drops the padding a
         ring would wrap); the rest group by length bucket into one forward
-        each."""
+        each. Under a mesh with dp > 1 every request admits alone, as in
+        the JAX package (its dp group writes the KV); with dp = 1 every
+        rank holds every slot and admits as one device does."""
         free = self._free_slots()
         groups: Dict[int, list] = {}
         while free and self.waiting:
@@ -666,7 +789,7 @@ class DecodeEngine:
             if len(req.prompt) >= self.max_seq:
                 # keep the latest context that still leaves room to decode
                 req.prompt = req.prompt[-(self.max_seq - 1):]
-            if req.params.logprobs or (
+            if self._shards[1] > 1 or req.params.logprobs or (
                     self.prefill_chunk is not None
                     and len(req.prompt) > self.prefill_chunk) or (
                     self.cache.ring
@@ -692,11 +815,36 @@ class DecodeEngine:
             return
         toks = torch.zeros((1, _bucket(s, self.max_seq)), dtype=torch.int32)
         toks[0, :s] = torch.tensor(req.prompt, dtype=torch.int32)
-        last_logits, self.cache = prefill_step(
-            self.params, self.cache, toks.to(self.device), slot, s,
-            self.config)
+        last_logits = self._prefill(toks.to(self.device), slot, s)
         req.pending_first = self._sample_first(last_logits, req)
         self.active[slot] = req
+
+    def _prefill(self, tokens: torch.Tensor, slot: int, true_len: int):
+        """Prefill one request into ``slot``: f32 last logits [V] (on
+        every rank under a mesh)."""
+        if self._tp is None:
+            logits, self.cache = prefill_step(self.params, self.cache,
+                                              tokens, slot, true_len,
+                                              self.config)
+            return logits
+        from ..parallel.tp import tp_prefill
+        logits, self.cache = tp_prefill(self.params, self.cache, tokens,
+                                        slot, true_len, self.config, self._tp)
+        return logits
+
+    def _prefill_chunk(self, tokens: torch.Tensor, slot: int, start: int,
+                       new_len: int, attn_span, attn_start: int):
+        """One chunked-prefill step into ``slot``: the chunk's hidden."""
+        if self._tp is None:
+            x, self.cache = prefill_chunk_step(
+                self.params, self.cache, tokens, slot, start, new_len,
+                self.config, attn_span=attn_span, attn_start=attn_start)
+            return x
+        from ..parallel.tp import tp_prefill_chunk
+        x, self.cache = tp_prefill_chunk(
+            self.params, self.cache, tokens, slot, start, new_len,
+            self.config, self._tp, attn_span, attn_start)
+        return x
 
     def _admit_group(self, s_pad: int, grp: list):
         """Prefill a same-bucket group in one forward. R pads to a power of
@@ -722,7 +870,8 @@ class DecodeEngine:
                 self._history_mask([req for _, req in rows])).to(dev)
         firsts, self.cache = prefill_batch(
             self.params, self.cache, torch.from_numpy(toks).to(dev), slots,
-            lens, self.generator, samp, self.config, seen_mask=mask)
+            lens, self._first_gen, samp, self.config, seen_mask=mask,
+            tp=self._tp)
         for i, (slot, req) in enumerate(grp):
             req.pending_first = firsts[i]
             self.active[slot] = req
@@ -734,7 +883,7 @@ class DecodeEngine:
         mask = None
         if req.params.repetition_penalty != 1.0:
             mask = torch.from_numpy(self._history_mask([req])).to(self.device)
-        tok = sample(logits[None, :], self.generator, req.params, mask)[0]
+        tok = sample(logits[None, :], self._first_gen, req.params, mask)[0]
         if req.params.logprobs:
             req.pending_first_lp = _token_logprob(logits, tok)
         return tok
@@ -759,13 +908,12 @@ class DecodeEngine:
         else:
             span = _chunk_span_bucket(start + c, self.max_seq)
             a_start = self._win_start(start)
-        x, self.cache = prefill_chunk_step(
-            self.params, self.cache, toks.to(self.device), slot, start, end,
-            self.config, attn_span=span, attn_start=a_start)
+        x = self._prefill_chunk(toks.to(self.device), slot, start, end,
+                                span, a_start)
         req.prefill_pos = end
         if end >= n:
             logits = prefill_final_logits(self.params, x, n - 1 - start,
-                                          self.config)
+                                          self.config, tp=self._tp)
             req.pending_first = self._sample_first(logits, req)
             req.prefilling = False
         return True
@@ -871,13 +1019,15 @@ class DecodeEngine:
         steps_per_sync, all_greedy, penalty, want_logprobs, attn_start)``,
         captured at the key's first use. Returns the device (tokens_seq,
         active_seq, logprobs_seq or None) [steps, B]; read them before the
-        next chunk, which may overwrite them."""
-        self._tokens_host.numpy()[:] = tokens
-        self._active_host.numpy()[:] = active
+        next chunk, which may overwrite them. Under a mesh the device
+        inputs hold this rank's slots, and the outputs every slot."""
+        lo, hi = self._lo, self._hi
+        self._tokens_host.numpy()[:] = tokens[lo:hi]
+        self._active_host.numpy()[:] = active[lo:hi]
         self._tokens.copy_(self._tokens_host, non_blocking=True)
         self._active.copy_(self._active_host, non_blocking=True)
         if seen is not None:
-            self._seen_host.numpy()[:] = seen
+            self._seen_host.numpy()[:] = seen[lo:hi]
             self._seen.copy_(self._seen_host, non_blocking=True)
         self._samp_arrays()
         return self._dispatch(all_greedy=all_greedy, attn_span=attn_span,
@@ -900,9 +1050,13 @@ class DecodeEngine:
                 self.generator, samp, self.config, n_steps=n,
                 all_greedy=all_greedy, attn_span=attn_span,
                 seen_mask=self._seen if penalty else None,
-                want_logprobs=want_logprobs, attn_start=attn_start)
+                want_logprobs=want_logprobs, attn_start=attn_start,
+                tp=self._tp)
             self._tokens.copy_(last)
             self._active.copy_(live)
+            if self._tp is not None:        # every dp group's slots
+                g = self._tp.gather_dp
+                return g(toks_seq, 1), g(act_seq, 1), g(lp_seq, 1)
             return toks_seq, act_seq, lp_seq
 
         if self._graphs is None:
@@ -920,8 +1074,8 @@ class DecodeEngine:
         attn_span, gamma, all_greedy)``, captured at the key's first use.
         Returns the device (emitted [B, gamma + 1], counts [B]) of
         :func:`~.speculative.verify_step`; the lengths advance in place."""
-        self._vtokens_host.numpy()[:] = tokens
-        self._active_host.numpy()[:] = active
+        self._vtokens_host.numpy()[:] = tokens[self._lo:self._hi]
+        self._active_host.numpy()[:] = active[self._lo:self._hi]
         self._vtokens.copy_(self._vtokens_host, non_blocking=True)
         self._active.copy_(self._active_host, non_blocking=True)
         samp = self._samp_arrays()
@@ -931,7 +1085,9 @@ class DecodeEngine:
             emitted, counts, _ = spec.verify_step(
                 self.params, self.cache, self._vtokens, self._active, gen,
                 samp, self.config, attn_span=attn_span,
-                all_greedy=all_greedy)
+                all_greedy=all_greedy, tp=self._tp)
+            if self._tp is not None:
+                return self._tp.gather_dp(emitted), self._tp.gather_dp(counts)
             return emitted, counts
 
         if self._graphs is None:
@@ -1132,23 +1288,25 @@ class DecodeEngine:
         dev, b = self.device, self.max_batch
         for s_pad in plan["prefill_buckets"]:
             toks = torch.zeros((1, s_pad), dtype=torch.int32, device=dev)
-            prefill_step(self.params, self.cache, toks, 0, 1, self.config)
-            for r_pad in group_sizes:       # batched-admission shapes
+            self._prefill(toks, 0, 1)
+            # batched-admission shapes (a mesh over dp groups admits one
+            # request at a time)
+            for r_pad in group_sizes if self._shards[1] == 1 else ():
                 prefill_batch(
                     self.params, self.cache,
                     torch.zeros((r_pad, s_pad), dtype=torch.int32,
                                 device=dev),
                     torch.zeros((r_pad,), dtype=torch.int32, device=dev),
                     torch.ones((r_pad,), dtype=torch.int32, device=dev),
-                    self.generator, self._samp({}, r_pad), self.config)
+                    self.generator, self._samp({}, r_pad), self.config,
+                    tp=self._tp)
         if self.prefill_chunk is not None:
             toks = torch.zeros((1, self.prefill_chunk), dtype=torch.int32,
                                device=dev)
             for span, a_start in plan["chunk_pairs"]:
-                x, _ = prefill_chunk_step(self.params, self.cache, toks, 0,
-                                          0, 1, self.config, attn_span=span,
-                                          attn_start=a_start)
-            prefill_final_logits(self.params, x, 0, self.config)
+                x = self._prefill_chunk(toks, 0, 0, 1, span, a_start)
+            prefill_final_logits(self.params, x, 0, self.config,
+                                 tp=self._tp)
         zeros = np.zeros((b,), np.int32)
         ones = np.ones((b,), bool)
         for (span, _, greedy, penalty, want_lp,
@@ -1176,7 +1334,8 @@ class DecodeEngine:
         PRNG key), the uid counter and every waiting, active and finished
         request with its bookkeeping (prefill position, logprobs, a first
         token not yet emitted). The parameters are not included, nor
-        ``on_token`` callbacks."""
+        ``on_token`` callbacks. Under a mesh each rank writes its own
+        file (:func:`rank_path`): its KV shard and its generators."""
         def enc_req(r: Request) -> dict:
             return {"uid": r.uid, "prompt": list(r.prompt),
                     "sampling": dataclasses.asdict(r.params),
@@ -1191,7 +1350,11 @@ class DecodeEngine:
 
         c = self.cache
         dtype = c.k.dtype if not c.quantized else self.config.dtype
-        save_checkpoint(path, {
+        extra = {}
+        if self._tp is not None:
+            path = rank_path(path)
+            extra["first_generator"] = self._first_gen.get_state()
+        save_checkpoint(path, {**extra,
             "cache": {"k": c.k, "v": c.v, "k_scale": c.k_scale,
                       "v_scale": c.v_scale, "lengths": c.lengths,
                       "quantized": c.quantized, "ring": c.ring,
@@ -1208,7 +1371,8 @@ class DecodeEngine:
         model, batch, ``max_seq`` and cache mode); decoding resumes
         token-identically. The snapshot is copied into the engine's own
         cache tensors and generator, so graphs captured before the load
-        replay against the restored state."""
+        replay against the restored state. Under a mesh each rank reads
+        the file its rank wrote (:func:`rank_path`)."""
         def dec_req(d: dict) -> Request:
             sd = dict(d["sampling"])
             sd["stop"] = tuple(tuple(st) for st in sd.get("stop", ()))
@@ -1223,7 +1387,7 @@ class DecodeEngine:
                            pending_first=d["pending_first"],
                            pending_first_lp=d["pending_first_lp"])
 
-        st = load_checkpoint(path)
+        st = load_checkpoint(path if self._tp is None else rank_path(path))
         snap, c = st["cache"], self.cache
         if (bool(snap["quantized"]) != c.quantized
                 or bool(snap["ring"]) != c.ring):
@@ -1239,6 +1403,8 @@ class DecodeEngine:
                                  f"engine's {tuple(dst.shape)} {dst.dtype}")
             dst.copy_(src)
         self.generator.set_state(st["generator"])
+        if self._tp is not None:
+            self._first_gen.set_state(st["first_generator"])
         self._uid = int(st["uid"])
         self.waiting = [dec_req(d) for d in st["waiting"]]
         self.active = {int(s): dec_req(d) for s, d in st["active"].items()}

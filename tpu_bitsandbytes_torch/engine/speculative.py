@@ -103,11 +103,12 @@ def accept_and_emit(logits: torch.Tensor, tokens: torch.Tensor,
 
 def verify_logits(params, cache: KVCache, tokens: torch.Tensor,
                   config: llama.LlamaConfig,
-                  attn_span: Optional[int] = None) -> torch.Tensor:
+                  attn_span: Optional[int] = None, tp=None) -> torch.Tensor:
     """The verify forward: tokens int32 [B, G1] at positions ``lengths +
     j``, their KV written into ``cache`` (positions past ``max_seq``
     dropped); the lengths are left as they were. Returns f32 logits
-    [B, G1, V]."""
+    [B, G1, V]. ``tp``: a :class:`~..parallel.tp.TPContext`, to run on
+    this rank's shards (its lm_head gathered at every position)."""
     g1 = tokens.shape[1]
     positions = (cache.lengths[:, None]
                  + torch.arange(g1, dtype=torch.int32,
@@ -116,15 +117,19 @@ def verify_logits(params, cache: KVCache, tokens: torch.Tensor,
                                               config)
     for li, layer in enumerate(params["layers"]):
         x, cache = llama.decode_layer(layer, x, cos, sin, positions, cache,
-                                      li, config, attn_span=attn_span)
+                                      li, config, attn_span=attn_span,
+                                      **({} if tp is None else tp.hooks))
     x = llama._norm(x, params["final_norm"], config)
+    if tp is not None:
+        return tp.head_logits(params, x, config)
     return llama.head_logits(params, x, config)
 
 
 def verify_step(params, cache: KVCache, tokens: torch.Tensor,
                 active: torch.Tensor, generator: Optional[torch.Generator],
                 samp: SamplingArrays, config: llama.LlamaConfig,
-                attn_span: Optional[int] = None, all_greedy: bool = False):
+                attn_span: Optional[int] = None, all_greedy: bool = False,
+                tp=None):
     """One speculative verify: tokens [B, gamma+1] = [last emitted, drafts].
 
     Returns (emitted [B, gamma+1], counts [B], cache), the lengths of
@@ -134,7 +139,7 @@ def verify_step(params, cache: KVCache, tokens: torch.Tensor,
     decode step); inactive slots count 0. ``attn_span`` must cover every
     active slot's length + gamma + 1.
     """
-    logits = verify_logits(params, cache, tokens, config, attn_span)
+    logits = verify_logits(params, cache, tokens, config, attn_span, tp)
     emitted, n_acc = accept_and_emit(logits, tokens, generator, samp,
                                      all_greedy=all_greedy)
     counts = torch.where(active, n_acc + 1,

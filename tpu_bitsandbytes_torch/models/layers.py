@@ -139,8 +139,11 @@ class QLinear4:
         x2 = x.reshape(-1, x.shape[-1])
         n = self.shape[0]
         if self.w_cache is not None and self.w_cache.dtype == torch.uint8:
+            # a row-parallel shard carries its tensor-parallel group
+            # (parallel.tp): the A8 row scale is all-reduced over it
             out = int4_matmul(x2, self.w_cache, self.cache_scale,
-                              bias=self.bias, out_dtype=self.dtype, n_out=n)
+                              bias=self.bias, out_dtype=self.dtype, n_out=n,
+                              xmax_group=getattr(self, "_tp_group", None))
         elif self.w_cache is not None:
             out = cache_matmul(x2, self.w_cache, self.cache_scale,
                                self.bias, self.dtype)

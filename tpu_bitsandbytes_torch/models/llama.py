@@ -236,16 +236,26 @@ def _act(config: LlamaConfig):
     raise ValueError(f"unknown hidden_act: {config.hidden_act!r}")
 
 
-def _expert(exp, x, act):
+def _no_wrap(w, row: bool = False):
+    return w
+
+
+def _no_reduce(partial, w):
+    return partial
+
+
+def _expert(exp, x, act, wrap=_no_wrap):
     """One gated MLP (an expert, or the shared expert): fused
-    ``gateup_proj`` or separate gate/up, then ``down_proj``."""
+    ``gateup_proj`` or separate gate/up, then ``down_proj`` (a
+    row-parallel shard's partial under tensor parallelism: the caller
+    reduces it)."""
     if "gateup_proj" in exp:
-        gate, up = torch.chunk(linear_apply(exp["gateup_proj"], x), 2,
+        gate, up = torch.chunk(linear_apply(wrap(exp["gateup_proj"]), x), 2,
                                dim=-1)
     else:
-        gate = linear_apply(exp["gate_proj"], x)
-        up = linear_apply(exp["up_proj"], x)
-    return linear_apply(exp["down_proj"], act(gate) * up)
+        gate = linear_apply(wrap(exp["gate_proj"]), x)
+        up = linear_apply(wrap(exp["up_proj"]), x)
+    return linear_apply(wrap(exp["down_proj"], row=True), act(gate) * up)
 
 
 def moe_routing(router: torch.Tensor, x: torch.Tensor,
@@ -265,24 +275,28 @@ def moe_routing(router: torch.Tensor, x: torch.Tensor,
     return top, topv, probs
 
 
-def _moe_mlp(moe, x, config: LlamaConfig):
+def _moe_mlp(moe, x, config: LlamaConfig, wrap=_no_wrap,
+             reduce_fn=_no_reduce):
     """The sparse-MoE MLP, as the JAX package computes it: every expert
     runs on every token and is scaled by its routing weight (zero where
     not chosen) cast to x's dtype, and the experts are summed in index
     order in x's dtype; Qwen2-MoE adds its shared expert scaled by
-    ``sigmoid(x @ shared_gate.T)`` (f32, cast to x's dtype)."""
+    ``sigmoid(x @ shared_gate.T)`` (f32, cast to x's dtype). Under tensor
+    parallelism (``wrap``/``reduce_fn``) the experts' row-parallel
+    partials are summed first and reduced once (experts carry no bias)."""
     top, topv, probs = moe_routing(moe["router"], x, config)
     w = torch.zeros_like(probs).scatter(-1, top, topv)      # [.., E]
     act = _act(config)
     out = None
     for e, exp in enumerate(moe["experts"]):
-        d = _expert(exp, x, act) * w[..., e:e + 1].to(x.dtype)
+        d = _expert(exp, x, act, wrap) * w[..., e:e + 1].to(x.dtype)
         out = d if out is None else out + d
     if "shared_expert" in moe:
         g = torch.sigmoid(x.to(torch.float32)
                           @ moe["shared_gate"].to(torch.float32).t())
-        out = out + _expert(moe["shared_expert"], x, act) * g.to(x.dtype)
-    return out
+        out = out + _expert(moe["shared_expert"], x, act, wrap) * g.to(
+            x.dtype)
+    return reduce_fn(out, None)
 
 
 def _embed_tokens(params, tokens, config: LlamaConfig):
@@ -405,15 +419,37 @@ def init_params(config: LlamaConfig, *, generator: torch.Generator,
     return params
 
 
+def _interleave_rows(mats, tp: int) -> torch.Tensor:
+    """Concatenate [N_i, ...] tensors so that each of ``tp`` equal dim-0
+    shards holds its share of every one: (q_0; k_0; v_0; q_1; k_1; v_1;
+    ...), x_i being x's i-th row shard. tp = 1 is a plain concatenation."""
+    for m in mats:
+        if m.shape[0] % tp != 0:
+            raise ValueError(f"fused projection rows {m.shape[0]} not "
+                             f"divisible by tp={tp}")
+    if tp == 1:
+        return torch.cat(mats)
+    segs = []
+    for i in range(tp):
+        for m in mats:
+            n_t = m.shape[0] // tp
+            segs.append(m[i * n_t:(i + 1) * n_t])
+    return torch.cat(segs)
+
+
 def quantize_params(params: Params, blocksize: int = 64,
                     quant_type: str = "nf4", dtype=torch.bfloat16,
                     compress_statistics: bool = False,
-                    fuse_projections: bool = False) -> Params:
+                    fuse_projections: bool = False, tp: int = 1) -> Params:
     """Replace every linear projection (the experts', and lm_head) with a
     :class:`QLinear4`; MoE routers and shared-expert gates stay in full
     precision. ``fuse_projections`` concatenates q/k/v into ``qkv_proj``
     and each gated MLP's (and expert's) gate/up into ``gateup_proj``;
-    4-bit blocks run along K, so fusing rows changes no quantized value."""
+    4-bit blocks run along K, so fusing rows changes no quantized value.
+    ``tp``: lay the fused rows (and their biases) out for a tp-way mesh
+    (:func:`_interleave_rows`), so that a column-parallel shard holds
+    exactly (q_i; k_i; v_i) and (gate_i; up_i); the layout belongs to that
+    tp, and tp = 1 is the single-device concatenation."""
     def wb(leaf):
         return (leaf["w"], leaf.get("b")) if isinstance(leaf, dict) else (
             leaf, None)
@@ -422,11 +458,13 @@ def quantize_params(params: Params, blocksize: int = 64,
         ws, bs = zip(*(wb(l) for l in leaves))
         bias = None
         if any(b is not None for b in bs):
-            bias = torch.cat([torch.zeros(w.shape[:1], dtype=w.dtype,
-                                          device=w.device) if b is None
-                              else b for w, b in zip(ws, bs)])
+            bias = _interleave_rows(
+                [torch.zeros(w.shape[:1], dtype=w.dtype, device=w.device)
+                 if b is None else b for w, b in zip(ws, bs)],
+                tp if len(ws) > 1 else 1)
         return QLinear4.quantize(
-            torch.cat(ws).to(torch.float32), blocksize=blocksize,
+            _interleave_rows(list(ws), tp if len(ws) > 1 else 1).to(
+                torch.float32), blocksize=blocksize,
             quant_type=quant_type, dtype=dtype, bias=bias,
             compress_statistics=compress_statistics)
 
@@ -513,42 +551,55 @@ def _rope(config: LlamaConfig, device: torch.device):
                       config.rope_theta, config.rope_scaling, device=device)
 
 
-def _qkv(layer, h, config: LlamaConfig):
+def _qkv(layer, h, config: LlamaConfig, n_heads: Optional[int] = None,
+         n_kv: Optional[int] = None, wrap=_no_wrap):
+    """q [B, S, n_heads, D], k and v [B, S, n_kv, D]: the config's head
+    counts, or a tensor-parallel shard's local ones."""
     b, s, _ = h.shape
-    hd, nh, nkv = config.hd, config.num_heads, config.num_kv_heads
+    hd = config.hd
+    nh = config.num_heads if n_heads is None else n_heads
+    nkv = config.num_kv_heads if n_kv is None else n_kv
     if "qkv_proj" in layer:
-        qkv = linear_apply(layer["qkv_proj"], h)
+        qkv = linear_apply(wrap(layer["qkv_proj"]), h)
         q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q = linear_apply(layer["q_proj"], h)
-        k = linear_apply(layer["k_proj"], h)
-        v = linear_apply(layer["v_proj"], h)
+        q = linear_apply(wrap(layer["q_proj"]), h)
+        k = linear_apply(wrap(layer["k_proj"]), h)
+        v = linear_apply(wrap(layer["v_proj"]), h)
     return (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
             v.reshape(b, s, nkv, hd))
 
 
-def _mlp(layer, h, config: LlamaConfig):
+def _mlp(layer, h, config: LlamaConfig, wrap=_no_wrap,
+         reduce_fn=_no_reduce):
     if "moe" in layer:
-        return _moe_mlp(layer["moe"], h, config)
+        return _moe_mlp(layer["moe"], h, config, wrap, reduce_fn)
     if not config.gated_mlp:            # Phi-2: up -> act -> down
-        return linear_apply(layer["down_proj"],
-                            _act(config)(linear_apply(layer["up_proj"], h)))
-    return _expert(layer, h, _act(config))
+        d = linear_apply(wrap(layer["down_proj"], row=True),
+                         _act(config)(linear_apply(wrap(layer["up_proj"]),
+                                                   h)))
+    else:
+        d = _expert(layer, h, _act(config), wrap)
+    return reduce_fn(d, layer["down_proj"])
 
 
-def _block_out(layer, x, h, o, config: LlamaConfig):
-    """A layer after its attention: ``o`` the o_proj output, ``h`` the
-    input norm's output. Gemma2 norms the attention and MLP outputs
-    (``post_attn_norm``, ``post_ffn_norm``) and the MLP's input with
-    ``pre_ffn_norm``; a parallel block (Phi-2) returns x + o + mlp(h)."""
+def _block_out(layer, x, h, o, config: LlamaConfig, wrap=_no_wrap,
+               reduce_fn=_no_reduce):
+    """A layer after its attention: ``o`` the o_proj output (a
+    row-parallel partial, which ``reduce_fn`` reduces and adds the bias
+    to once), ``h`` the input norm's output. Gemma2 norms the attention
+    and MLP outputs (``post_attn_norm``, ``post_ffn_norm``) and the MLP's
+    input with ``pre_ffn_norm``; a parallel block (Phi-2) returns x + o +
+    mlp(h)."""
     eps, off = config.rms_eps, config.rms_weight_offset
+    o = reduce_fn(o, layer["o_proj"])
     if config.post_norms:
         o = rms_norm(o, layer["post_attn_norm"], eps, off)
     if not config.parallel_blocks:
         x = x + o
         h = _norm(x, layer["pre_ffn_norm" if config.post_norms
                   else "post_attn_norm"], config)
-    d = _mlp(layer, h, config)
+    d = _mlp(layer, h, config, wrap, reduce_fn)
     if config.post_norms:
         d = rms_norm(d, layer["post_ffn_norm"], eps, off)
     if config.parallel_blocks:
@@ -556,18 +607,41 @@ def _block_out(layer, x, h, o, config: LlamaConfig):
     return x + d
 
 
-def _layer(layer, x, cos, sin, config: LlamaConfig, li: int):
-    """One transformer layer of the causal prefill: (x, (k, v))."""
+def _layer(layer, x, cos, sin, config: LlamaConfig, li: int,
+           n_heads: Optional[int] = None, n_kv: Optional[int] = None,
+           wrap=_no_wrap, reduce_fn=_no_reduce):
+    """One transformer layer of the causal prefill: (x, (k, v)). The
+    tensor-parallel hooks (the JAX package's ``prefill_layer``):
+    ``wrap(w, row=False)`` adapts a weight leaf to this shard,
+    ``reduce_fn(partial, w)`` reduces a row-parallel partial and adds its
+    bias once; ``n_heads``/``n_kv`` are the shard's head counts."""
     b, s, _ = x.shape
     h = _norm(x, layer["input_norm"], config)
-    q, k, v = _qkv(layer, h, config)
+    q, k, v = _qkv(layer, h, config, n_heads, n_kv, wrap)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = gqa_attention(q, k, v, window=_layer_window(config, li),
                          scale=_attn_scale(config),
                          softcap=config.attn_logit_softcap)
-    o = linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
-    return _block_out(layer, x, h, o, config), (k, v)
+    o = linear_apply(wrap(layer["o_proj"], row=True), attn.reshape(b, s, -1))
+    return _block_out(layer, x, h, o, config, wrap, reduce_fn), (k, v)
+
+
+def prefill_hidden(params: Params, tokens: torch.Tensor,
+                   config: LlamaConfig, **hooks):
+    """The causal prefill's layers without the final norm and the head:
+    tokens [B, S] -> (x [B, S, H], the per-layer post-RoPE ``(k, v)``).
+    ``hooks``: :func:`_layer`'s tensor-parallel hooks (the JAX package's
+    ``prefill_layer`` loop in its mesh prefill)."""
+    s = tokens.shape[1]
+    cos_full, sin_full = _rope(config, tokens.device)
+    cos, sin = cos_full[None, :s], sin_full[None, :s]
+    x = _embed_tokens(params, tokens, config)
+    new_kv = []
+    for li, layer in enumerate(params["layers"]):
+        x, kv = _layer(layer, x, cos, sin, config, li, **hooks)
+        new_kv.append(kv)
+    return x, new_kv
 
 
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -598,7 +672,9 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
 
 def decode_layer(layer, x, cos, sin, positions, cache, li: int,
                  config: LlamaConfig, *, attn_span: Optional[int] = None,
-                 slot: Optional[int] = None, attn_start: int = 0):
+                 slot: Optional[int] = None, attn_start: int = 0,
+                 n_heads: Optional[int] = None, n_kv: Optional[int] = None,
+                 wrap=_no_wrap, reduce_fn=_no_reduce):
     """One transformer layer of the cached decode step.
 
     x [B, 1, H] with ``positions`` [B] int32, each slot's write position;
@@ -621,12 +697,14 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     fully-windowed model's lower bound). A ring cache (``cache.ring``) is
     read whole, never by K2, under the ring mask. Each layer attends with
     its window (:func:`_layer_window`), :func:`_attn_scale` and the
-    attention softcap. Returns (x, cache).
+    attention softcap. The tensor-parallel hooks are :func:`_layer`'s:
+    under them ``cache`` holds this shard's ``n_kv`` heads. Returns (x,
+    cache).
     """
     b, s, _ = x.shape
     pos2d = positions if positions.dim() == 2 else positions[:, None]
     h = _norm(x, layer["input_norm"], config)
-    q, k, v = _qkv(layer, h, config)
+    q, k, v = _qkv(layer, h, config, n_heads, n_kv, wrap)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     half = config.dtype in (torch.bfloat16, torch.float16)
@@ -663,8 +741,8 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
             config.dtype)
         attn = gqa_attention_hm(q, k_all, v_all, causal_offset=pos2d,
                                 ring=ring, **kw)
-    o = linear_apply(layer["o_proj"], attn.reshape(b, s, -1))
-    return _block_out(layer, x, h, o, config), cache
+    o = linear_apply(wrap(layer["o_proj"], row=True), attn.reshape(b, s, -1))
+    return _block_out(layer, x, h, o, config, wrap, reduce_fn), cache
 
 
 def decode_embed_and_rope(params, tokens, positions, config: LlamaConfig):

@@ -177,10 +177,10 @@ def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 _build.counter(int4_mm, "launches")
 
 
-def _a8_int4_mm(x, w, scales):
-    """x [M, K_pad] -> f32 [M, N]: A8 (:func:`~.w4a8.quantize_a8`), then
-    K1."""
-    xq, s_x = quantize_a8(x, x.shape[1])
+def _a8_int4_mm(x, w, scales, group=None):
+    """x [M, K_pad] -> f32 [M, N]: A8 (:func:`~.w4a8.quantize_a8`, its row
+    scale all-reduced over ``group`` on a row-parallel shard), then K1."""
+    xq, s_x = quantize_a8(x, x.shape[1], group)
     return int4_mm(xq, w, scales, s_x)
 
 
@@ -207,7 +207,8 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
                 blocksize: Optional[int] = None,
                 bias: Optional[torch.Tensor] = None,
                 out_dtype: torch.dtype = torch.bfloat16,
-                n_out: Optional[int] = None) -> torch.Tensor:
+                n_out: Optional[int] = None,
+                xmax_group=None) -> torch.Tensor:
     """``x [M, K] @ (codes * scales).T`` over the packed int4 cache.
 
     Where the JAX package runs its kernel (:func:`takes_kernel`), x is
@@ -215,7 +216,10 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
     even, clip to +-127) and K1 computes the product; elsewhere the weight
     is dequantized to x's dtype and multiplied with f32 accumulation.
     ``blocksize`` defaults to what the scales' shape implies; ``n_out``
-    keeps the first ``n_out`` output columns.
+    keeps the first ``n_out`` output columns. ``xmax_group``: on a
+    row-parallel shard, the tensor-parallel group over which the A8 row
+    scale is all-reduced to its maximum (the JAX package's
+    ``xmax_axis``), so the shard's int8 codes are the unsharded row's.
     """
     m, k = x.shape
     n = w.shape[0]
@@ -225,8 +229,13 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
     if kp != k:
         x = torch.nn.functional.pad(x, (0, kp - k))
     if takes_kernel(m, n, kp, blocksize):
-        out = (Int4MatmulFn.apply(x, w, scales, blocksize)
-               if _build.records_grad(x) else _a8_int4_mm(x, w, scales))
+        if _build.records_grad(x):
+            if xmax_group is not None:
+                raise NotImplementedError(
+                    "int4_matmul: no backward on a row-parallel shard")
+            out = Int4MatmulFn.apply(x, w, scales, blocksize)
+        else:
+            out = _a8_int4_mm(x, w, scales, xmax_group)
     else:
         wd = dequant_int4(w, scales, blocksize, dtype=x.dtype)
         out = x.to(torch.float32) @ wd.to(torch.float32).t()

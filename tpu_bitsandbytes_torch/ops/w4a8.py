@@ -160,16 +160,22 @@ def w4a8_mm(xq: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
 _build.counter(w4a8_mm, "launches")
 
 
-def quantize_a8(x: torch.Tensor, k_pad: int
+def quantize_a8(x: torch.Tensor, k_pad: int, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A8 as the JAX package quantizes: ``s_x = max(rowmax|x| / 127,
     1e-12)`` (a true division), codes ``round(x / s_x)`` half to even,
     clipped to +-127. x [M, K] -> int8 codes [M, k_pad] (K zero-padded)
-    and f32 s_x [M]."""
+    and f32 s_x [M]. ``group``: a process group whose ranks each hold a
+    slice of the rows' K (a row-parallel shard); ``rowmax|x| / 127`` is
+    all-reduced to its maximum over it (the JAX package's ``pmax``), so
+    every slice's codes are the unsharded row's."""
     x32 = x.to(torch.float32)
     if k_pad != x32.shape[1]:
         x32 = torch.nn.functional.pad(x32, (0, k_pad - x32.shape[1]))
     s_x = div_exact(x32.abs().amax(dim=1, keepdim=True), 127.0)
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(s_x, op=dist.ReduceOp.MAX, group=group)
     s_x = s_x.clamp(min=1e-12)
     xq = torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8)
     return xq, s_x[:, 0].contiguous()

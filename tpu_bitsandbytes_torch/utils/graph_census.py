@@ -94,3 +94,28 @@ def kernel_names(raw_graph: int) -> Counter[str]:
                   ctypes.c_void_p(params.kern))
         names[demangle(name.value.decode())] += 1
     return names
+
+
+# CUgraphNodeType of cuda.h, by value
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+              4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
+              8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def node_types(raw_graph: int) -> Counter[str]:
+    """The nodes of the ``CUgraph`` whose handle is ``raw_graph``, by
+    type (kernel, memcpy, memset, event_record, ...)."""
+    cu = _driver()
+    graph = ctypes.c_void_p(raw_graph)
+    n = ctypes.c_size_t(0)
+    _call(cu.cuGraphGetNodes, graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    _call(cu.cuGraphGetNodes, graph, nodes, ctypes.byref(n))
+    out: Counter[str] = collections.Counter()
+    kind = ctypes.c_int(-1)
+    for node in nodes[:n.value]:
+        _call(cu.cuGraphNodeGetType, ctypes.c_void_p(node),
+              ctypes.byref(kind))
+        out[NODE_TYPES.get(kind.value, str(kind.value))] += 1
+    return out

@@ -64,8 +64,8 @@ def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
 
 
-def param_footprint(params, runtime_cache: Optional[str] = None
-                    ) -> Dict[str, int]:
+def param_footprint(params, runtime_cache: Optional[str] = None,
+                    drop_packed: bool = False) -> Dict[str, int]:
     """Bytes by category of a (quantized) parameter tree.
 
     ``runtime_cache`` ("int8", "int4" or "bf16"): count a hypothetical
@@ -74,7 +74,8 @@ def param_footprint(params, runtime_cache: Optional[str] = None
     per row, or per (row, 128-block) for int4); the engine decides
     ``drop_packed`` and "auto" its format from this before it builds the
     cache (building it and then dropping the codes would hold both at
-    once).
+    once). ``drop_packed``: count no packed bytes for a leaf with a (real
+    or hypothetical) cache, as if the codes were freed.
 
     Returns {"packed": NF4 codes + absmax, "exec_cache": the runtime cache,
     "fp": everything else}.
@@ -97,6 +98,8 @@ def param_footprint(params, runtime_cache: Optional[str] = None
                 per = {"int8": 1, "bf16": 2, "int4": 0.5}[runtime_cache]
                 sc = (k // INT4_BLOCK) * 4 if runtime_cache == "int4" else 4
                 ex = int(n * k * per) + n * sc
+            if drop_packed and ex:
+                pk = 0
             out["packed"] += pk
             out["exec_cache"] += ex
             out["fp"] += _nbytes(w.bias)
@@ -110,6 +113,24 @@ def param_footprint(params, runtime_cache: Optional[str] = None
             out["fp"] += _nbytes(w)
 
     visit(params)
+    return out
+
+
+def per_device_footprint(pf: Dict[str, int], kv_bytes: int,
+                         act_bytes: int, budget: int, tp: int = 1,
+                         dp: int = 1) -> Dict[str, Any]:
+    """One device's share of a (dp, tp)-sharded serving deployment, the
+    JAX package's per-chip table: ``pf`` (:func:`param_footprint` of the
+    whole tree) with the weights split over tp (the fp leaves whole on
+    every device), ``kv_bytes`` (the whole KV cache) split over tp * dp,
+    the activation estimate; their ``total``, the ``budget`` and ``fits``
+    (total within 0.92 of it)."""
+    out = {"packed": pf["packed"] // tp, "exec_cache": pf["exec_cache"] // tp,
+           "fp": pf["fp"], "kv": kv_bytes // (tp * dp),
+           "activations_est": act_bytes}
+    out["total"] = sum(out.values())
+    out["budget"] = budget
+    out["fits"] = out["total"] <= 0.92 * budget
     return out
 
 
