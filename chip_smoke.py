@@ -26,7 +26,8 @@ Phases (any failure raises: traceback, nonzero exit):
      on the card; its card runs are not timed) full width against the
      CPU: a Llama-2-7B-width model with the int4
      cache, and (3b) a Llama-2-13B-width model off its packed NF4 bytes,
-     each cut to 2 layers and built once from a numpy seed, run prefill
+     each cut to 1 layer (2 before its CPU references were trimmed to pay
+     for phases 13-14) and built once from a numpy seed, run prefill
      and 8 staged decode steps on the card (kernels) and on the CPU (plain
      versions), both bf16. 3b runs the card twice: fed the CPU's
      activation at every K4 call, and on its own A8 codes, held to the
@@ -121,13 +122,14 @@ Phases (any failure raises: traceback, nonzero exit):
      trained tree through ``save_checkpoint``/``load_checkpoint`` (logits
      identical). Each step's line has its time, peak memory and 8-bit
      state bytes beside the card's name and power limit.
-  11. The model families. (a) Mixtral-8x7B at its 32 layers and 8
+  11. The model families. (a) Mixtral-8x7B at full width, its first 16
+     of 32 layers (cut to pay for phases 13-14) and 8
      experts (top-2, rope theta 1e6), random packed NF4 weights from a
      seed, served off the packed bytes (B=8, ``max_seq`` 2048, 16-step
      chunks, phase 5's prompts, 48 greedy new tokens) graphed and eager
-     as phase 5: tokens identical, 577 K4 + 32 K2 per decode step by the
+     as phase 5: tokens identical, 289 K4 + 16 K2 per decode step by the
      counters and the graph's nodes, K4 for the 32/64 buckets, K5 on its
-     wgmma kernel for 128/256 (2 x 577), K3 for 1024/2048 (2 x 32),
+     wgmma kernel for 128/256 (2 x 289), K3 for 1024/2048 (2 x 16),
      ``footprint()`` equal to the allocations. (b) Mixtral at full width,
      2 layers, one 128-token prompt (K5 at M = 128 in every expert and
      the lm_head: the prefill's logits are the card's own) and 4 decode
@@ -170,6 +172,30 @@ Phases (any failure raises: traceback, nonzero exit):
      ``mesh=make_mesh(tp=1)`` (the chunk graphs capture the collectives)
      with tokens identical to the plain graphed engine's, capture s and
      step ms of both, their graphs' nodes by type.
+  13. QLoRA training under a mesh (``make_qlora_train_step(mesh=)``), two
+     ranks over gloo on the one card (``--mesh-rank train``), started
+     once 12a's ranks have exited. (a) Llama-2-7B at full width and depth
+     at tp = 2: phase 10's weights, adapters (LoRA r 8 on q/v) and 1 x 257
+     batch, each rank holding its shards; the step-1 gradients
+     (``qlora_loss_and_grads(mesh=)``), then two adam8bit steps. 225 K5
+     launches (all wgmma) per step on each rank, K5's first call at each
+     shard shape against its plain version, losses within E2E_TOL of
+     phase 10's first two, step-1 LoRA gradients within TP_GRAD_FACTOR x
+     phase 10's own bf16-vs-f32 gap (at least E2E_TOL) of phase 10's,
+     gradients, adapters and 8-bit state bit-identical across the ranks
+     after every step; step ms and peak GiB per rank. (b) dp = 2 at 8
+     layers of 7B width, one row of a 2 x 257 batch per rank, two steps:
+     replicas identical and bit-identical to one device taking the mean
+     of the two rows' gradients (each row at M = 256, as each rank).
+  14. (a) The perplexity gate on the card: ``utils/proxy.py`` trains the
+     JAX package's gate model (vocab 256, hidden 192, 2 layers, f32) for
+     250 steps on the card; NF4, NF4 with double quantization, FP4, the
+     int8 and int4 runtime caches and int8-KV decode each within 2% of
+     the f32 perplexity, each evaluation's launches counted; the same
+     parameters on the CPU give every perplexity within 1e-4. (b) The host
+     packer (``utils/native.py``) built with the host compiler packs one
+     11008 x 4096 weight on 1 and on all host threads into the bytes and
+     absmax ``quantize_4bit`` gives on the card.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -1082,11 +1108,17 @@ def as_f32(tree):
     return tree
 
 
+# phase 3's models: full width, cut in depth (their CPU references run in
+# the script's critical path)
+FULL_WIDTH_LAYERS = 1
+
+
 def phase_full_width(dev):
     from tpu_bitsandbytes_torch.models.llama import (LlamaConfig,
                                                      build_runtime_cache,
                                                      to_device)
-    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                              num_layers=FULL_WIDTH_LAYERS)
     rng = np.random.default_rng(1234)
     params = build_runtime_cache(seeded_params(cfg, rng, dev), "int4",
                                  drop_packed=True)
@@ -1186,8 +1218,8 @@ def k4_inputs(record=None, feed=None):
 
 
 def phase_full_width_packed(dev, counters):
-    """3b: Llama-2-13B width, 2 layers, no runtime cache: prompts of 40
-    (bucket 64: K4), 100 (bucket 128: K5 at M=128) and 1,000 tokens
+    """3b: Llama-2-13B width, ``FULL_WIDTH_LAYERS`` layers, no runtime
+    cache: prompts of 40 (bucket 64: K4), 100 (bucket 128: K5 at M=128) and 1,000 tokens
     (bucket 1024: the plain GEMM and K3), then 8 decode steps (K4, K2).
 
     The weights are normal(0, 0.02) quantized to NF4: uniformly random
@@ -1204,7 +1236,8 @@ def phase_full_width_packed(dev, counters):
     steps (at least E2E_TOL): no further from the CPU than bf16 is from
     f32."""
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig, to_device
-    cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(),
+                              num_layers=FULL_WIDTH_LAYERS)
     rng = np.random.default_rng(2468)
     params = normal_nf4_params(cfg, numpy_normal(rng, dev), dev)
     cpu_params = to_device(params, "cpu")
@@ -1274,8 +1307,8 @@ def qlinears(params):
 
 
 def phase_full_width_caches(dev, counters, params, cpu_params):
-    """3d: 3b's Llama-2-13B-width model (2 layers) with the int8 runtime
-    cache, then the bf16 one, each built on the card and on the CPU from
+    """3d: 3b's Llama-2-13B-width model (``FULL_WIDTH_LAYERS``) with the
+    int8 runtime cache, then the bf16 one, each built on the card and on the CPU from
     the same NF4 weights: the caches bit-identical (the int8 codes and
     row scales are one division and one rounding per weight, with no
     reciprocal on the card: ``div_exact``); then prompts of 40 and 100
@@ -1283,7 +1316,8 @@ def phase_full_width_caches(dev, counters, params, cpu_params):
     cache products are plain torch (no K1, K4 or K5); decode runs K2."""
     from tpu_bitsandbytes_torch.models.llama import (LlamaConfig,
                                                      build_runtime_cache)
-    cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(),
+                              num_layers=FULL_WIDTH_LAYERS)
     rng = np.random.default_rng(3579)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (40, 100)]
     for fmt in ("int8", "bf16"):
@@ -1905,15 +1939,16 @@ def run_chunks(params, cfg, device, prompt, *, quantized=True, cache=None):
 
 
 def phase_chunked_prefill(dev, counters):
-    """3c: phase 3b's Llama-2-13B-width model (2 layers, NF4-quantized
-    normal weights, seed 2468) takes a 600-token prompt as three 256-token
+    """3c: phase 3b's Llama-2-13B-width model (``FULL_WIDTH_LAYERS``,
+    NF4-quantized normal weights, seed 2468) takes a 600-token prompt as three 256-token
     chunks, on the card (K5 at M = 256, then K4 for the lm_head at M = 1)
     and on the CPU (plain versions). Each chunk's hidden states must agree
     within E2E_TOL; the final logits too, with the card fed the CPU's K4
     input (per-row A8 codes turn one bf16 ulp into a few per cent, as in
     3b); the card's own-codes gap is printed beside it."""
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig, to_device
-    cfg = dataclasses.replace(LlamaConfig.llama2_13b(), num_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama2_13b(),
+                              num_layers=FULL_WIDTH_LAYERS)
     params = normal_nf4_params(
         cfg, numpy_normal(np.random.default_rng(2468), dev), dev)
     cpu_params = to_device(params, "cpu")
@@ -3101,6 +3136,7 @@ def phase_library(dev, counters, plains):
 
 QLORA_STEPS = 4
 QLORA_LR = 1e-4     # the train step's default optimizer, adam8bit(1e-4)
+QLORA_SEED = 20     # the frozen weights and adapters (13a draws the same)
 # card against the CPU at 2 layers of full width, bf16 operands and f32
 # sums in other orders (K5's wgmma against its plain version, cuBLAS
 # against the CPU's GEMMs), bf16 rounding every activation and cotangent:
@@ -3260,7 +3296,8 @@ def phase_qlora(dev, counters, plains, smi):
     gradients with and without ``remat`` from the same start (bit for
     bit), one step at 2 x 513 (M = 1024, the dequantized product), a
     ``PagedAdamW`` step on the LoRA leaves; then 2 layers against the CPU.
-    Returns the 4 steps' launches."""
+    Returns the 4 steps' launches and phase 13's references (the first
+    two losses, the step-1 LoRA gradients in bf16 and in f32)."""
     from tpu_bitsandbytes_torch.models import llama as L
     from tpu_bitsandbytes_torch.models.lora import (lora_trainable,
                                                     merge_lora_trainable)
@@ -3272,7 +3309,7 @@ def phase_qlora(dev, counters, plains, smi):
     k5 = counters["K5_matmul4bit"]
     cfg = L.LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
-    frozen = lora_7b(cfg, dev, seed=20)
+    frozen = lora_7b(cfg, dev, seed=QLORA_SEED)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     per_fwd, per_layers = frozen_linears(frozen)
@@ -3337,6 +3374,20 @@ def phase_qlora(dev, counters, plains, smi):
     if not remat_same:
         raise AssertionError("qlora: remat loss, gradients or step differ "
                              "from the plain step's")
+    # 13a's references: the first two losses, the step-1 gradients, and
+    # the same gradients in f32 (the yardstick of TP_GRAD_TOL)
+    t0 = time.perf_counter()
+    _, g32 = qlora_loss_and_grads(dataclasses.replace(cfg,
+                                                      dtype=torch.float32),
+                                  start, as_f32(frozen), tokens)
+    torch.cuda.synchronize()
+    ref_13 = {"losses": losses[:2], "tokens": tokens.cpu().numpy(),
+              "grads": {k: {ab: t.cpu() for ab, t in v.items()}
+                        for k, v in g_p.items()},
+              "grads_f32": {k: {ab: t.cpu() for ab, t in v.items()}
+                            for k, v in g32.items()},
+              "f32_grads_s": time.perf_counter() - t0}
+    del g32
     # 2 x 513: M = 1024, past K5's 256 rows
     wide = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 513))).to(dev)
     (_, _, loss_w), ms_w, peak_w = counted(
@@ -3379,10 +3430,11 @@ def phase_qlora(dev, counters, plains, smi):
                          "peak_allocated_gib": peak_w, "k5_launches": 0},
           "paged_adamw": {"step_ms": paged_ms, "states_pinned": pinned,
                           "leaves": len(before)},
-          "launches": launches, "seconds": time.perf_counter() - t_phase})
+          "launches": launches, "f32_grads_s": ref_13["f32_grads_s"],
+          "seconds": time.perf_counter() - t_phase})
     del frozen, tr, st, start, after_1, tr_r
     free_memory()
-    return launches
+    return launches, ref_13
 
 
 # ---------------------------------------------------------------------------
@@ -3390,6 +3442,7 @@ def phase_qlora(dev, counters, plains, smi):
 # ---------------------------------------------------------------------------
 
 MIXTRAL_NEW = 48    # 11a: greedy tokens per request
+MIXTRAL_LAYERS = 16     # 11a: Mixtral-8x7B's first 16 of 32 layers
 # 11a's decode chunk: 16 steps, about 100k kernel nodes a graph (a 32-step
 # chunk's capture took 16.5 s and each step breakdown's profile 20-29 s)
 MIXTRAL_CHUNK = 16
@@ -3475,12 +3528,14 @@ def k2_against_plain(K2, a, kw, what):
 
 def mixtral_workload(dev):
     """11a: (cfg, params, prompts, sampling, engine keywords) for
-    Mixtral-8x7B at its 32 layers and 8 experts, random packed NF4 weights
-    drawn on the card from a seed, served off the packed bytes at B=8,
-    ``max_seq`` 2048, 16-step chunks, phase 5's prompt lengths."""
+    Mixtral-8x7B's first ``MIXTRAL_LAYERS`` layers and 8 experts, random
+    packed NF4 weights drawn on the card from a seed, served off the
+    packed bytes at B=8, ``max_seq`` 2048, 16-step chunks, phase 5's
+    prompt lengths."""
     from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
     from tpu_bitsandbytes_torch.models.llama import LlamaConfig
-    cfg = LlamaConfig.mixtral_8x7b()
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(),
+                              num_layers=MIXTRAL_LAYERS)
     gen = torch.Generator(device=dev).manual_seed(87)
     params = random_params(
         cfg,
@@ -3500,10 +3555,10 @@ def mixtral_workload(dev):
 def phase_mixtral(dev, counters, plains):
     """11a: Mixtral-8x7B served off the packed bytes (16-step chunks),
     graphed and eager
-    (:func:`serve_mode`): 577 K4 (32 x (qkv + o + 8 x (gate/up + down)) +
-    lm_head) and 32 K2 per decode step by the counters and the graph's
+    (:func:`serve_mode`): 289 K4 (16 x (qkv + o + 8 x (gate/up + down)) +
+    lm_head) and 16 K2 per decode step by the counters and the graph's
     nodes; K4 for the 32/64 buckets, K5 on its wgmma kernel for 128/256
-    (2 x 577 launches), K3 for 1024/2048 (2 x 32); tokens identical
+    (2 x 289 launches), K3 for 1024/2048 (2 x 16); tokens identical
     between the modes; ``footprint()`` against the allocations. Returns
     the eager pass's launches."""
     from tpu_bitsandbytes_torch.engine import engine as E
@@ -4247,6 +4302,16 @@ def mesh_rank_main(argv) -> int:
     from tpu_bitsandbytes_torch.parallel import make_mesh
     part, rank, world, port, d = (argv[0], int(argv[1]), int(argv[2]),
                                   int(argv[3]), argv[4])
+    parent = os.getppid()
+
+    def orphaned():         # a rank never outlives the script
+        while True:
+            time.sleep(1.0)
+            if os.getppid() != parent:
+                os._exit(3)
+
+    import threading
+    threading.Thread(target=orphaned, daemon=True).start()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -4260,7 +4325,8 @@ def mesh_rank_main(argv) -> int:
         _build.load_all()
         mesh = make_mesh(tp=MESH_TP, dp=world // MESH_TP, device_type="cuda",
                          timeout=timeout)
-        fn = {"7b": mesh_rank_7b, "13b": mesh_rank_13b}[part]
+        fn = {"7b": mesh_rank_7b, "13b": mesh_rank_13b,
+              "train": mesh_rank_train}[part]
         torch.save(fn(mesh, dev, job), os.path.join(d, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4277,7 +4343,7 @@ class MeshWorld:
     def __init__(self, part, job, world=MESH_TP):
         import pickle
         import socket
-        self.part, self.world = part, world
+        self.part, self.world, self.job = part, world, job
         self.dir = os.path.join(MESH_DIR, part)
         os.makedirs(self.dir, exist_ok=True)
         with open(os.path.join(self.dir, "job.pkl"), "wb") as f:
@@ -4589,6 +4655,482 @@ def phase_nccl_tp1(dev, counters, plains, smi):
     return m_res[1]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: QLoRA training under a (dp, tp) mesh
+# ---------------------------------------------------------------------------
+
+# 13a's step-1 LoRA gradients against phase 10's: both are bf16 runs of the
+# same function (tp = 2 sums bf16 partials over tp where one device sums
+# in f32 inside one GEMM), so each is about as far from the f32 gradients
+# as the other. Phase 10's own gap to its f32 run on the same step (each
+# leaf as a share of its max|ref|) bounds one; the triangle inequality
+# bounds the two runs' difference by twice that, and never below
+# E2E_TOL. Fixed before the first chip run, as TP_TIE_GAP was.
+TP_GRAD_FACTOR = 2.0
+DP_LAYERS = 8       # 13b: the first 8 layers of Llama-2-7B's width
+DP_SEED = 13        # 13b's weights and adapters
+TRAIN_STEPS_13 = 2
+
+
+def tree_digest(*trees) -> str:
+    """sha256 of every tensor's bytes in the trees (leaves in JAX's
+    order): equal digests on two ranks are equal bits."""
+    import hashlib
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(list(trees)):
+        t = t.detach().reshape(-1).contiguous().cpu()
+        h.update(str((t.dtype, tuple(t.shape))).encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def detached(trainable):
+    return {k: {ab: t.detach().clone() for ab, t in v.items()}
+            for k, v in trainable.items()}
+
+
+def grads_gap(got, ref) -> float:
+    """max|got - ref| over every LoRA gradient, as a share of max|ref| over
+    every one (the whole gradient's largest element, as E2E_TOL is a share
+    of the logits' max). A share of each leaf's own max is no measure at
+    full depth: a random 32-layer model's early layers get gradients below
+    bf16's rounding of the rest (phase 10's bf16 run read 8.6x a leaf's
+    own max off its f32 run on an H100; see :func:`worst_leaf_share`)."""
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    pairs = list(zip(tree_leaves(got), tree_leaves(ref)))
+    diff = max((a.float().cpu() - b.float().cpu()).abs().max().item()
+               for a, b in pairs)
+    return diff / max(b.float().abs().max().item() for _, b in pairs)
+
+
+def worst_leaf_share(got, ref) -> float:
+    """The worst leaf's max|got - ref| / its own max|ref| (leaves whose
+    reference is not all zero), reported beside :func:`grads_gap`."""
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    return max(err(a.float().cpu(), b.float().cpu())[1]
+               for a, b in zip(tree_leaves(got), tree_leaves(ref))
+               if b.any())
+
+
+def train_steps_timed(step, tr, st, local, tokens, counters, plains,
+                      n_steps, what):
+    """``n_steps`` steps of ``step``, each counted and timed alone: its
+    loss, ms, peak GiB, launches, K5's wgmma launches and the digest of
+    the adapters and 8-bit state after it. Returns (rows, tr, st)."""
+    k5 = counters["K5_matmul4bit"]
+    rows = []
+    for i in range(n_steps):
+        reset(counters, plains)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr, st, loss = step(tr, st, local, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        no_plain_calls(plains, f"{what} step {i + 1}")
+        rows.append({"step": i + 1, "loss": float(loss), "step_ms": ms,
+                     "peak_allocated_gib":
+                     torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "launches": counts(counters),
+                     "k5_wgmma": k5.wgmma_launches,
+                     "digest": tree_digest(tr, list(st))})
+    return rows, tr, st
+
+
+def mesh_rank_train(mesh, dev, job):
+    """13, one rank. (a) Llama-2-7B at full width and depth on tp = 2
+    (``mesh``): phase 10's weights, adapters and batch, each rank holding
+    its shards; the step-1 gradients (``qlora_loss_and_grads(mesh=)``,
+    K5's first call per shard shape recorded and held against its plain
+    version), then two ``make_qlora_train_step(mesh=)`` steps. (b) A dp =
+    2 mesh (tp = 1) on the same ranks: 8 layers of 7B width, each rank one
+    row of the 2 x 257 batch, two steps."""
+    import datetime
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    from tpu_bitsandbytes_torch.models.lora import lora_trainable
+    from tpu_bitsandbytes_torch.parallel import make_mesh, shard_params
+    from tpu_bitsandbytes_torch.parallel.train import (make_qlora_train_step,
+                                                       qlora_loss_and_grads)
+    counters, plains = kernel_counters(), kernel_plains()
+    out = {}
+    cfg = LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    full = lora_7b(cfg, dev, seed=QLORA_SEED)
+    local = shard_params(full, mesh)
+    start = detached(lora_trainable(full))
+    del full
+    free_memory()
+    out["build_s"] = time.perf_counter() - t0
+    tokens = torch.from_numpy(job["tokens"]).to(dev)
+    rec = {}
+    reset(counters, plains)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_kernel_calls(rec):
+        loss1, g1 = qlora_loss_and_grads(cfg, start, local, tokens,
+                                         mesh=mesh)
+    torch.cuda.synchronize()
+    out["grads_s"] = time.perf_counter() - t0
+    out["grads_launches"] = counts(counters)
+    no_plain_calls(plains, "13a gradients")
+    with torch.no_grad():
+        out["k5_shards"] = kernel_calls_against_plain(
+            {"K5_matmul4bit": rec.get("K5_matmul4bit", {})})["K5_matmul4bit"]
+    del rec
+    out["loss1"] = float(loss1)
+    out["grads"] = {k: {ab: t.cpu() for ab, t in v.items()}
+                    for k, v in g1.items()}
+    out["grads_digest"] = tree_digest(g1)
+    init, step = make_qlora_train_step(cfg, mesh=mesh)
+    out["steps"], _, _ = train_steps_timed(
+        step, start, init(start), local, tokens, counters, plains,
+        TRAIN_STEPS_13, "13a")
+    out["shard_shapes"] = {k: list(w.base.shape if hasattr(w, "base")
+                                   else w.shape)
+                           for k, w in local["layers"][0].items()
+                           if hasattr(w, "shape")}
+    out["lm_head_shard"] = list(local["lm_head"].shape)
+    out["packed_shapes"] = sorted({
+        tuple(getattr(w, "base", w).packed.shape)
+        for w in list(local["layers"][0].values()) + [local["lm_head"]]
+        if hasattr(getattr(w, "base", w), "packed")})
+    del local, start, g1
+    free_memory()
+    # (b) dp = 2, tp = 1
+    mesh_dp = make_mesh(tp=1, dp=2, device_type=mesh.device_type,
+                        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    cfg8 = dataclasses.replace(cfg, num_layers=DP_LAYERS)
+    full8 = lora_7b(cfg8, dev, seed=DP_SEED)
+    local8 = shard_params(full8, mesh_dp)
+    start8 = detached(lora_trainable(full8))
+    del full8
+    init8, step8 = make_qlora_train_step(cfg8, mesh=mesh_dp)
+    rows, tr, st = train_steps_timed(
+        step8, start8, init8(start8), local8,
+        torch.from_numpy(job["dp_tokens"]).to(dev), counters, plains,
+        TRAIN_STEPS_13, "13b")
+    out["dp"] = {"steps": rows, "rank_rows": mesh_dp.get_local_rank("dp")}
+    return out
+
+
+def dp_reference(dev, tokens, tx_steps=TRAIN_STEPS_13):
+    """13b on one device: the same 8 layers, adapters and 2 x 257 batch;
+    each step's gradients the mean of the two rows' (each at M = 256, as
+    each dp rank runs it) and its loss the mean of theirs, then the same
+    adam8bit update. Returns each step's (loss, digest, adapters)."""
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    from tpu_bitsandbytes_torch.models.lora import lora_trainable
+    from tpu_bitsandbytes_torch.optim import transforms as T
+    from tpu_bitsandbytes_torch.parallel.train import qlora_loss_and_grads
+    cfg8 = dataclasses.replace(LlamaConfig.llama2_7b(), num_layers=DP_LAYERS)
+    frozen = lora_7b(cfg8, dev, seed=DP_SEED)
+    tr = detached(lora_trainable(frozen))
+    tx = T.adam8bit(QLORA_LR)
+    st = tx.init(tr)
+    rows = []
+    for _ in range(tx_steps):
+        (l0, g0), (l1, g1) = [qlora_loss_and_grads(cfg8, tr, frozen,
+                                                   tokens[r:r + 1])
+                              for r in range(2)]
+        g = T.tree_unflatten(g0, [(a + b) / 2 for a, b in zip(
+            T.tree_leaves(g0), T.tree_leaves(g1))])
+        with torch.no_grad():
+            upd, st = tx.update(g, st, tr)
+            tr = T.apply_updates(tr, upd)
+        rows.append({"loss": float((l0 + l1) / 2),
+                     "digest": tree_digest(tr, list(st)), "trainable": tr})
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_mesh_train(world, ref_10, dev, smi):
+    """13: joins the training world (:func:`mesh_rank_train`, two ranks
+    over gloo on the one card) and holds it to phase 10's run (13a) and
+    to one device computing the same mean (13b)."""
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    res = world.join()
+    r0 = res[0]
+    cfg = LlamaConfig.llama2_7b()
+    per_step = 7 * cfg.num_layers + 1
+    want = {k: 0 for k in kernel_counters()}
+    want["K5_matmul4bit"] = per_step
+    # (a) every rank: 225 K5 launches a step, all on the wgmma kernel;
+    # gradients, adapters and 8-bit state identical to rank 0's
+    for r, out in enumerate(res):
+        if out["grads_launches"] != want:
+            raise AssertionError(f"13a rank {r}: gradients' launches "
+                                 f"{out['grads_launches']}, expected {want}")
+        for row in out["steps"]:
+            if row["launches"] != want or row["k5_wgmma"] != per_step:
+                raise AssertionError(f"13a rank {r} step {row['step']}: "
+                                     f"launches {row['launches']}, wgmma "
+                                     f"{row['k5_wgmma']}, expected {want}")
+        same = ([s["digest"] for s in out["steps"]]
+                == [s["digest"] for s in r0["steps"]]
+                and out["grads_digest"] == r0["grads_digest"]
+                and [s["loss"] for s in out["steps"]]
+                == [s["loss"] for s in r0["steps"]])
+        if not same:
+            raise AssertionError(f"13a: rank {r}'s gradients, adapters or "
+                                 "8-bit state differ from rank 0's")
+    losses = [s["loss"] for s in r0["steps"]]
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                     ref_10["losses"])]
+    if not (all(math.isfinite(x) for x in losses)
+            and max(loss_gaps) <= E2E_TOL and losses[0] == r0["loss1"]):
+        raise AssertionError(f"13a: losses {losses} against phase 10's "
+                             f"{ref_10['losses']} (tol {E2E_TOL} relative)")
+    grad_gap = grads_gap(r0["grads"], ref_10["grads"])
+    own_gap = grads_gap(ref_10["grads"], ref_10["grads_f32"])
+    tp_own_gap = grads_gap(r0["grads"], ref_10["grads_f32"])
+    grad_tol = max(E2E_TOL, TP_GRAD_FACTOR * own_gap)
+    leaf_shares = {
+        "tp2_vs_phase_10": worst_leaf_share(r0["grads"], ref_10["grads"]),
+        "phase_10_vs_f32": worst_leaf_share(ref_10["grads"],
+                                            ref_10["grads_f32"])}
+    if not grad_gap <= grad_tol:
+        raise AssertionError(f"13a: step-1 LoRA gradients off phase 10's by "
+                             f"{grad_gap} (tol {grad_tol}: phase 10's own "
+                             f"bf16-vs-f32 gap {own_gap})")
+    # the weight shard shapes K5 ran at (q/k/v share one)
+    shapes = {tuple(row["shape"][1]): row["rel_err"]
+              for row in r0["k5_shards"]}
+    emit({"phase": "qlora_7b_tp2", "model": "Llama-2-7B", "tp": MESH_TP,
+          "dp": 1, "layers": cfg.num_layers, "ranks": len(res),
+          "backend": "gloo", "card": smi, "tokens": [1, 257],
+          "note": "two processes sharing one card through host-staged "
+                  "gloo collectives: not a scaling number",
+          "world_wall_s": world.wall_s,
+          "build_s": [o["build_s"] for o in res],
+          "grads_s": [o["grads_s"] for o in res],
+          "steps": [[{k: s[k] for k in ("step", "loss", "step_ms",
+                                        "peak_allocated_gib", "k5_wgmma")}
+                     for s in o["steps"]] for o in res],
+          "k5_launches_per_step": per_step,
+          "shard_shapes": r0["shard_shapes"],
+          "lm_head_shard": r0["lm_head_shard"],
+          "k5_shard_calls_against_plain": r0["k5_shards"],
+          "k5_tol": K5_TOL["bf16"], "losses_phase_10": ref_10["losses"],
+          "loss_rel_gaps": loss_gaps, "loss_tol": E2E_TOL,
+          "grad_rel_gap": grad_gap, "grad_tol": grad_tol,
+          "phase_10_bf16_vs_f32_grad": own_gap,
+          "tp2_bf16_vs_f32_grad": tp_own_gap,
+          "worst_leaf_own_max_share": leaf_shares,
+          "replicas_identical": True})
+    if sorted(shapes) != r0["packed_shapes"]:
+        raise AssertionError(f"13a: K5 held at the shard shapes "
+                             f"{sorted(shapes)}, the model's are "
+                             f"{r0['packed_shapes']}")
+    # (b) dp = 2: each rank's launches, replicas identical, one device
+    # computing the same mean gives the same bits
+    per_8 = 7 * DP_LAYERS + 1
+    want8 = dict(want, K5_matmul4bit=per_8)
+    for r, out in enumerate(res):
+        for row in out["dp"]["steps"]:
+            if row["launches"] != want8 or row["k5_wgmma"] != per_8:
+                raise AssertionError(f"13b rank {r} step {row['step']}: "
+                                     f"launches {row['launches']}")
+        if ([s["digest"] for s in out["dp"]["steps"]]
+                != [s["digest"] for s in r0["dp"]["steps"]]):
+            raise AssertionError(f"13b: rank {r}'s adapters or state differ "
+                                 "from rank 0's")
+    ref = dp_reference(dev, torch.from_numpy(world.job["dp_tokens"]).to(dev))
+    got = r0["dp"]["steps"]
+    same = [g["digest"] == w["digest"] and g["loss"] == w["loss"]
+            for g, w in zip(got, ref)]
+    emit({"phase": "qlora_7b_8l_dp2", "model": "Llama-2-7B width",
+          "layers": DP_LAYERS, "tp": 1, "dp": 2, "backend": "gloo",
+          "card": smi, "tokens": [2, 257], "rows_per_rank": 1,
+          "steps": [[{k: s[k] for k in ("step", "loss", "step_ms",
+                                        "peak_allocated_gib")}
+                     for s in o["dp"]["steps"]] for o in res],
+          "losses_one_device": [w["loss"] for w in ref],
+          "identical_to_one_device": same, "replicas_identical": True,
+          "k5_launches_per_step": per_8})
+    if not all(same):
+        raise AssertionError(f"13b: the dp = 2 steps differ from one device "
+                             f"computing the same mean: losses "
+                             f"{[g['loss'] for g in got]} against "
+                             f"{[w['loss'] for w in ref]}")
+    launches = {k: 0 for k in want}
+    for row in r0["steps"]:
+        for k, n in row["launches"].items():
+            launches[k] += n
+    dp_launches = {k: sum(row["launches"][k] for row in r0["dp"]["steps"])
+                   for k in want}
+    return launches, dp_launches
+
+
+def start_after(world, part, job):
+    """A thread that starts ``part``'s world (:class:`MeshWorld`) once
+    every rank of ``world`` has exited, so that two worlds of 7B ranks
+    never share the card; ``.result`` holds the new world."""
+    import threading
+
+    class Starter(threading.Thread):
+        def run(self):
+            for p, _ in world.procs:
+                p.wait()
+            self.result = MeshWorld(part, job)
+
+    th = Starter(daemon=True)
+    th.start()
+    return th
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the perplexity gate and the host packer
+# ---------------------------------------------------------------------------
+
+GATE_REL = 0.02         # the reference's |delta ppl| <= 0.1 at 5.68
+# the same trained parameters on the card and the CPU, f32: cuBLAS and the
+# CPU's GEMMs (and K5 against its plain version) sum in other orders
+PROXY_CPU_TOL = 1e-4
+PROXY_STEPS = 250
+PACK_NK = (11008, 4096)     # one Llama-2-7B gate/up weight
+
+
+def proxy_evaluations(params, cfg, ev, counters=None, plains=()):
+    """The gate's perplexities of ``params`` (on their device): f32,
+    NF4, NF4 with double quantization, FP4, the int8 and int4 runtime
+    caches through the full forward, and the NF4 model's decode path on
+    float and int8 KV; with ``counters``, each evaluation's launches."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    from tpu_bitsandbytes_torch.utils import proxy as PX
+    q = L.quantize_params(params, blocksize=64, dtype=torch.float32)
+    runs = {
+        "f32": lambda: PX.teacher_forced_ppl(params, cfg, ev),
+        "nf4": lambda: PX.teacher_forced_ppl(q, cfg, ev),
+        "nf4_dq": lambda: PX.teacher_forced_ppl(L.quantize_params(
+            params, blocksize=64, dtype=torch.float32,
+            compress_statistics=True), cfg, ev),
+        "fp4": lambda: PX.teacher_forced_ppl(L.quantize_params(
+            params, blocksize=64, dtype=torch.float32, quant_type="fp4"),
+            cfg, ev),
+        "int8_cache": lambda: PX.teacher_forced_ppl(
+            L.build_runtime_cache(q, "int8"), cfg, ev),
+        "int4_cache": lambda: PX.teacher_forced_ppl(
+            L.build_runtime_cache(q, "int4"), cfg, ev),
+        "decode_float_kv": lambda: PX.decode_ppl(q, cfg, ev[:, :33],
+                                                 quantized_kv=False),
+        "decode_int8_kv": lambda: PX.decode_ppl(q, cfg, ev[:, :33],
+                                                quantized_kv=True)}
+    ppl, launched = {}, {}
+    for name, fn in runs.items():
+        if counters is not None:
+            reset(counters, plains)
+        ppl[name] = fn()
+        if counters is not None:
+            no_plain_calls(plains, f"14a {name}")
+            launched[name] = {k: n for k, n in counts(counters).items() if n}
+    return ppl, launched
+
+
+def gate_deltas(ppl):
+    """Each gate's relative perplexity change: five against the f32
+    model's teacher-forced perplexity, the int8 KV cache against the
+    float cache on the decode path."""
+    rel = {name: abs(ppl[name] / ppl["f32"] - 1)
+           for name in ("nf4", "nf4_dq", "fp4", "int8_cache", "int4_cache")}
+    rel["int8_kv_decode"] = abs(ppl["decode_int8_kv"]
+                                / ppl["decode_float_kv"] - 1)
+    return rel
+
+
+def phase_proxy(dev, counters, plains, smi):
+    """14a: the proxy gate on the card. The JAX package's gate config
+    (vocab 256, hidden 192, 2 layers, f32) trained by ``train_proxy_lm``
+    on the card (250 steps of batch 16 x 49 on its synthetic corpus),
+    then the six gates of ``tests/test_ppl_gate.py`` at ``GATE_REL``, each
+    evaluation's launches counted; the same trained parameters carried to
+    the CPU give each perplexity within ``PROXY_CPU_TOL``."""
+    from tpu_bitsandbytes_torch.models import llama as L
+    from tpu_bitsandbytes_torch.utils import proxy as PX
+    cfg = L.LlamaConfig(vocab_size=256, hidden_size=192,
+                        intermediate_size=384, num_layers=2, num_heads=4,
+                        num_kv_heads=4, max_seq_len=128, dtype=torch.float32)
+    corpus = PX.make_corpus(0, cfg.vocab_size, 24000)
+    ev = PX.eval_batches(corpus[20000:], batch=8, seq=48)
+    reset(counters, plains)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, train_ppl = PX.train_proxy_lm(cfg, corpus[:20000],
+                                          steps=PROXY_STEPS, batch=16,
+                                          seq=48, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    no_plain_calls(plains, "14a training")
+    t0 = time.perf_counter()
+    card, launched = proxy_evaluations(params, cfg, ev, counters, plains)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, _ = proxy_evaluations(L.to_device(params, "cpu"), cfg, ev)
+    cpu_s = time.perf_counter() - t0
+    rel_card, rel_cpu = gate_deltas(card), gate_deltas(cpu)
+    card_vs_cpu = {k: abs(card[k] / cpu[k] - 1) for k in card}
+    emit({"phase": "proxy_gate", "card": smi, "config": "vocab 256, "
+          "hidden 192, intermediate 384, 2 layers, 4 heads, f32",
+          "train_steps": PROXY_STEPS, "train_s": train_s,
+          "train_last_ppl": train_ppl, "ppl_card": card, "ppl_cpu": cpu,
+          "gate_rel_card": rel_card, "gate_rel_cpu": rel_cpu,
+          "gate_rel": GATE_REL, "card_vs_cpu_rel": card_vs_cpu,
+          "card_vs_cpu_tol": PROXY_CPU_TOL, "launched": launched,
+          "eval_card_s": card_s, "eval_cpu_s": cpu_s})
+    if not card["f32"] < cfg.vocab_size / 5:
+        raise AssertionError(f"14a: the proxy did not learn: ppl "
+                             f"{card['f32']}")
+    bad = {k: v for k, v in rel_card.items() if not v <= GATE_REL}
+    if bad:
+        raise AssertionError(f"14a: gates over {GATE_REL}: {bad}")
+    far = {k: v for k, v in card_vs_cpu.items() if not v <= PROXY_CPU_TOL}
+    if far:
+        raise AssertionError(f"14a: card vs CPU perplexities {far}")
+    total = {k: 0 for k in counters}
+    for counts_ in launched.values():
+        for k, n in counts_.items():
+            total[k] += n
+    return total
+
+
+def phase_host_packer(dev, smi):
+    """14b: the host library (``utils/native.py``) built here with the
+    host compiler; one Llama-2-7B gate/up weight (11008 x 4096, normal
+    from a seed) packed to NF4 on 1 host thread and on every core, its
+    bytes and absmax equal to ``functional.quantize_4bit``'s on the
+    card."""
+    from tpu_bitsandbytes_torch import functional as TF
+    from tpu_bitsandbytes_torch.utils import native
+    t0 = time.perf_counter()
+    native.has_native_host()
+    build_s = time.perf_counter() - t0
+    w = np.random.default_rng(14).standard_normal(PACK_NK).astype(
+        np.float32)
+    threads = os.cpu_count() or 1
+    secs = {}
+    for n in (1, threads):
+        native.quantize_4bit_host(w[:64], num_threads=n)      # warm
+        t0 = time.perf_counter()
+        packed, absmax = native.quantize_4bit_host(w, 64, "nf4",
+                                                   num_threads=n)
+        secs[n] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp, ts = TF.quantize_4bit(torch.from_numpy(w).to(dev), blocksize=64)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    same = (np.array_equal(packed.reshape(-1), tp.cpu().numpy())
+            and np.array_equal(absmax.reshape(-1), ts.absmax.cpu().numpy()))
+    emit({"phase": "host_packer", "card": smi, "shape": list(PACK_NK),
+          "quant_type": "nf4", "blocksize": 64, "build_s": build_s,
+          "host_s_1_thread": secs[1], "host_s_all_threads": secs[threads],
+          "threads": threads, "card_quantize_4bit_s": card_s,
+          "bytes_equal_to_card": same})
+    if not same:
+        raise AssertionError("14b: the host packer's bytes or absmax differ "
+                             "from quantize_4bit's on the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4688,17 +5230,23 @@ def main() -> int:
     by_path["bnb_api_7b"] = phase_library(dev, counters, plains)
     phase_end("9")
     # 10. QLoRA training at Llama-2-7B width
-    by_path["qlora_7b"] = phase_qlora(dev, counters, plains, smi)
+    by_path["qlora_7b"], ref_10 = phase_qlora(dev, counters, plains, smi)
     phase_end("10")
     # 11. the model families: Mixtral-8x7B served, Mixtral and Gemma2-9B
     # at 2 layers against the CPU
     free_memory()
-    by_path["mixtral_8x7b_packed"] = phase_mixtral(dev, counters, plains)
+    by_path["mixtral_8x7b_16l_packed"] = phase_mixtral(dev, counters,
+                                                         plains)
     free_memory()
     # 12a's two ranks serve on the card while this process runs phase 3
     # (full width against the CPU: CPU references and untimed card runs)
     # and 11b's and 11c's CPU references
     world_7b = MeshWorld("7b", {"outs": outs_7b})
+    # 13's ranks start when 12a's have exited
+    train_job = {"tokens": ref_10["tokens"],
+                 "dp_tokens": np.random.default_rng(1313).integers(
+                     0, 32000, (2, 257))}
+    train_starter = start_after(world_7b, "train", train_job)
     phase_full_width(dev)
     torch.cuda.empty_cache()
     packed_2l = phase_full_width_packed(dev, counters)
@@ -4721,6 +5269,14 @@ def main() -> int:
     # K2's bound at the 13B path's positions in the step counted alone
     kernels[1]["bound_13b_served_step_ms"] = k2_bound_13b
     phase_end("11")
+    # 13. QLoRA training under a mesh: Llama-2-7B at tp = 2 and 8 layers at
+    # dp = 2, two ranks over gloo on the one card
+    train_starter.join()
+    by_path["qlora_7b_tp2_rank0"], by_path["qlora_7b_8l_dp2_rank0"] = \
+        phase_mesh_train(train_starter.result, ref_10, dev, smi)
+    del ref_10
+    free_memory()
+    phase_end("13")
     # 12. tensor parallelism: tp = 2 over gloo (two ranks on the one card)
     # at Llama-2-7B's full width and depth (12a, above) and at Llama-2-13B's
     # width, and a one-rank NCCL mesh whose chunk graphs hold the
@@ -4730,12 +5286,16 @@ def main() -> int:
     by_path["llama2_13b_4l_tp2_rank0"] = phase_mesh_13b(dev, smi)
     by_path["llama2_7b_8l_nccl_tp1"] = phase_nccl_tp1(dev, counters, plains,
                                                       smi)
+    phase_end("12")
+    # 14. the perplexity gate on the card, and the host packer
+    by_path["proxy_gate"] = phase_proxy(dev, counters, plains, smi)
+    phase_host_packer(dev, smi)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
-    phase_end("12")
+    phase_end("14")
     emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script,
           "seconds_at_end_of_phase": ends})
     emit({"kernels": kernels})

@@ -9,6 +9,8 @@ in another order: within 1e-6 of max|ref| where the terms are exact
 (int8 sums, a sparse scatter) and 1e-5 where they are f32 products.
 """
 
+import os
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -269,3 +271,191 @@ def test_package_exports_match_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout.split()
     assert out == ["False"] * 4
+
+
+# -- the bitsandbytes keywords (ROADMAP A6) -------------------------------
+
+A6_FUNCTIONS = ["quantize_4bit", "quantize_nf4", "quantize_fp4",
+                "dequantize_4bit", "dequantize_nf4", "dequantize_fp4",
+                "quantize_blockwise", "dequantize_blockwise", "QuantState"]
+
+
+def _default(v):
+    """A default of either package, comparable: dtypes by name."""
+    if v is jnp.uint8 or v is jnp.bfloat16:
+        return np.dtype(v).name
+    if isinstance(v, torch.dtype):
+        return str(v).replace("torch.", "")
+    return v
+
+
+@pytest.mark.parametrize("name", A6_FUNCTIONS)
+def test_a6_signatures_match_jax(name):
+    """Parameter names, order, kinds and defaults equal JAX's under
+    ``inspect.signature`` (the dtype defaults, jnp.uint8 / torch.uint8 and
+    jnp.bfloat16 / torch.bfloat16, by name; annotations differ by
+    package)."""
+    import inspect
+
+    def params(fn):
+        return [(p.name, p.kind, _default(p.default))
+                for p in inspect.signature(fn).parameters.values()]
+    assert params(getattr(T, name)) == params(getattr(F, name))
+
+
+@pytest.mark.parametrize("shape", [(40, 200), (1000,)])
+def test_quantize_4bit_with_given_absmax(shape):
+    """``absmax=`` replaces the statistics (here 1.5x the computed ones, so
+    codes shift toward zero), with and without double quantization; the
+    codes, absmax and nested state equal JAX's."""
+    w = _x(shape, 30)
+    _, st = F.quantize_4bit(jnp.asarray(w))
+    am = np.asarray(st.absmax) * np.float32(1.5)
+    for compress in (False, True):
+        p, jst = F.quantize_4bit(jnp.asarray(w), absmax=jnp.asarray(am),
+                                 compress_statistics=compress)
+        tp, tst = T.quantize_4bit(torch.from_numpy(w),
+                                  absmax=torch.from_numpy(am),
+                                  compress_statistics=compress)
+        _eq(tp, p)
+        _eq(tst.absmax, jst.absmax)
+        if compress:
+            _eq(tst.state2.absmax, jst.state2.absmax)
+        np.testing.assert_array_equal(
+            t32(T.dequantize_4bit(tp, tst)),
+            np.asarray(F.dequantize_4bit(p, jst), np.float32))
+
+
+@pytest.mark.parametrize("qt", ["nf4", "fp4"])
+def test_quantize_4bit_out_and_storage(qt):
+    """``out=`` receives the packed bytes (and is returned); the aliases
+    take ``quant_storage=`` and view the bytes as that dtype, as JAX's
+    ``view``: int8 and float16 bytes equal JAX's."""
+    w = _x((24, 128), 31)
+    p, _ = getattr(F, f"quantize_{qt}")(jnp.asarray(w))
+    out = torch.empty(p.shape[0], dtype=torch.uint8)
+    got, _ = getattr(T, f"quantize_{qt}")(torch.from_numpy(w), out=out)
+    assert got is out
+    _eq(out, p)
+    for tdt, jdt in ((torch.int8, jnp.int8), (torch.float16, jnp.float16)):
+        jp, _ = getattr(F, f"quantize_{qt}")(jnp.asarray(w),
+                                             quant_storage=jdt)
+        tp, _ = getattr(T, f"quantize_{qt}")(torch.from_numpy(w),
+                                             quant_storage=tdt)
+        assert tp.dtype == tdt and tp.shape == jp.shape
+        np.testing.assert_array_equal(
+            tp.view(torch.uint8).numpy(),
+            np.asarray(jp).view(np.uint8))
+
+
+@pytest.mark.parametrize("qt", ["nf4", "fp4"])
+def test_dequantize_4bit_without_a_state(qt):
+    """``absmax``/``blocksize``/``quant_type`` in place of a QuantState:
+    flat codes, two values per byte, bf16, equal to JAX's (the
+    ``quant_type=`` of ``dequantize_4bit`` and the aliases); ``out=``
+    receives them; neither a state nor absmax raises."""
+    w = _x((3000,), 32)
+    p, st = F.quantize_4bit(jnp.asarray(w), blocksize=128, quant_type=qt)
+    tp = torch.from_numpy(np.asarray(p))
+    am = torch.from_numpy(np.asarray(st.absmax))
+    ref = np.asarray(F.dequantize_4bit(p, absmax=st.absmax, blocksize=128,
+                                       quant_type=qt), np.float32)
+    got = T.dequantize_4bit(tp, absmax=am, blocksize=128, quant_type=qt)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    np.testing.assert_array_equal(t32(got), ref)
+    alias = getattr(T, f"dequantize_{qt}")(tp, absmax=am, blocksize=128)
+    np.testing.assert_array_equal(t32(alias), np.asarray(
+        getattr(F, f"dequantize_{qt}")(p, absmax=st.absmax, blocksize=128),
+        np.float32))
+    out = torch.empty(ref.shape, dtype=torch.bfloat16)
+    assert T.dequantize_4bit(tp, absmax=am, out=out, blocksize=128,
+                             quant_type=qt) is out
+    np.testing.assert_array_equal(t32(out), ref)
+    with pytest.raises(ValueError, match="quant_state or absmax"):
+        T.dequantize_4bit(tp)
+
+
+def test_blockwise_nested_and_keywords():
+    """``nested=True`` double-quantizes the absmax in blocks of 256 (codes,
+    the int8 absmax and its state equal JAX's, and so does the
+    dequantized tensor through the nested state); ``out=`` receives the
+    codes; ``code=``/``absmax=`` are unused, as in JAX; without a state,
+    ``absmax=``/``blocksize=`` dequantize in A's shape to bf16."""
+    a = _x((3, 70000), 33, 2.0)
+    q, st = F.quantize_blockwise(jnp.asarray(a), blocksize=512, nested=True)
+    out = torch.empty(a.shape, dtype=torch.int8)
+    tq, tst = T.quantize_blockwise(torch.from_numpy(a), code=None,
+                                   absmax=torch.ones(1), out=out,
+                                   blocksize=512, nested=True)
+    assert tq is out
+    _eq(tq, q)
+    _eq(tst.absmax, st.absmax)
+    assert tst.absmax.dtype == torch.int8 and tst.state2.blocksize == 256
+    _eq(tst.state2.absmax, st.state2.absmax)
+    np.testing.assert_array_equal(
+        t32(T.dequantize_blockwise(tq, tst)),
+        np.asarray(F.dequantize_blockwise(q, st), np.float32))
+    q2, st2 = F.quantize_blockwise(jnp.asarray(a), blocksize=512)
+    tq2, tst2 = T.quantize_blockwise(torch.from_numpy(a), blocksize=512)
+    ref = np.asarray(F.dequantize_blockwise(q2, absmax=st2.absmax,
+                                            blocksize=512), np.float32)
+    got = T.dequantize_blockwise(tq2, absmax=tst2.absmax, blocksize=512,
+                                 nested=True)
+    assert got.dtype == torch.bfloat16 and got.shape == a.shape
+    np.testing.assert_array_equal(t32(got), ref)
+    with pytest.raises(ValueError, match="quant_state or absmax"):
+        T.dequantize_blockwise(tq2)
+
+
+def test_quant_state_code_and_offset():
+    """``QuantState.code`` is the codebook of an nf4/fp4 state (JAX's host
+    copy's values; None for int8) and ``offset`` None, in JAX's field
+    order; a checkpoint carries an offset both ways."""
+    import dataclasses
+    from tpu_bitsandbytes_torch.utils import checkpoint as C
+    assert [f.name for f in dataclasses.fields(T.QuantState)] == [
+        f.name for f in dataclasses.fields(F.QuantState)]
+    for qt in ("nf4", "fp4"):
+        w = _x((8, 64), 34)
+        _, jst = F.quantize_4bit(jnp.asarray(w), quant_type=qt)
+        _, tst = T.quantize_4bit(torch.from_numpy(w), quant_type=qt)
+        _eq(tst.code, jst.code)
+        assert tst.offset is None and jst.offset is None
+    _, bst = T.quantize_blockwise(torch.ones(10))
+    assert bst.code is None and F.quantize_blockwise(
+        jnp.ones(10))[1].code is None
+    st = T.QuantState(absmax=torch.ones(4), shape=(4, 64),
+                      offset=torch.tensor(0.5))
+    arrays = {}
+    tree = C._decode(C._encode(st, arrays, "s"), arrays)
+    assert float(tree.offset) == 0.5
+
+
+# -- utils/metrics leftovers ----------------------------------------------
+
+def test_metrics_leftovers_match_jax():
+    """``matmul4bit_bytes`` equals JAX's (pure arithmetic);
+    ``matmul4bit_roofline_us`` divides those bytes by a bandwidth the
+    caller gives (no TPU table in the port); ``detect_chip`` names the
+    device ("cpu" here); ``Timer`` times a block and ``Timer.time_fn``
+    a function; ``trace`` marks a region for ``torch.profiler`` and with
+    ``log_dir`` writes a profile there."""
+    import tempfile
+    from tpu_bitsandbytes.utils import metrics as JM
+    from tpu_bitsandbytes_torch.utils import metrics as TMx
+    for args in ((4096, 4096), (11008, 4096, 8), (4096, 11008, 256, 128)):
+        assert TMx.matmul4bit_bytes(*args) == JM.matmul4bit_bytes(*args)
+    assert TMx.matmul4bit_roofline_us(4096, 4096, 1, bw_bytes_per_s=2e12) \
+        == JM.matmul4bit_bytes(4096, 4096, 1) / 2e12 * 1e6
+    assert TMx.detect_chip() == "cpu"
+    with TMx.Timer() as t:
+        sum(range(1000))
+    assert t.elapsed > 0
+    assert TMx.Timer.time_fn(lambda x: x + 1, torch.ones(4), iters=3,
+                             warmup=1) > 0
+    with tempfile.TemporaryDirectory() as d:
+        with TMx.trace("region", log_dir=d):
+            torch.ones(8) @ torch.ones(8)
+        assert any(f.endswith(".json") for f in os.listdir(d))
+    with TMx.trace("region"):
+        pass

@@ -1915,3 +1915,71 @@ def test_mesh_engine_on_gloo_refuses_graphs_and_serves_eager(nccl_group):
     eng = E.DecodeEngine(params, cfg, mesh=mesh, cuda_graphs=False,
                          **common)
     assert eng.generate(prompts, sp) == plain
+
+
+# -- QLoRA training under a mesh, and the host packer ----------------------
+
+def test_megatron_pair_one_rank_nccl_matches_one_device(nccl_group):
+    """The training step's collectives (a sum over tp after row-parallel
+    linears in the forward, before column-parallel ones in the backward,
+    the head's gather, the gradients' sums) on a one-rank NCCL mesh: the
+    loss, the LoRA gradients (on column- and row-parallel linears, B
+    non-zero) and one adam8bit step equal one device's bit for bit, K5
+    on the wgmma kernel at M = 128 in both; ``remat`` too."""
+    from tpu_bitsandbytes_torch.models.lora import (attach_lora,
+                                                    lora_trainable)
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    from tpu_bitsandbytes_torch.parallel import make_mesh, shard_params
+    from tpu_bitsandbytes_torch.parallel.train import (make_qlora_train_step,
+                                                       qlora_loss_and_grads)
+    dev = nccl_group
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512,
+                            intermediate_size=1024, num_layers=2,
+                            num_heads=4, num_kv_heads=4, max_seq_len=256)
+    gen = torch.Generator().manual_seed(41)
+    params = llama.to_device(llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu")), dev)
+    lp = attach_lora(params, generator=torch.Generator(device=dev)
+                     .manual_seed(42), targets=("q_proj", "v_proj",
+                                                "o_proj", "down_proj"))
+    tr = {k: {"A": v["A"].detach().clone(),
+              "B": torch.randn(v["B"].shape, generator=torch.Generator(
+                  device=dev).manual_seed(43), device=dev).to(
+                  v["B"].dtype) * 0.01}
+          for k, v in lora_trainable(lp).items()}
+    tokens = torch.randint(0, cfg.vocab_size, (1, 129), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(44))
+    mesh = make_mesh(tp=1, device_type="cuda")
+    local = shard_params(lp, mesh)
+    for remat in (False, True):
+        loss, g = qlora_loss_and_grads(cfg, tr, lp, tokens, remat=remat)
+        k5 = K5.matmul4bit_mm.wgmma_launches
+        loss_m, g_m = qlora_loss_and_grads(cfg, tr, local, tokens,
+                                           remat=remat, mesh=mesh)
+        assert K5.matmul4bit_mm.wgmma_launches > k5
+        assert torch.equal(loss, loss_m)
+        for a, b in zip(tree_leaves(g), tree_leaves(g_m)):
+            assert torch.equal(a, b)
+    outs = []
+    for m, tree in ((None, lp), (mesh, local)):
+        init, step = make_qlora_train_step(cfg, mesh=m)
+        outs.append(step(tr, init(tr), tree, tokens))
+    for a, b in zip(tree_leaves(list(outs[0])), tree_leaves(list(outs[1]))):
+        assert torch.equal(a, b)
+
+
+def test_host_packer_matches_quantize_4bit_on_the_card(cuda):
+    """The host library, built on the card's machine, packs a weight on 4
+    threads into the bytes and absmax that ``quantize_4bit`` gives on the
+    card."""
+    from tpu_bitsandbytes_torch.utils import native
+    w = np.random.default_rng(45).standard_normal((1024, 4096)).astype(
+        np.float32)
+    for qt in ("nf4", "fp4"):
+        packed, absmax = native.quantize_4bit_host(w, 64, qt, num_threads=4)
+        tp, ts = TF.quantize_4bit(torch.from_numpy(w).to(cuda), blocksize=64,
+                                  quant_type=qt)
+        np.testing.assert_array_equal(packed.reshape(-1), tp.cpu().numpy())
+        np.testing.assert_array_equal(absmax.reshape(-1),
+                                      ts.absmax.cpu().numpy())

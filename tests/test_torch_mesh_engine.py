@@ -37,6 +37,8 @@ from tpu_bitsandbytes import parallel as JPAR
 from tpu_bitsandbytes.engine import engine as JE
 from tpu_bitsandbytes.engine.sampler import SamplingParams as JSP
 from tpu_bitsandbytes.models import llama as JL
+from tpu_bitsandbytes.models import lora as JLo
+from tpu_bitsandbytes.parallel import train as JTr
 from tpu_bitsandbytes_torch.convert import (config_from_reference,
                                             from_reference_arrays)
 from tpu_bitsandbytes_torch.engine import engine as TE
@@ -44,10 +46,29 @@ from tpu_bitsandbytes_torch.engine.sampler import SamplingParams as TSP
 
 from test_torch_engine import _prompts
 from test_torch_families import _to_jax, numpy_params
-from test_torch_functional import config_fields, reference_arrays
-from torch_mesh_ranks import start_world
+from test_torch_functional import config_fields, reference_arrays, rel_err
+from test_torch_train import _jax_loss, lora_arrays
+from torch_mesh_ranks import STATE_FIELDS, start_world
 
 LP_TOL = 1e-5           # f32 logprobs: another f32 sum order
+# the QLoRA step in f32: the loss (relative) and each LoRA gradient leaf
+# (of its max|ref|) against the port's single-device step, and the loss
+# against JAX's: f32 sums in other orders (the shards' partials) through
+# two layers and a softmax (7.6e-8 and 8.4e-7 measured)
+TRAIN_TOL = 1e-5
+# the gradients against JAX's single-device step: XLA's f32 sums besides
+# (8.6e-6 measured in the second step, as much as the port's single-device
+# step gives; XLA's CPU dots may split their sums by the host's threads)
+TRAIN_JAX_GRAD_TOL = 2e-5
+# adapters after a step, in units of the learning rate: all but a few
+# elements within 0.1 lr (0.026 measured); an 8-bit moment code that an
+# f32 sum order flips changes its element's next update, which Adam's
+# normalization can make up to about lr per step (0.71 lr measured, one
+# element of 10,752), so every element within 2 lr per step taken
+TRAIN_PARAM_TOL = (0.1, 0.999, 2.0)
+# 8-bit moment codes: each within one code step of JAX's, at most 0.1% of
+# them different (5 of 21,504 measured)
+TRAIN_CODE_SHARE = 0.999
 NEW = 8
 ENGINE = dict(max_batch=4, max_seq=64, steps_per_sync=4)
 
@@ -161,6 +182,90 @@ JAX_RUNS = {"greedy": (MAIN, CFG, {}), "fused": (FUSED, CFG, {}),
             "int4": (ALIGNED, ALIGNED_CFG, dict(runtime_cache="int4"))}
 
 
+# -- QLoRA training under the mesh ----------------------------------------
+
+TRAIN_STEPS = 2
+# LoRA (r 4, f32) on column-parallel (q, v, gate) and row-parallel (o,
+# down) linears; B drawn non-zero, so every A has a gradient from step 1
+TRAIN_TARGETS = ("q_proj", "v_proj", "o_proj", "gate_proj", "down_proj")
+TRAIN_LR = 1e-4         # adam8bit(1e-4), the step's default
+
+
+def _lora_tree():
+    tree = JLo.attach_lora(MAIN, jax.random.PRNGKey(1), rank=4,
+                           dtype=jnp.float32, targets=TRAIN_TARGETS)
+    rng = np.random.default_rng(31)
+    layers = []
+    for layer in tree["layers"]:
+        nl = dict(layer)
+        for name in TRAIN_TARGETS:
+            w = layer[name]
+            nl[name] = dataclasses.replace(w, lora_B=jnp.asarray(
+                rng.standard_normal(w.lora_B.shape) * 0.01, jnp.float32))
+        layers.append(nl)
+    return dict(tree, layers=layers)
+
+
+LORA = _lora_tree()
+# 4 rows of 24 targets: M = 96 on one device and at tp = 2, 48 per dp rank
+TRAIN_TOKENS = np.random.default_rng(32).integers(
+    0, CFG.vocab_size, (4, 25)).astype(np.int32)
+_TRAIN = {}     # (tp, dp) -> each rank's ``train`` case results
+
+
+@functools.lru_cache(maxsize=None)
+def _port_train():
+    """The port's single-device step on the global batch: each step's
+    loss and gradients before it."""
+    from tpu_bitsandbytes_torch.models.lora import lora_trainable
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    from tpu_bitsandbytes_torch.parallel import train as TTr
+    tree = from_reference_arrays(lora_arrays(LORA), "cpu")
+    cfg = config_from_reference(config_fields(CFG))
+    toks = torch.from_numpy(TRAIN_TOKENS)
+    init, step = TTr.make_qlora_train_step(cfg)
+    tr = {k: {"A": v["A"].detach().clone(), "B": v["B"].detach().clone()}
+          for k, v in lora_trainable(tree).items()}
+    st, out = init(tr), []
+    for _ in range(TRAIN_STEPS):
+        loss, g = TTr.qlora_loss_and_grads(cfg, tr, tree, toks)
+        tr, st, _ = step(tr, st, tree, toks)
+        out.append({"loss": float(loss),
+                    "grads": [t.numpy() for t in tree_leaves(g)]})
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train():
+    """JAX's single-device jitted ``make_qlora_train_step`` on the global
+    batch: per step the loss and gradients before it and the adapters and
+    8-bit state after it; one ``remat`` step; and the loss of the first
+    dp rank's rows alone."""
+    grad = _jax_loss(CFG)
+    init, step = JTr.make_qlora_train_step(CFG)
+    tr = JLo.lora_trainable(LORA)
+    st = init(tr)
+    toks = jnp.asarray(TRAIN_TOKENS)
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        loss, g = grad(tr, LORA, toks)
+        tr, st, step_loss = step(tr, st, LORA, toks)
+        steps.append({
+            "loss": float(loss), "step_loss": float(step_loss),
+            "grads": [np.asarray(x) for x in jax.tree_util.tree_leaves(g)],
+            "trainable": [np.asarray(x)
+                          for x in jax.tree_util.tree_leaves(tr)],
+            "state": {f: [np.asarray(x) for x in jax.tree_util.tree_leaves(
+                getattr(st, f))] for f in STATE_FIELDS}})
+    tr0 = JLo.lora_trainable(LORA)
+    init_r, step_r = JTr.make_qlora_train_step(CFG, remat=True)
+    tr_r, _, loss_r = step_r(tr0, init_r(tr0), LORA, toks)
+    half, _ = grad(tr0, LORA, toks[:2])
+    return {"steps": steps, "half_loss": float(half),
+            "remat": {"loss": float(loss_r), "trainable": [
+                np.asarray(x) for x in jax.tree_util.tree_leaves(tr_r)]}}
+
+
 def _world(tmp_path_factory, tp, dp):
     tmp = tmp_path_factory.mktemp(f"mesh_dp{dp}_tp{tp}")
     models = {"main": dict(params=reference_arrays(MAIN),
@@ -176,8 +281,13 @@ def _world(tmp_path_factory, tp, dp):
         id="engine", fn="engine", models=models, runs=runs, tmp=str(tmp),
         refusals={"batch": dict(device="cpu", max_batch=3),
                   "graphs": dict(device="cuda", cuda_graphs=True,
-                                 max_batch=4)})])
-    world = start_world(job, tp * dp, tmp, timeout=150)
+                                 max_batch=4)}),
+        dict(id="train", fn="train", params=lora_arrays(LORA),
+             config=config_fields(CFG), tokens=TRAIN_TOKENS,
+             steps=TRAIN_STEPS)])
+    world = start_world(job, tp * dp, tmp, timeout=180)
+    _jax_train()
+    _port_train()
     # the dp2 x tp2 world holds its fused and int4 runs against JAX's
     # tp = 2 engine: dp changes no arithmetic (and each JAX mesh engine
     # compiles its own steps)
@@ -186,7 +296,9 @@ def _world(tmp_path_factory, tp, dp):
                "int4": _jax_mesh("int4", tp, 1)}
     single = {r["id"]: _port_single(r) for r in runs
               if r.get("model") not in ("fused", "aligned")}
-    return [r["engine"] for r in world.join()], jax_ref, single
+    joined = world.join()
+    _TRAIN[(tp, dp)] = [r["train"] for r in joined]
+    return [r["engine"] for r in joined], jax_ref, single
 
 
 @pytest.fixture(scope="module", params=[(2, 1), (2, 2)],
@@ -281,3 +393,95 @@ def test_refusals(world):
     else:
         assert res[0]["batch"] is None
     assert "NCCL" in res[0]["graphs"]
+
+
+@pytest.fixture(scope="module")
+def train(world):
+    tp, dp = world[:2]
+    return tp, dp, _TRAIN[(tp, dp)], _jax_train()
+
+
+def test_train_loss_and_grads(train):
+    """Each step's loss, the global batch's mean NLL (under dp the mean of
+    the dp groups' means), within ``TRAIN_TOL`` relative of the port's
+    single-device step and of JAX's; every LoRA gradient within
+    ``TRAIN_TOL`` of its max|ref| of the port's single-device ones and
+    ``TRAIN_JAX_GRAD_TOL`` of JAX's. Under dp the data tell the global
+    mean from one group's own: they differ by far more than the
+    tolerance."""
+    tp, dp, res, ref = train
+    single = _port_train()
+    for got, want, port in zip(res[0]["steps"], ref["steps"], single):
+        assert got["step_loss"] == got["loss"]
+        assert abs(got["loss"] / port["loss"] - 1) <= TRAIN_TOL
+        assert abs(got["loss"] / want["loss"] - 1) <= TRAIN_TOL
+        assert len(got["grads"]) == len(want["grads"]) == len(port["grads"])
+        for g, w, p in zip(got["grads"], want["grads"], port["grads"]):
+            assert rel_err(g, p) <= TRAIN_TOL
+            assert rel_err(g, w) <= TRAIN_JAX_GRAD_TOL
+    assert abs(ref["half_loss"] / ref["steps"][0]["loss"] - 1) \
+        > 10 * TRAIN_TOL
+
+
+def _params_within(got, want, steps):
+    within, share, most = TRAIN_PARAM_TOL
+    d = np.concatenate([np.abs(g - w).ravel()
+                        for g, w in zip(got, want)]) / TRAIN_LR
+    assert (d <= within).mean() >= share
+    assert d.max() <= most * steps
+
+
+def test_train_updates_match_jax(train):
+    """After each step the adapters within ``TRAIN_PARAM_TOL`` of JAX's
+    and the 8-bit moments within one code step of JAX's, at least
+    ``TRAIN_CODE_SHARE`` of them equal (an f32 sum order flips a code
+    that sits at a rounding boundary); their absmax and max within 1e-5
+    relative."""
+    tp, dp, res, ref = train
+    for i, (got, want) in enumerate(zip(res[0]["steps"], ref["steps"])):
+        assert got["count"] == i + 1
+        _params_within(got["trainable"], want["trainable"], i + 1)
+        for f in STATE_FIELDS:
+            g = np.concatenate([x.astype(np.float32).ravel()
+                                for x in got["state"][f]])
+            w = np.concatenate([x.astype(np.float32).ravel()
+                                for x in want["state"][f]])
+            if f.endswith(("int8", "uint8")):
+                assert np.abs(g - w).max() <= 1, (i, f)
+                assert (g == w).mean() >= TRAIN_CODE_SHARE, (i, f)
+            else:
+                assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), (i, f)
+
+
+def test_train_replicas_identical(train):
+    """Every rank holds the same loss, gradients, adapters and 8-bit state
+    bit for bit after every step (the sums over tp and dp leave every
+    rank the same bits), and the LoRA bases are the rank's tp shards."""
+    tp, dp, res, _ = train
+    for r in res[1:]:
+        for got, want in zip(r["steps"], res[0]["steps"]):
+            assert got["loss"] == want["loss"]
+            for key in ("grads", "trainable"):
+                for g, w in zip(got[key], want[key]):
+                    np.testing.assert_array_equal(g, w)
+            for f in STATE_FIELDS:
+                for g, w in zip(got["state"][f], want["state"][f]):
+                    np.testing.assert_array_equal(g, w)
+    shapes = res[0]["shard_shapes"]
+    h, hd = CFG.hidden_size, CFG.hd
+    assert shapes["q_proj"] == (CFG.num_heads * hd // tp, h)
+    assert shapes["o_proj"] == (h, CFG.num_heads * hd // tp)
+    assert shapes["down_proj"] == (h, CFG.intermediate_size // tp)
+
+
+def test_train_remat_matches_plain_and_jax(train):
+    """A ``remat=True`` step under the mesh: the same loss and adapters as
+    the plain first step bit for bit, and JAX's remat step's within the
+    tolerances above."""
+    tp, dp, res, ref = train
+    got, plain = res[0]["remat"], res[0]["steps"][0]
+    assert got["loss"] == plain["loss"]
+    for g, w in zip(got["trainable"], plain["trainable"]):
+        np.testing.assert_array_equal(g, w)
+    assert abs(got["loss"] / ref["remat"]["loss"] - 1) <= TRAIN_TOL
+    _params_within(got["trainable"], ref["remat"]["trainable"], 1)

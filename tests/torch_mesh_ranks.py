@@ -320,6 +320,53 @@ def engine(mesh, c):
     return out
 
 
+STATE_FIELDS = ("exp_avg_int8", "exp_avg_absmax", "exp_avg_sq_uint8",
+                "exp_avg_sq_max")
+
+
+@case
+def train(mesh, c):
+    """``make_qlora_train_step(mesh=)`` on c["params"] (a LoRA-attached
+    tree, whole; each rank takes its shards) and the global batch
+    c["tokens"]: per step, the loss and gradients before it
+    (``qlora_loss_and_grads(mesh=)``), the step's loss, the adapters and
+    the 8-bit state after it (leaves in JAX's order, as numpy); then one
+    ``remat`` step from the start."""
+    import torch
+    from tpu_bitsandbytes_torch.models.lora import lora_trainable
+    from tpu_bitsandbytes_torch.optim.transforms import tree_leaves
+    from tpu_bitsandbytes_torch.parallel import shard_params
+    from tpu_bitsandbytes_torch.parallel.train import (make_qlora_train_step,
+                                                       qlora_loss_and_grads)
+    params, cfg = _model(c)
+    local = shard_params(params, mesh)
+    toks = torch.from_numpy(c["tokens"])
+    start = {k: {"A": v["A"].detach().clone(), "B": v["B"].detach().clone()}
+             for k, v in lora_trainable(params).items()}
+
+    def np_leaves(tree):
+        return [t.detach().numpy().copy() for t in tree_leaves(tree)]
+
+    init, step = make_qlora_train_step(cfg, mesh=mesh)
+    tr, st = start, init(start)
+    steps = []
+    for _ in range(c["steps"]):
+        loss, grads = qlora_loss_and_grads(cfg, tr, local, toks, mesh=mesh)
+        tr, st, step_loss = step(tr, st, local, toks)
+        steps.append({"loss": float(loss), "step_loss": float(step_loss),
+                      "grads": np_leaves(grads), "trainable": np_leaves(tr),
+                      "state": {f: np_leaves(getattr(st, f))
+                                for f in STATE_FIELDS},
+                      "count": int(st.count)})
+    _, remat_step = make_qlora_train_step(cfg, remat=True, mesh=mesh)
+    tr_r, _, loss_r = remat_step(start, init(start), local, toks)
+    return {"steps": steps,
+            "remat": {"loss": float(loss_r), "trainable": np_leaves(tr_r)},
+            "shard_shapes": {k: tuple(w.base.shape) for k, w in
+                             local["layers"][0].items()
+                             if hasattr(w, "lora_A")}}
+
+
 def main():
     rank, world, port = (int(a) for a in sys.argv[1:4])
     job_path, out_dir = sys.argv[4], Path(sys.argv[5])

@@ -83,17 +83,25 @@ def codebook(quant_type: str, device) -> torch.Tensor:
 class QuantState:
     """What dequantizing a packed tensor needs: the per-block ``absmax``
     (or its int8 codes when ``state2`` holds the nested scales), the logical
-    ``shape``, ``blocksize``, ``quant_type`` and the output ``dtype``."""
+    ``shape``, the ``code`` book (the CPU codebook of an nf4/fp4 state, as
+    the JAX package keeps a host copy; None for int8), ``blocksize``,
+    ``quant_type``, the output ``dtype`` and an ``offset`` (bitsandbytes'
+    name; nothing here sets it, and a checkpoint carries it)."""
 
     absmax: torch.Tensor
     shape: Tuple[int, ...]
+    code: Optional[torch.Tensor] = None
     blocksize: int = 64
     quant_type: str = "nf4"
     dtype: torch.dtype = torch.bfloat16
+    offset: Optional[torch.Tensor] = None
     state2: Optional["QuantState"] = None
 
     def __post_init__(self):
         self.shape = tuple(int(s) for s in self.shape)
+        if self.code is None and self.quant_type in ("nf4", "fp4"):
+            self.code = (NF4_CODEBOOK if self.quant_type == "nf4"
+                         else FP4_CODEBOOK)
 
     def as_dict(self) -> dict:
         """A serializable dict with the JAX package's keys."""
@@ -119,9 +127,11 @@ class QuantState:
                    state2=state2)
 
     def to(self, device) -> "QuantState":
-        """A copy with every tensor on ``device``."""
+        """A copy with ``absmax``, ``offset`` and ``state2`` on ``device``
+        (the code book stays the host copy, as in the JAX package)."""
         return dataclasses.replace(
             self, absmax=self.absmax.to(device),
+            offset=None if self.offset is None else self.offset.to(device),
             state2=None if self.state2 is None else self.state2.to(device))
 
 
@@ -235,14 +245,28 @@ def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
         *packed.shape[:-1], packed.shape[-1] * 2)
 
 
-def quantize_4bit(A: torch.Tensor, blocksize: int = 64,
-                  compress_statistics: bool = False,
-                  quant_type: str = "nf4"
+def _into(out: Optional[torch.Tensor], result: torch.Tensor
+          ) -> torch.Tensor:
+    """``result``, copied into ``out`` (and returned as it) when given."""
+    if out is None:
+        return result
+    return out.copy_(result.reshape(out.shape))
+
+
+def quantize_4bit(A: torch.Tensor, absmax: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None, blocksize: int = 64,
+                  compress_statistics: bool = False, quant_type: str = "nf4",
+                  quant_storage: torch.dtype = torch.uint8
                   ) -> Tuple[torch.Tensor, QuantState]:
     """Blockwise NF4/FP4 quantization. 2D inputs quantize each row in its
     own blocks (K padded per :func:`_pad_k`); other ranks use one flat
     block sequence. Returns ``(packed uint8 [numel_padded/2], state)``;
-    ``compress_statistics`` double-quantizes absmax in blocks of 256."""
+    ``compress_statistics`` double-quantizes absmax in blocks of 256.
+
+    The bitsandbytes keywords, as the JAX package takes them: ``absmax``
+    (one f32 per block of that layout) replaces the computed statistics;
+    ``out`` receives the packed bytes; ``quant_storage`` reinterprets them
+    (``Tensor.view``) as another dtype."""
     book = codebook(quant_type, A.device)
     _validate_blocksize(blocksize, power_of_two=True)
     a = A.to(torch.float32)
@@ -252,10 +276,10 @@ def quantize_4bit(A: torch.Tensor, blocksize: int = 64,
         padded = torch.zeros((n, kp), dtype=torch.float32, device=A.device)
         padded[:, :k] = a
         blocked = padded.reshape(n, kp // blocksize, blocksize)
-        absmax = blocked.abs().amax(dim=2).clamp(min=1e-8)
-        idx = _nearest_code(blocked / absmax[:, :, None], book)
+        am = (blocked.abs().amax(dim=2).clamp(min=1e-8) if absmax is None
+              else absmax.to(torch.float32).reshape(n, kp // blocksize))
+        idx = _nearest_code(blocked / am[:, :, None], book)
         packed = pack_nibbles(idx.reshape(n, kp)).reshape(-1)
-        absmax = absmax.reshape(-1)
     else:
         flat = a.reshape(-1)
         padded_numel = _pad_flat(flat.numel(), blocksize)
@@ -263,46 +287,76 @@ def quantize_4bit(A: torch.Tensor, blocksize: int = 64,
                              device=A.device)
         padded[:flat.numel()] = flat
         blocked = padded.reshape(-1, blocksize)
-        absmax = blocked.abs().amax(dim=1).clamp(min=1e-8)
-        idx = _nearest_code(blocked / absmax[:, None], book)
+        am = (blocked.abs().amax(dim=1).clamp(min=1e-8) if absmax is None
+              else absmax.to(torch.float32).reshape(-1))
+        idx = _nearest_code(blocked / am.reshape(-1, 1), book)
         packed = pack_nibbles(idx.reshape(1, padded_numel)).reshape(-1)
+    am = am.reshape(-1)
     state2 = None
     if compress_statistics:
-        absmax, state2 = quantize_blockwise(absmax, blocksize=256)
-    return packed, QuantState(absmax=absmax, shape=tuple(A.shape),
-                              blocksize=blocksize, quant_type=quant_type,
-                              dtype=A.dtype, state2=state2)
+        am, state2 = quantize_blockwise(am, blocksize=256)
+    if quant_storage != torch.uint8:
+        packed = packed.view(quant_storage)
+    return _into(out, packed), QuantState(
+        absmax=am, shape=tuple(A.shape), blocksize=blocksize,
+        quant_type=quant_type, dtype=A.dtype, state2=state2)
 
 
-def dequantize_4bit(A: torch.Tensor, quant_state: QuantState) -> torch.Tensor:
-    """Packed 4-bit codes back to ``quant_state.dtype`` values."""
+def dequantize_4bit(A: torch.Tensor,
+                    quant_state: Optional[QuantState] = None,
+                    absmax: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None, blocksize: int = 64,
+                    quant_type: str = "nf4") -> torch.Tensor:
+    """Packed 4-bit codes back to ``quant_state.dtype`` values.
+
+    Without a state, as the JAX package does: ``absmax`` (one per block),
+    ``blocksize`` and ``quant_type`` describe flat codes, two values per
+    byte of A, returned flat in bf16. ``out`` receives the values."""
+    if quant_state is None:
+        if absmax is None:
+            raise ValueError("Either quant_state or absmax must be provided")
+        quant_state = QuantState(absmax=absmax, shape=(A.numel() * 2,),
+                                 blocksize=blocksize, quant_type=quant_type,
+                                 dtype=torch.bfloat16)
+        shape = None
+    else:
+        shape = quant_state.shape
     st = quant_state
     absmax = st.absmax
     if st.state2 is not None:
         absmax = dequantize_blockwise(absmax, st.state2)
     book = codebook(st.quant_type, A.device)
     absmax = absmax.to(torch.float32)
-    if len(st.shape) == 2:
+    if shape is not None and len(shape) == 2:
         n, k = st.shape
         kp = _pad_k(k, st.blocksize)
         idx = unpack_nibbles(A.reshape(n, kp // 2))
         values = book[idx.long()].reshape(n, kp // st.blocksize, st.blocksize)
         values = values * absmax.reshape(n, -1)[:, :, None]
-        return values.reshape(n, kp)[:, :k].to(st.dtype)
+        return _into(out, values.reshape(n, kp)[:, :k].to(st.dtype))
     numel = 1
     for s in st.shape:
         numel *= s
     idx = unpack_nibbles(A.reshape(1, -1)).reshape(-1)
     nblocks = absmax.numel()
     idx = idx[:nblocks * st.blocksize].reshape(nblocks, st.blocksize)
-    values = book[idx.long()] * absmax[:, None]
-    return values.reshape(-1)[:numel].reshape(st.shape).to(st.dtype)
+    values = (book[idx.long()] * absmax.reshape(-1, 1)).reshape(-1)[:numel]
+    if shape is not None:
+        values = values.reshape(shape)
+    return _into(out, values.to(st.dtype))
 
 
-def quantize_blockwise(A: torch.Tensor, blocksize: int = 4096
+def quantize_blockwise(A: torch.Tensor, code: Optional[torch.Tensor] = None,
+                       absmax: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None,
+                       blocksize: int = 4096, nested: bool = False
                        ) -> Tuple[torch.Tensor, QuantState]:
     """Blockwise symmetric int8 over the flattened tensor: codes
-    ``round(a * 127 / absmax)`` and one f32 absmax per block."""
+    ``round(a * 127 / absmax)`` and one f32 absmax per block. ``nested``
+    double-quantizes the absmax in blocks of 256 (``state.state2``);
+    ``out`` receives the codes. ``code`` and ``absmax`` are accepted for
+    the bitsandbytes signature and not used: the statistics are computed,
+    as in the JAX package."""
     _validate_blocksize(blocksize, power_of_two=False)
     flat = A.reshape(-1).to(torch.float32)
     numel = flat.numel()
@@ -310,27 +364,48 @@ def quantize_blockwise(A: torch.Tensor, blocksize: int = 4096
                          dtype=torch.float32, device=A.device)
     padded[:numel] = flat
     blocked = padded.reshape(-1, blocksize)
-    absmax = blocked.abs().amax(dim=1).clamp(min=1e-8)
-    scale = _over(127.0, absmax)[:, None]
+    am = blocked.abs().amax(dim=1).clamp(min=1e-8)
+    scale = _over(127.0, am)[:, None]
     q = torch.clamp(torch.round(blocked * scale), -127, 127).to(torch.int8)
-    return q.reshape(-1)[:numel].reshape(A.shape), QuantState(
-        absmax=absmax, shape=tuple(A.shape), blocksize=blocksize,
-        quant_type="int8", dtype=A.dtype)
+    state2 = None
+    if nested:
+        am, state2 = quantize_blockwise(am, blocksize=256)
+    return _into(out, q.reshape(-1)[:numel].reshape(A.shape)), QuantState(
+        absmax=am, shape=tuple(A.shape), blocksize=blocksize,
+        quant_type="int8", dtype=A.dtype, state2=state2)
 
 
-def dequantize_blockwise(A: torch.Tensor, quant_state: QuantState
+def dequantize_blockwise(A: torch.Tensor,
+                         quant_state: Optional[QuantState] = None,
+                         absmax: Optional[torch.Tensor] = None,
+                         code: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None,
+                         blocksize: int = 4096, nested: bool = False
                          ) -> torch.Tensor:
     """Inverse of :func:`quantize_blockwise` (``absmax / 127`` as the JAX
-    package's jitted version computes it, :func:`mul_recip`)."""
-    st = quant_state
+    package's jitted version computes it, :func:`mul_recip`); a nested
+    state's absmax is dequantized first. Without a state, ``absmax`` and
+    ``blocksize`` describe A's blocks and the values come back in A's shape
+    in bf16, as in the JAX package (``code`` and ``nested`` unused).
+    ``out`` receives the values."""
+    if quant_state is not None:
+        absmax = quant_state.absmax
+        blocksize = quant_state.blocksize
+        shape, dtype = tuple(quant_state.shape), quant_state.dtype
+        if quant_state.state2 is not None:
+            absmax = dequantize_blockwise(absmax, quant_state.state2)
+    elif absmax is None:
+        raise ValueError("Either quant_state or absmax must be provided")
+    else:
+        shape, dtype = tuple(A.shape), torch.bfloat16
     flat = A.reshape(-1).to(torch.float32)
     numel = flat.numel()
-    padded = torch.zeros((-(-numel // st.blocksize) * st.blocksize,),
+    padded = torch.zeros((-(-numel // blocksize) * blocksize,),
                          dtype=torch.float32, device=A.device)
     padded[:numel] = flat
-    blocked = padded.reshape(-1, st.blocksize)
-    deq = blocked * mul_recip(st.absmax.to(torch.float32)[:, None], 127.0)
-    return deq.reshape(-1)[:numel].reshape(st.shape).to(st.dtype)
+    blocked = padded.reshape(-1, blocksize)
+    deq = blocked * mul_recip(absmax.to(torch.float32)[:, None], 127.0)
+    return _into(out, deq.reshape(-1)[:numel].reshape(shape).to(dtype))
 
 
 # M up to which the JAX package runs its fused kernel; above it, dequantize
@@ -375,28 +450,40 @@ def matmul_4bit(A: torch.Tensor, B: torch.Tensor, quant_state: QuantState,
     return out.to(compute_dtype)
 
 
-def quantize_nf4(A: torch.Tensor, blocksize: int = 64,
-                 compress_statistics: bool = False
+def quantize_nf4(A: torch.Tensor, absmax: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None, blocksize: int = 64,
+                 compress_statistics: bool = False,
+                 quant_storage: torch.dtype = torch.uint8
                  ) -> Tuple[torch.Tensor, QuantState]:
     """:func:`quantize_4bit` with quant_type "nf4"."""
-    return quantize_4bit(A, blocksize, compress_statistics, "nf4")
+    return quantize_4bit(A, absmax, out, blocksize, compress_statistics,
+                         "nf4", quant_storage)
 
 
-def dequantize_nf4(A: torch.Tensor, quant_state: QuantState) -> torch.Tensor:
-    """:func:`dequantize_4bit` of an NF4 state."""
-    return dequantize_4bit(A, quant_state)
+def dequantize_nf4(A: torch.Tensor, quant_state: Optional[QuantState] = None,
+                   absmax: Optional[torch.Tensor] = None,
+                   out: Optional[torch.Tensor] = None,
+                   blocksize: int = 64) -> torch.Tensor:
+    """:func:`dequantize_4bit` of NF4 codes."""
+    return dequantize_4bit(A, quant_state, absmax, out, blocksize, "nf4")
 
 
-def quantize_fp4(A: torch.Tensor, blocksize: int = 64,
-                 compress_statistics: bool = False
+def quantize_fp4(A: torch.Tensor, absmax: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None, blocksize: int = 64,
+                 compress_statistics: bool = False,
+                 quant_storage: torch.dtype = torch.uint8
                  ) -> Tuple[torch.Tensor, QuantState]:
     """:func:`quantize_4bit` with quant_type "fp4"."""
-    return quantize_4bit(A, blocksize, compress_statistics, "fp4")
+    return quantize_4bit(A, absmax, out, blocksize, compress_statistics,
+                         "fp4", quant_storage)
 
 
-def dequantize_fp4(A: torch.Tensor, quant_state: QuantState) -> torch.Tensor:
-    """:func:`dequantize_4bit` of an FP4 state."""
-    return dequantize_4bit(A, quant_state)
+def dequantize_fp4(A: torch.Tensor, quant_state: Optional[QuantState] = None,
+                   absmax: Optional[torch.Tensor] = None,
+                   out: Optional[torch.Tensor] = None,
+                   blocksize: int = 64) -> torch.Tensor:
+    """:func:`dequantize_4bit` of FP4 codes."""
+    return dequantize_4bit(A, quant_state, absmax, out, blocksize, "fp4")
 
 
 def matmul_nf4(input, weight_packed, weight_state: QuantState, bias=None):

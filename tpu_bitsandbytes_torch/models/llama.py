@@ -645,14 +645,18 @@ def prefill_hidden(params: Params, tokens: torch.Tensor,
 
 
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
-            return_kv: bool = False, remat: bool = False):
+            return_kv: bool = False, remat: bool = False, tp=None):
     """Causal prefill forward. tokens [B, S] int32/int64 -> f32 logits
     [B, S, V], plus the per-layer post-RoPE ``(k, v)`` [B, S, H_kv, D] when
     ``return_kv``. ``remat`` runs each layer through
     :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), as the JAX
     package wraps each layer in ``jax.checkpoint``: the backward pass
-    recomputes the layer's activations instead of keeping them."""
+    recomputes the layer's activations instead of keeping them. ``tp``: a
+    tensor-parallel context (``parallel.tp.TPContext``, or the training
+    step's) whose hooks run the layers on this rank's shards and whose
+    ``head_logits`` gathers the head's."""
     b, s = tokens.shape
+    hooks = {} if tp is None else tp.hooks
     cos_full, sin_full = _rope(config, tokens.device)
     cos, sin = cos_full[None, :s], sin_full[None, :s]
     x = _embed_tokens(params, tokens, config)
@@ -660,13 +664,15 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     for li, layer in enumerate(params["layers"]):
         if remat:
             x, kv = torch.utils.checkpoint.checkpoint(
-                _layer, layer, x, cos, sin, config, li, use_reentrant=False)
+                _layer, layer, x, cos, sin, config, li, use_reentrant=False,
+                **hooks)
         else:
-            x, kv = _layer(layer, x, cos, sin, config, li)
+            x, kv = _layer(layer, x, cos, sin, config, li, **hooks)
         if return_kv:
             new_kv.append(kv)
     x = _norm(x, params["final_norm"], config)
-    logits = head_logits(params, x, config)
+    logits = (head_logits(params, x, config) if tp is None
+              else tp.head_logits(params, x, config))
     return (logits, new_kv) if return_kv else logits
 
 

@@ -1,6 +1,6 @@
 """Multi-device parallelism over ``torch.distributed``: (dp, tp) meshes,
 the sharding rules, the tensor-parallel serving steps, and the QLoRA
-training step (single-device; its sharded form is not ported)."""
+training step, on one device or under a mesh."""
 
 from .distributed import initialize, make_pod_mesh
 from .mesh import make_mesh, replicated, shard

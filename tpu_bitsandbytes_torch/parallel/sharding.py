@@ -25,6 +25,7 @@ import torch
 from ..engine.kvcache import KVCache
 from ..models import llama
 from ..models.layers import QLinear4
+from ..models.lora import LoRALinear
 from .mesh import P, axis_size
 
 __all__ = ["llama_param_specs", "shard_params", "shard_local",
@@ -41,8 +42,13 @@ _ROW = ("o_proj", "down_proj")
 
 def _linear_spec(w, col: bool):
     """The spec of a linear leaf, mirroring its structure (a QLinear4 of
-    specs; None fields stay None)."""
+    specs; None fields stay None). A LoRA adapter's base is sharded as the
+    linear is, its A and B replicated (``TPContext.wrap`` slices them in
+    the forward)."""
     two_d = P("tp", None) if col else P(None, "tp")
+    if isinstance(w, LoRALinear):
+        return {"base": _linear_spec(w.base, col), "lora_A": P(),
+                "lora_B": P()}
     if isinstance(w, QLinear4):
         nested = None
         if w.absmax_state is not None:
@@ -169,6 +175,12 @@ def shard_local(params, specs, tp: int, rank: int, device):
     {"w", "b"}) replicates all of it."""
     if isinstance(params, QLinear4):
         return _shard_qlinear(params, specs, tp, rank, device)
+    if isinstance(params, LoRALinear):
+        return LoRALinear(
+            shard_local(params.base, specs["base"], tp, rank, device),
+            _take(params.lora_A.detach(), P(), tp, rank, device),
+            _take(params.lora_B.detach(), P(), tp, rank, device),
+            params.scaling)
     if isinstance(params, dict):
         if isinstance(specs, P):
             return {k: shard_local(v, specs, tp, rank, device)
@@ -196,8 +208,9 @@ def shard_params(params, mesh, specs=None):
     """This rank's slices of ``params`` (the whole tree, on any device),
     on its device (:func:`mesh_device`): dim 0 of a column-parallel
     linear's ``packed``, ``absmax``, ``absmax_q`` and bias, dim 1 of a
-    row-parallel one's; replicated leaves whole. Every dp group holds the
-    same slices."""
+    row-parallel one's; replicated leaves whole (a LoRA adapter's A and B
+    too, around its sharded base). Every dp group holds the same
+    slices."""
     if specs is None:
         specs = llama_param_specs(params)
     return shard_local(params, specs, axis_size(mesh, "tp"),

@@ -32,12 +32,43 @@ from ..engine import speculative as spec
 from ..engine.kvcache import KVCache
 from ..models import llama
 from ..models.layers import QLinear4, linear_apply
+from ..models.lora import LoRALinear, _base_shape
 from .mesh import axis_size
 
-__all__ = ["TPContext", "make_tp_decode_step", "make_tp_decode_chunk",
-           "make_tp_verify_step", "make_tp_prefill_step",
+__all__ = ["TPContext", "ShardedLoRA", "make_tp_decode_step",
+           "make_tp_decode_chunk", "make_tp_verify_step",
+           "make_tp_prefill_step",
            "make_tp_prefill_chunk", "make_tp_final_logits",
            "graphs_allowed"]
+
+
+class ShardedLoRA:
+    """A :class:`~..models.lora.LoRALinear` on a tp shard: its base is the
+    rank's shard (:func:`~.sharding.shard_params`), its adapters whole and
+    replicated, and it applies the rank's part of the low-rank product. A
+    column-parallel linear (``row=False``) takes the rank's rows of
+    ``lora_B`` with ``lora_A`` whole; a row-parallel one takes the rank's
+    columns of ``lora_A`` with ``lora_B`` whole, so its delta is a partial
+    that the linear's all-reduce sums with the base's. The slices are
+    views: autograd gives each whole adapter a gradient that is zero
+    outside the rank's slice (a sum over tp then gathers them) or, for
+    the whole factor, the rank's partial (a sum over tp completes it)."""
+
+    def __init__(self, lora, base, row: bool, tp_rank: int):
+        self.base, self.scaling = base, lora.scaling
+        self.shape = _base_shape(base)
+        a, b = lora.lora_A, lora.lora_B
+        if row:
+            k = self.shape[1]
+            self.a, self.b = a[:, tp_rank * k:(tp_rank + 1) * k], b
+        else:
+            n = self.shape[0]
+            self.a, self.b = a, b[tp_rank * n:(tp_rank + 1) * n]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        y = linear_apply(self.base, x)
+        delta = (x @ self.a.t().to(x.dtype)) @ self.b.t().to(x.dtype)
+        return y + self.scaling * delta.to(y.dtype)
 
 
 def _localize(w, strip_bias: bool = False, tp_group=None):
@@ -59,6 +90,8 @@ def _localize(w, strip_bias: bool = False, tp_group=None):
 
 
 def _row_bias(w):
+    if isinstance(w, LoRALinear):
+        return _row_bias(w.base)
     if isinstance(w, QLinear4):
         return w.bias
     if isinstance(w, dict):
@@ -102,6 +135,13 @@ class TPContext:
                     reduce_fn=self.reduce_fn)
 
     def wrap(self, w, row: bool = False):
+        if isinstance(w, LoRALinear):
+            # adapters change every training step: only the base is kept
+            return ShardedLoRA(w, self._local_leaf(w.base, row), row,
+                               self.tp_rank)
+        return self._local_leaf(w, row)
+
+    def _local_leaf(self, w, row: bool):
         key = (id(w), row)
         hit = self._local.get(key)
         if hit is None or hit[0] is not w:

@@ -79,7 +79,7 @@ def _encode(obj: Any, arrays: Dict[str, np.ndarray], path: str):
                 "absmax": _encode(obj.absmax, arrays, path),
                 "shape": list(obj.shape), "blocksize": obj.blocksize,
                 "quant_type": obj.quant_type, "dtype": dtype_name(obj.dtype),
-                "offset": _NONE,
+                "offset": _encode(obj.offset, arrays, path),
                 "state2": _encode(obj.state2, arrays, path)}
     if isinstance(obj, QLinear4):
         if obj.packed is None:
@@ -184,13 +184,11 @@ def _decode(spec: Any, arrays) -> Any:
                 torch.bfloat16)
         return torch.from_numpy(np.array(a))
     if t == "QuantState":
-        if _decode(spec.get("offset", _NONE), arrays) is not None:
-            raise NotImplementedError("checkpoint: a QuantState with an "
-                                      "offset (the port has none)")
         return QuantState(
             absmax=_decode(spec["absmax"], arrays),
             shape=tuple(spec["shape"]), blocksize=spec["blocksize"],
             quant_type=spec["quant_type"], dtype=dtype_of(spec["dtype"]),
+            offset=_decode(spec.get("offset", _NONE), arrays),
             state2=_decode(spec["state2"], arrays))
     if t == "QLinear4":
         return QLinear4(

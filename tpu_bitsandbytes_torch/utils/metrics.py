@@ -1,11 +1,16 @@
-"""Rolling per-step engine metrics, and the device-memory footprint of a
+"""Rolling per-step engine metrics, the device-memory footprint of a
 served model (the JAX package's ``utils/metrics.py``, budgeted against the
-device's own memory)."""
+device's own memory), the bytes of a 4-bit matmul and its least time at a
+given bandwidth, a wall-clock timer and profiler regions. The JAX
+package's table of TPU datasheet numbers has no counterpart: the caller
+passes the card's bandwidth."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -171,3 +176,83 @@ def format_footprint(fp: Dict[str, Any]) -> str:
                  f" / {fp['budget'] / gib:.1f} GiB"
                  f" ({'fits' if fp['fits'] else 'OVER BUDGET'})")
     return "\n".join(lines)
+
+
+# -- roofline, timing and profiler regions ---------------------------------
+
+def detect_chip() -> str:
+    """The current CUDA device's name (``torch.cuda.get_device_name``), or
+    "cpu" without one."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_name()
+    return "cpu"
+
+
+def matmul4bit_bytes(n: int, k: int, m: int = 1, blocksize: int = 64,
+                     absmax_bytes: int = 4, act_bytes: int = 2) -> int:
+    """Device-memory bytes of one fused 4-bit matmul: the packed codes,
+    the absmax, x [M, K] and y [M, N]."""
+    return int(n * k / 2 + n * (k / blocksize) * absmax_bytes
+               + m * k * act_bytes + m * n * act_bytes)
+
+
+def matmul4bit_roofline_us(n: int, k: int, m: int = 1, blocksize: int = 64,
+                           *, bw_bytes_per_s: float) -> float:
+    """The least time of that matmul at ``bw_bytes_per_s`` (the caller's
+    measured or published bandwidth; no default), in microseconds."""
+    return matmul4bit_bytes(n, k, m, blocksize) / bw_bytes_per_s * 1e6
+
+
+def _sync():
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace(name: str, log_dir: Optional[str] = None):
+    """A named region in ``torch.profiler`` traces
+    (``record_function``); with ``log_dir``, also profiles the region (the
+    CPU, and CUDA when a card is present) and writes its Chrome trace to
+    ``log_dir/<name>.json``."""
+    if log_dir is None:
+        with torch.profiler.record_function(name):
+            yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        with torch.profiler.record_function(name):
+            yield
+        _sync()
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
+
+
+class Timer:
+    """Wall-clock seconds of a ``with`` block (``elapsed``); the CUDA
+    device is synchronized on exit, so queued kernels count."""
+
+    def __enter__(self):
+        _sync()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _sync()
+        self.elapsed = time.perf_counter() - self.t0
+        return False
+
+    @staticmethod
+    def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
+        """Mean seconds of ``fn(*args)`` over ``iters`` calls after
+        ``warmup`` calls, synchronized before and after."""
+        for _ in range(warmup):
+            fn(*args)
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        _sync()
+        return (time.perf_counter() - t0) / iters
