@@ -196,6 +196,34 @@ Phases (any failure raises: traceback, nonzero exit):
      packer (``utils/native.py``) built with the host compiler packs one
      11008 x 4096 weight on 1 and on all host threads into the bytes and
      absmax ``quantize_4bit`` gives on the card.
+  15. (a, after phase 4) The compact-window KV stage
+     (``DecodeEngine(window_stage=True)``) on phase 4's model and requests,
+     graphed, twice: greedy tokens identical to phase 4's graphed
+     two-block engine, 129 K1 + 32 K2 per decode step (counters and graph
+     nodes), ``footprint()`` equal to the cache plus the window buffers,
+     three staged steps' logits bit-identical between the two stages (K2
+     over the window's head and tail); step ms beside phase 4's. (d, after
+     phase 8) Phase 6's 13B (10 layers, packed) with ``speculative=
+     "ngram"``, gamma 4: the verify's K4 calls at M = 40 (five shapes)
+     against their plain version, K4 timed at the five 13B shapes at M =
+     40 against its bound, the verify steps' ms, at least
+     ``SPEC_SAME_FLOOR`` of the greedy tokens equal to the plain engine's.
+     (b, last) Gemma2-9B at full width and all 42 layers, random packed
+     NF4, 8 prompts of 24-4,400 tokens, 32 new, graphed (twice) and eager:
+     168 K4 + 42 K2 per decode step as derived from the config (the head
+     is the tied bf16 embedding), 42 K3 per prefill group of 1,024 tokens
+     or more (d = 256, window, softcap), tokens identical between the
+     modes, K2 at the served shape against its plain version. (c)
+     Mistral-7B at full width, 8 of its 32 layers, ``max_seq`` 8,192, NF4
+     from normal weights, the bf16 runtime cache: the ring KV cache
+     (``ring_kv=True``, 4,224 entries, attention in torch) and the plain
+     int8 cache (K2) served graphed, prompts past the ring and 48 new
+     tokens (every slot's ring rolls); the ring's teacher-forced logits
+     within E2E_TOL of the plain cache read through the JAX package's
+     default decode attention, its tokens equal to that reference's greedy
+     choice up to a near-tie (``RING_TIE_GAP``); reported, the plain
+     engine's K2 logits against the same reference; KV bytes and step ms
+     of both.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits with code 2 and prints no result.
@@ -217,7 +245,15 @@ import numpy as np
 import torch
 
 K1_TOL = 1e-5   # exact int32 block dots; only the f32 sum order differs
-K2_TOL = 1e-3   # one flipped p code where an exp rounds differently
+# f32 sums in another order; where an exp or l rounds differently, a pv's
+# bf16 rounding can flip, 2^-8 of that term
+K2_TOL = 1e-3
+# K2 against the chain it computes (layers.gqa_attention_kv_quant), which
+# returns q's dtype: one bf16 ulp of the largest output, at most 2^-7 of
+# max|ref| (K2's f32 sums run in another order; an unstaged call rounds p
+# before the division by l, where the chain's unstaged softmax rounds it
+# after)
+K2_CHAIN_TOL = 2.0 ** -7
 # of each query row's own max|ref| (a long row's outputs are far below the
 # first rows'): bf16 p and outputs that round differently on the card;
 # one bf16 ulp of an output is at most 2^-7 of its row's max
@@ -429,12 +465,16 @@ def k2_inputs(gen, dev, *, layers, b, h, h_kv, d, s, span, c, start=0):
     return q, len0, per_layer
 
 
-def k2_bound_ms(keys, b, h, h_kv, d, bw, int8_peak):
+F32_CORE_PEAK = 67e12   # FLOP/s in float32 outside the tensor cores (SXM)
+
+
+def k2_bound_ms(keys, b, h, h_kv, d, bw):
     """``keys``: the keys the masks keep, summed over the B slots (codes
-    and scales of K and V read once per kv head; q in, f32 out)."""
+    and scales of K and V read once per kv head; q in, f32 out); the f32
+    multiply-adds of both contractions on the CUDA cores."""
     nbytes = 2 * h_kv * keys * (d + 4) + b * h * d * (2 + 4) + 4 * b
     ops = 4 * h * keys * d
-    return max(nbytes / bw, ops / int8_peak) * 1e3
+    return max(nbytes / bw, ops / F32_CORE_PEAK) * 1e3
 
 
 def k2_kept_keys(off, step, span, c):
@@ -445,7 +485,7 @@ def k2_kept_keys(off, step, span, c):
     return int(main.sum()) + off.shape[0] * min(c, step + 1)
 
 
-def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
+def phase_kernels_k2(K2, gen, dev, bw):
     worst = [0.0, 0.0]
     final_13b = [p + 47 for p in PACKED_PROMPTS]   # phase 5's last step
     cases = [  # (geometry, step, options, offsets or None for random)
@@ -510,8 +550,8 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
         q, *kv, off, *st, 31, scale=1.0 / 128 ** 0.5, window=None,
         kpos_start=0, softcap=None)], iters=3)
     kept = k2_kept_keys(off, 31, 384, 32)
-    bound = k2_bound_ms(kept, 8, 32, 32, 128, bw, int8_peak)
-    bound_span = k2_bound_ms(8 * (384 + 32), 8, 32, 32, 128, bw, int8_peak)
+    bound = k2_bound_ms(kept, 8, 32, 32, 128, bw)
+    bound_span = k2_bound_ms(8 * (384 + 32), 8, 32, 32, 128, bw)
     rows.append({"shape": "7B: B=8 H=32 H_kv=32 D=128 T=384 C=32",
                  "kept_keys": kept, "cluster": K2.cluster_size(1, 384, 32, 128, 8, 32, dev),
                  "kernel_ms": kern, "plain_ms": plain, "bound_ms": bound,
@@ -529,9 +569,8 @@ def phase_kernels_k2(K2, gen, dev, bw, int8_peak):
         q, *kv, off, *st, 31, scale=1.0 / 128 ** 0.5, window=None,
         kpos_start=0, softcap=None)], iters=3)
     kept13 = k2_kept_keys(off, 31, 1920, 32)
-    bound13 = k2_bound_ms(kept13, 8, 40, 40, 128, bw, int8_peak)
-    bound13_span = k2_bound_ms(8 * (1920 + 32), 8, 40, 40, 128, bw,
-                               int8_peak)
+    bound13 = k2_bound_ms(kept13, 8, 40, 40, 128, bw)
+    bound13_span = k2_bound_ms(8 * (1920 + 32), 8, 40, 40, 128, bw)
     rows.append({"shape": "13B: B=8 H=40 H_kv=40 D=128 T=1920 C=32",
                  "kept_keys": kept13, "cluster": K2.cluster_size(1, 1920, 32, 128, 8, 40, dev),
                  "kernel_ms": kern13, "plain_ms": plain13,
@@ -563,7 +602,8 @@ K4_DECODE = [("qkv", 15360, 5120, 40), ("o", 5120, 5120, 40),
 K4_EXTRA = [(1, 5120, 5120, 128), (64, 27648, 5120, 64),
             (8, 15360, 5120, 128), (32, 5120, 13824, 64),
             (3, 256, 512, 16), (33, 5120, 5120, 32), (9, 1000, 4096, 2048)]
-K4_M = (8, 32, 64)   # decode, and the 32/64 prefill buckets
+# decode, the 32/64 prefill buckets, and the n-gram verify step (15d)
+K4_M = (8, 32, VERIFY_M, 64)
 # (name, N, K) of Mixtral-8x7B's matmuls (fused qkv, each expert's fused
 # gate/up and its down): phase 11's K4 shapes (M = 1 in 11b, 8 in 11a's
 # decode, 32/64 in its prefill buckets) and K5 shapes (M = 128/256)
@@ -606,8 +646,8 @@ def phase_kernels_k4(K4, gen, dev, bw, int8_peak):
             raise AssertionError(f"K4 M={m} N={n} K={k} bs={bs}: rel err {r}")
         worst = [max(worst[0], a), max(worst[1], r)]
     rows = []
-    # M=8: one decode step; M=32/64: one prefill of those buckets (161
-    # launches each, as many as a decode step)
+    # M=8: one decode step; M=32/64: one prefill of those buckets; M=40:
+    # one verify step (161 launches each, as many as a decode step)
     totals = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
               for m in K4_M}
     for name, n, k, per_step in K4_DECODE:
@@ -646,7 +686,9 @@ def phase_kernels_k4(K4, gen, dev, bw, int8_peak):
         "ms": total["ms"], "kernel_ms": total["ms"],
         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
-        "prefill_buckets": {f"M={m}": totals[m] for m in K4_M[1:]}}
+        "prefill_buckets": {f"M={m}": totals[m] for m in (32, 64)},
+        "verify_m40": {"m": VERIFY_M,
+                       "per_13b_verify_step": totals[VERIFY_M]}}
 
 
 def k5_bound(m, n, k, bs, bw, bf16_peak):
@@ -938,10 +980,11 @@ def random_params(cfg, rand_bytes, rand_unit, rand_normal, device,
                   fused=True):
     """Llama params with random packed NF4 weights (blocksize 64, absmax
     U*0.03+0.005) in the fused qkv/gateup layout (or, with ``fused``
-    False, the seven projections apart), unit norms, a normal(0, 0.02)
-    embedding. A MoE config (``num_experts`` > 0) gets each expert's
-    fused gate/up and down in place of the MLP, and a normal(0, 0.02)
-    router in ``cfg.dtype``."""
+    False, the seven projections apart), unit norms (Gemma2's post norms
+    too), a normal(0, 0.02) embedding, and a head of its own unless the
+    config ties it to the embedding. A MoE config (``num_experts`` > 0)
+    gets each expert's fused gate/up and down in place of the MLP, and a
+    normal(0, 0.02) router in ``cfg.dtype``."""
     from tpu_bitsandbytes_torch.models.layers import QLinear4
     h, hd = cfg.hidden_size, cfg.hd
     n_q, n_kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -973,10 +1016,14 @@ def random_params(cfg, rand_bytes, rand_unit, rand_normal, device,
                 "experts": [{n: qlinear(*shapes[n]) for n in mlp}
                             for _ in range(cfg.num_experts)]}
         layer["input_norm"], layer["post_attn_norm"] = ones(), ones()
+        if cfg.post_norms:      # Gemma2's norms around the MLP
+            layer["pre_ffn_norm"], layer["post_ffn_norm"] = ones(), ones()
         layers.append(layer)
-    return {"embed": (rand_normal((cfg.vocab_size, h)) * 0.02).to(cfg.dtype),
-            "layers": layers, "final_norm": ones(),
-            "lm_head": qlinear(cfg.vocab_size, h)}
+    params = {"embed": (rand_normal((cfg.vocab_size, h)) * 0.02).to(
+        cfg.dtype), "layers": layers, "final_norm": ones()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = qlinear(cfg.vocab_size, h)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -1026,7 +1073,7 @@ def run_prefill_decode(params, cfg, device, prompts, forced, max_seq=256,
     toks = torch.stack(pre).argmax(-1).to(torch.int32)
     active = torch.ones((len(prompts),), dtype=torch.bool, device=device)
     span = E._span_bucket(max(map(len, prompts)) + n_steps, max_seq)
-    cache.begin_stage(n_steps)
+    cache.begin_stage(n_steps, window=False)
     steps, fed = [], []
     for i in range(n_steps):
         t_in = toks if forced is None else forced[i]
@@ -1114,6 +1161,15 @@ FULL_WIDTH_LAYERS = 1
 
 
 def phase_full_width(dev):
+    """3a: Llama-2-7B width, ``FULL_WIDTH_LAYERS`` layers, the int4 cache
+    (K1 for every linear, K2 for decode): prompts of 9-100 tokens, then 8
+    staged decode steps fed the CPU's greedy tokens. K1 quantizes its
+    activations to int8 per row (A8), as K4 does, and K2 sums in f32 in
+    another order than the CPU, so the card is held as 3b holds it: fed
+    the CPU's activation at every K1 call (every K1 input, each as the card
+    computed it from the layers before, and all logits at E2E_TOL), and on
+    its own codes, within the CPU's own bf16-vs-f32 gap on the same steps
+    (at least E2E_TOL)."""
     from tpu_bitsandbytes_torch.models.llama import (LlamaConfig,
                                                      build_runtime_cache,
                                                      to_device)
@@ -1126,15 +1182,36 @@ def phase_full_width(dev):
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (9, 33, 64, 100)]
     t0 = time.perf_counter()
-    ref_pre, ref_steps, fed = run_prefill_decode(cpu_params, cfg, "cpu",
-                                                 prompts, None)
+    cpu_x = []
+    with a8_inputs(record=cpu_x, fn="int4_matmul"):
+        ref_pre, ref_steps, fed = run_prefill_decode(cpu_params, cfg, "cpu",
+                                                     prompts, None)
+    f32_pre, f32_steps, _ = run_prefill_decode(
+        as_f32(cpu_params), dataclasses.replace(cfg, dtype=torch.float32),
+        "cpu", prompts, fed)
     cpu_s = time.perf_counter() - t0
-    got_pre, got_steps, _ = run_prefill_decode(params, cfg, dev, prompts,
-                                               fed)
-    worst = compare_card_cpu("full width", got_pre, ref_pre, got_steps,
-                             ref_steps)
-    emit({"phase": "full_width", "layers": 2, "hidden": cfg.hidden_size,
-          "logit_rel_err_by_slot": worst, "tol": E2E_TOL, "cpu_s": cpu_s})
+    bf16_gap = slot_gaps(ref_pre, f32_pre, ref_steps, f32_steps)
+    with a8_inputs(feed=cpu_x, fn="int4_matmul") as notes:
+        got_pre, got_steps, _ = run_prefill_decode(params, cfg, dev, prompts,
+                                                   fed)
+    if len(notes) != len(cpu_x):
+        raise AssertionError(f"full width: {len(notes)} K1 calls on the "
+                             f"card, {len(cpu_x)} on the CPU")
+    by_shape = a8_input_table(notes, "full width")
+    fed_gap = compare_card_cpu("full width, fed the CPU's K1 inputs",
+                               got_pre, ref_pre, got_steps, ref_steps)
+    own_pre, own_steps, _ = run_prefill_decode(params, cfg, dev, prompts, fed)
+    own_tol = {kind: [max(E2E_TOL, g) for g in gaps]
+               for kind, gaps in bf16_gap.items()}
+    own_gap = compare_card_cpu("full width, own A8 codes", own_pre, ref_pre,
+                               own_steps, ref_steps, tol=own_tol)
+    emit({"phase": "full_width", "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "tol": E2E_TOL,
+          "fed_logit_rel_err_by_slot": fed_gap,
+          "k1_inputs_by_shape": by_shape,
+          "own_codes_logit_rel_err_by_slot": own_gap,
+          "cpu_bf16_vs_f32_by_slot": bf16_gap, "own_codes_tol": own_tol,
+          "cpu_s": cpu_s})
 
 
 def numpy_normal(rng, dev):
@@ -1182,8 +1259,9 @@ def normal_nf4_params(cfg, normal, dev):
 
 
 @contextlib.contextmanager
-def k4_inputs(record=None, feed=None):
-    """Taps the K4 wrapper as ``QLinear4`` calls it. ``record``: a list
+def a8_inputs(record=None, feed=None, fn="w4a8_matmul_4bit"):
+    """Taps an A8 matmul as ``QLinear4`` calls it: K4's wrapper
+    (``w4a8_matmul_4bit``) or K1's (``int4_matmul``). ``record``: a list
     that collects each call's activation, on the CPU. ``feed``: a run's
     record, handed to the wrapper call by call in place of this run's
     activation (so both runs quantize the same values to the same A8
@@ -1192,29 +1270,51 @@ def k4_inputs(record=None, feed=None):
     of its A8 codes differ."""
     from tpu_bitsandbytes_torch.models import layers
     from tpu_bitsandbytes_torch.ops.w4a8 import quantize_a8
-    orig = layers.w4a8_matmul_4bit
+    orig = getattr(layers, fn)
     notes = []
 
-    def tap(x, packed_flat, st, **kw):
+    def tap(x, w, st, **kw):
         if record is not None:
             record.append(x.cpu())
         if feed is not None:
             ref = feed[len(notes)].to(x.device)
-            kp = packed_flat.numel() // st.shape[0] * 2
+            if fn == "int4_matmul":     # w: the packed cache [N, K_pad / 2]
+                shape, kp = w.shape, 2 * w.shape[1]
+            else:                       # w: flat packed codes; st: absmax
+                shape, kp = st.shape, w.numel() // st.shape[0] * 2
             codes = (quantize_a8(x, kp)[0] != quantize_a8(ref, kp)[0])
-            notes.append({"shape": st.shape, "m": x.shape[0],
+            notes.append({"shape": shape, "m": x.shape[0],
                           "rel_err": ((x.float() - ref.float()).abs().max()
                                       / ref.float().abs().max()).item(),
                           "codes_differ": int(codes.sum()),
                           "codes": codes.numel()})
             x = ref
-        return orig(x, packed_flat, st, **kw)
+        return orig(x, w, st, **kw)
 
-    layers.w4a8_matmul_4bit = tap
+    setattr(layers, fn, tap)
     try:
         yield notes
     finally:
-        layers.w4a8_matmul_4bit = orig
+        setattr(layers, fn, orig)
+
+
+def a8_input_table(notes, what):
+    """Per weight shape: calls, the worst rel err of the card's activation
+    against the fed one, A8 codes that differ; raises past E2E_TOL."""
+    by_shape = {}
+    for note in notes:
+        key = "x".join(map(str, note["shape"]))
+        row = by_shape.setdefault(key, {"calls": 0, "rel_err": 0.0,
+                                        "codes_differ": 0, "codes": 0})
+        row["calls"] += 1
+        row["rel_err"] = max(row["rel_err"], note["rel_err"])
+        row["codes_differ"] += note["codes_differ"]
+        row["codes"] += note["codes"]
+        if not note["rel_err"] <= E2E_TOL:
+            raise AssertionError(f"{what}: A8 input {key} M={note['m']} "
+                                 f"card vs CPU rel err {note['rel_err']} > "
+                                 f"{E2E_TOL}")
+    return by_shape
 
 
 def phase_full_width_packed(dev, counters):
@@ -1245,7 +1345,7 @@ def phase_full_width_packed(dev, counters):
                for n in (40, 100, 1000)]
     t0 = time.perf_counter()
     cpu_x = []
-    with k4_inputs(record=cpu_x):
+    with a8_inputs(record=cpu_x):
         ref_pre, ref_steps, fed = run_prefill_decode(
             cpu_params, cfg, "cpu", prompts, None, max_seq=2048)
     f32_pre, f32_steps, _ = run_prefill_decode(
@@ -1255,7 +1355,7 @@ def phase_full_width_packed(dev, counters):
     bf16_gap = slot_gaps(ref_pre, f32_pre, ref_steps, f32_steps)
 
     before = {k: f.launches for k, f in counters.items()}
-    with k4_inputs(feed=cpu_x) as notes:
+    with a8_inputs(feed=cpu_x) as notes:
         got_pre, got_steps, _ = run_prefill_decode(params, cfg, dev, prompts,
                                                    fed, max_seq=2048)
     launches = {k: f.launches - before[k] for k, f in counters.items()}
@@ -1267,19 +1367,7 @@ def phase_full_width_packed(dev, counters):
     if len(notes) != len(cpu_x):
         raise AssertionError(f"full width packed: {len(notes)} K4 calls on "
                              f"the card, {len(cpu_x)} on the CPU")
-    by_shape = {}
-    for note in notes:
-        key = "x".join(map(str, note["shape"]))
-        row = by_shape.setdefault(key, {"calls": 0, "rel_err": 0.0,
-                                        "codes_differ": 0, "codes": 0})
-        row["calls"] += 1
-        row["rel_err"] = max(row["rel_err"], note["rel_err"])
-        row["codes_differ"] += note["codes_differ"]
-        row["codes"] += note["codes"]
-        if not note["rel_err"] <= E2E_TOL:
-            raise AssertionError(f"full width packed: K4 input {key} M="
-                                 f"{note['m']} card vs CPU rel err "
-                                 f"{note['rel_err']} > {E2E_TOL}")
+    by_shape = a8_input_table(notes, "full width packed")
     fed_gap = compare_card_cpu("full width packed, fed the CPU's K4 inputs",
                                got_pre, ref_pre, got_steps, ref_steps)
 
@@ -1512,6 +1600,38 @@ def kernel_launches(fn):
 MODES = ("graphed", "eager")
 
 
+def serve_passes(engine, prompts, sp, counters, plains, passes, what,
+                 pass_ctx=contextlib.nullcontext):
+    """Serve ``prompts`` ``passes`` times on ``engine`` through the step
+    loop (``generate(pipeline_depth=1)``, as in every PR before the
+    pipelined default), each pass inside ``pass_ctx()``: per pass the
+    greedy tokens, seconds, launches by the counters (a graph replay adds
+    its capture's), decode steps, ms per decode step and tokens/s by the
+    engine's per-chunk wall clock. A plain-version call on a CUDA tensor
+    fails ``what``."""
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    out = []
+    for _ in range(passes):
+        engine.metrics = MetricsLogger()
+        reset(counters, plains)
+        with pass_ctx() as extra:
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts, sp, pipeline_depth=1)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        no_plain_calls(plains, what)
+        hist = engine.metrics.history
+        steps = len(hist) * engine.steps_per_sync
+        out.append({
+            "outs": outs, "generate_s": gen_s, "launches": counts(counters),
+            "wgmma_launches": counters["K5_matmul4bit"].wgmma_launches,
+            "plain_calls_on_cuda": 0, "decode_steps": steps,
+            "decode_step_ms": sum(m.wall_s for m in hist) / steps * 1e3,
+            "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
+            "extra": extra})
+    return out
+
+
 def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
                plains, want_per_step, pass_ctx=contextlib.nullcontext):
     """Serve ``prompts`` on one engine built for ``mode``: graphed (each
@@ -1526,7 +1646,6 @@ def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
     be finite. Each pass runs inside ``pass_ctx()``. Returns (the result,
     the engine)."""
     from tpu_bitsandbytes_torch.engine import engine as E
-    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1535,30 +1654,11 @@ def serve_mode(dev, params, cfg, engine_kw, mode, prompts, sp, counters,
     engine = E.DecodeEngine(params, cfg, device=dev,
                             cuda_graphs=mode == "graphed", **engine_kw)
     torch.cuda.synchronize()
-    res = {"mode": mode, "build_s": time.perf_counter() - t0, "passes": []}
-    for _ in range(2 if mode == "graphed" else 1):
-        engine.metrics = MetricsLogger()
-        reset(counters, plains)
-        with pass_ctx() as extra:
-            t0 = time.perf_counter()
-            # the step loop, as in every PR before the pipelined default
-            outs = engine.generate(prompts, sp, pipeline_depth=1)
-            torch.cuda.synchronize()
-            gen_s = time.perf_counter() - t0
-        hist = engine.metrics.history
-        steps = len(hist) * engine.steps_per_sync
-        res["passes"].append({
-            "outs": outs, "generate_s": gen_s, "launches": counts(counters),
-            "wgmma_launches": counters["K5_matmul4bit"].wgmma_launches,
-            "plain_calls_on_cuda": sum(f.cuda_calls for f in plains),
-            "decode_steps": steps,
-            "decode_step_ms": sum(m.wall_s for m in hist) / steps * 1e3,
-            "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
-            "extra": extra})
-    last = res["passes"][-1]
-    if last["plain_calls_on_cuda"]:
-        raise AssertionError(f"{mode}: {last['plain_calls_on_cuda']} plain-"
-                             "version calls on CUDA tensors in the path")
+    res = {"mode": mode, "build_s": time.perf_counter() - t0,
+           "passes": serve_passes(engine, prompts, sp, counters, plains,
+                                  2 if mode == "graphed" else 1, mode,
+                                  pass_ctx)}
+    outs = res["passes"][-1]["outs"]
     if not all(len(o) == sp.max_new_tokens
                and all(0 <= t < cfg.vocab_size for t in o) for o in outs):
         raise AssertionError(f"{mode}: wrong token counts or ids")
@@ -1734,9 +1834,10 @@ def teacher_forced(params, cfg, dev, prompts, outs, max_seq, cache,
 def phase_serve(dev, counters, plains):
     """4: Llama-2-7B, 32 layers, int4 runtime cache, eager and graphed.
     Returns the eager pass's launches (equal to the graphed pass's), the
-    graphed engine's greedy tokens (an engine not warmed up) and, for
-    phase 12, that engine's teacher-forced logits on them
-    (:func:`teacher_forced`)."""
+    graphed engine's greedy tokens (an engine not warmed up), for phase
+    12 that engine's teacher-forced logits on them
+    (:func:`teacher_forced`), and for 15a the workload and the timed
+    graphed pass's ms per decode step."""
     cfg, params, prompts, sp, kw = llama7b_workload(dev)
     want = {"K1_int4_matmul": 129, "K2_flash_decode": 32,
             "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
@@ -1783,8 +1884,9 @@ def phase_serve(dev, counters, plains):
     serve_lines("llama2_7b", results, {
         "layers": cfg.num_layers, "batch": 8, "steps_per_sync": 32,
         "prompt_lens": [len(p) for p in prompts], "new_tokens": 64})
-    return (results["eager"]["passes"][-1]["launches"],
-            results["graphed"]["passes"][-1]["outs"], forced)
+    graphed = results["graphed"]["passes"][-1]
+    return (results["eager"]["passes"][-1]["launches"], graphed["outs"],
+            forced, (params, cfg, prompts, sp, kw, graphed["decode_step_ms"]))
 
 
 PACKED_PROMPTS = [24, 60, 100, 200, 700, 1100, 1500, 1800]
@@ -1846,7 +1948,7 @@ def timed_prefills(counters):
             setattr(E, name, fn)
 
 
-def phase_serve_packed(dev, counters, plains, bw, int8_peak, workload):
+def phase_serve_packed(dev, counters, plains, bw, workload):
     """5: Llama-2-13B, 40 layers, off the packed NF4 bytes, eager and
     graphed (``workload``: :func:`packed_workload`). Returns the eager
     pass's launches (equal to the graphed pass's) and K2's bound for one
@@ -1888,7 +1990,7 @@ def phase_serve_packed(dev, counters, plains, bw, int8_peak, workload):
     # slots' final lengths
     kept_keys = int(results["graphed"]["lengths"].sum()) + 8
     k2_bound = cfg.num_layers * k2_bound_ms(
-        kept_keys, 8, cfg.num_heads, cfg.num_kv_heads, cfg.hd, bw, int8_peak)
+        kept_keys, 8, cfg.num_heads, cfg.num_kv_heads, cfg.hd, bw)
     serve_lines("llama2_13b", results, {
         "runtime_cache": None, "layers": cfg.num_layers, "batch": 8,
         "max_seq": 2048, "steps_per_sync": 32, "prompt_lens": PACKED_PROMPTS,
@@ -1956,12 +2058,12 @@ def phase_chunked_prefill(dev, counters):
                                                   600).tolist()
     t0 = time.perf_counter()
     cpu_x = []
-    with k4_inputs(record=cpu_x):
+    with a8_inputs(record=cpu_x):
         ref_h, ref_l = run_chunks(cpu_params, cfg, "cpu", prompt)
     cpu_s = time.perf_counter() - t0
     before = counts(counters)
     wg = counters["K5_matmul4bit"].wgmma_launches
-    with k4_inputs(feed=cpu_x) as notes:
+    with a8_inputs(feed=cpu_x) as notes:
         got_h, got_l = run_chunks(params, cfg, dev, prompt)
     launches = {k: n - before[k] for k, n in counts(counters).items()}
     wgmma = counters["K5_matmul4bit"].wgmma_launches - wg
@@ -3446,6 +3548,9 @@ MIXTRAL_LAYERS = 16     # 11a: Mixtral-8x7B's first 16 of 32 layers
 # 11a's decode chunk: 16 steps, about 100k kernel nodes a graph (a 32-step
 # chunk's capture took 16.5 s and each step breakdown's profile 20-29 s)
 MIXTRAL_CHUNK = 16
+# 11b's depth: one layer (two took 82 s of CPU reference on the script's
+# critical path)
+MIXTRAL_CPU_LAYERS = 1
 MOE_PROMPT = 128    # 11b: one prompt (K5 at M = 128 in every expert) ...
 MOE_STEPS = 4       # ... and decode steps (K4 at M = 1)
 # 11b: a token whose routing differs between card and CPU is a near tie
@@ -3465,7 +3570,7 @@ def routing_record(out, feed=None):
     on the CPU, in call order. ``feed``: another run's record, whose
     experts this run takes call by call, each weighted by this run's own
     probabilities (renormalized where the config says), as the K4 inputs
-    are fed (:func:`k4_inputs`); what is recorded is this run's own
+    are fed (:func:`a8_inputs`); what is recorded is this run's own
     choice."""
     from tpu_bitsandbytes_torch.models import llama as L
     orig = L.moe_routing
@@ -3524,6 +3629,38 @@ def k2_against_plain(K2, a, kw, what):
     if not (r <= K2_TOL and torch.isfinite(got).all()):
         raise AssertionError(f"{what} K2 {kw}: rel err {r}")
     return r
+
+
+def k2_against_chain(calls, what):
+    """Replays recorded K2 calls (``flash_decode_attention(*a, **kw)``,
+    unstaged) beside the chain K2 computes,
+    ``layers.gqa_attention_kv_quant``, on the same inputs; raises past
+    K2_CHAIN_TOL. Returns the keys each call kept and the worst rel
+    err."""
+    from tpu_bitsandbytes_torch.models import layers as LY
+    from tpu_bitsandbytes_torch.ops import flash_decode as K2
+    chain, kept = [], []
+    for a, kw in calls:
+        q, kq, ks, vq, vs, off = a
+        kw = {k: v for k, v in kw.items() if k != "staged"}
+        got = K2.flash_decode_attention(q, kq, ks, vq, vs, off, **kw)
+        ref = LY.gqa_attention_kv_quant(q[:, None], kq, ks, vq, vs,
+                                        causal_offset=off[:, None],
+                                        **kw)[:, 0]
+        torch.cuda.synchronize()
+        r = err(got.to(ref.dtype), ref)[1]
+        if not (r <= K2_CHAIN_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{what} K2 {kw}: {r} of max|ref| off "
+                                 f"the chain (K2_CHAIN_TOL {K2_CHAIN_TOL})")
+        chain.append(r)
+        start = kw.get("kpos_start", 0)
+        hi = (off + 1).clamp(max=start + kq.shape[2])
+        lo = start if kw.get("window") is None else (
+            off - kw["window"] + 1).clamp(min=start)
+        kept.append(int((hi - lo).clamp(min=0).sum()))
+    return {"calls": len(calls), "span": calls[0][0][1].shape[2],
+            "kept_keys_per_call": kept, "rel_err_vs_chain": max(chain),
+            "chain_tol": K2_CHAIN_TOL}
 
 
 def mixtral_workload(dev):
@@ -3617,12 +3754,14 @@ def phase_mixtral(dev, counters, plains):
     return results["eager"]["passes"][-1]["launches"]
 
 
-def mixtral_2l_cpu(dev):
-    """11b's model (Mixtral-8x7B at full width, 2 layers, normal weights
-    quantized to NF4 on the card) and its CPU run, with every K4 input and
-    router choice recorded (:func:`phase_mixtral_2l`)."""
+def mixtral_cpu(dev):
+    """11b's model (Mixtral-8x7B at full width, ``MIXTRAL_CPU_LAYERS``
+    layers, normal weights quantized to NF4 on the card) and its CPU run,
+    with every K4 input and router choice recorded
+    (:func:`phase_mixtral_cpu`)."""
     from tpu_bitsandbytes_torch.models import llama as L
-    cfg = dataclasses.replace(L.LlamaConfig.mixtral_8x7b(), num_layers=2)
+    cfg = dataclasses.replace(L.LlamaConfig.mixtral_8x7b(),
+                              num_layers=MIXTRAL_CPU_LAYERS)
     gen = torch.Generator(device=dev).manual_seed(811)
     params = normal_nf4_params(
         cfg, lambda shape: torch.randn(shape, generator=gen, device=dev), dev)
@@ -3631,7 +3770,7 @@ def mixtral_2l_cpu(dev):
                                                  MOE_PROMPT).tolist()
     t0 = time.perf_counter()
     cpu_x, cpu_routes = [], []
-    with k4_inputs(record=cpu_x), routing_record(cpu_routes):
+    with a8_inputs(record=cpu_x), routing_record(cpu_routes):
         ref_pre, ref_steps, fed = run_prefill_decode(
             cpu_params, cfg, "cpu", [prompt], None, n_steps=MOE_STEPS)
     return {"cfg": cfg, "params": params, "prompt": prompt, "fed": fed,
@@ -3639,8 +3778,9 @@ def mixtral_2l_cpu(dev):
             "steps": ref_steps, "cpu_s": time.perf_counter() - t0}
 
 
-def phase_mixtral_2l(dev, counters, plains, K2, cpu):
-    """11b: Mixtral-8x7B at full width, 2 layers (normal weights quantized
+def phase_mixtral_cpu(dev, counters, plains, K2, cpu):
+    """11b: Mixtral-8x7B at full width, its first ``MIXTRAL_CPU_LAYERS``
+    layers (normal weights quantized
     to NF4 on the card, copied to the CPU), one 128-token prompt and 4
     decode steps on the CPU (plain versions), then on the card.
 
@@ -3655,11 +3795,12 @@ def phase_mixtral_2l(dev, counters, plains, K2, cpu):
     E2E_TOL: the qkv and expert inputs (the residual stream after the
     attention and the expert-weighted sums), the expert down inputs and
     the lm_head's (the final hidden state, normed). The o_proj inputs,
-    K2's outputs, are reported, not gated: K2's int8 q and p codes move by
-    one where the prefill's bf16 K/V differ by an ulp (up to 3.74e-2 of
-    max on an H100 at 700 W, with every other input within 6e-3); each of
-    the run's K2 calls is held against K2's plain version on its own
-    inputs instead (K2_TOL). Every decode step's logits must be within
+    K2's outputs, are reported, not gated: K2 reads the card's own K/V,
+    whose bf16 values differ from the CPU's by an ulp here and there (up
+    to 3.74e-2 of max on an H100 at 700 W with K2's former int8
+    probability codes, every other input within 6e-3); each of the run's K2
+    calls is held against K2's plain version on its own inputs instead
+    (K2_TOL). Every decode step's logits must be within
     E2E_TOL.
 
     The card also takes the CPU's experts for every token and layer, each
@@ -3668,7 +3809,7 @@ def phase_mixtral_2l(dev, counters, plains, K2, cpu):
     carry into every later token. Each side's own choice is recorded for
     every token and layer: a token whose top-k differs is a flip, allowed
     only where the CPU's k-th vs (k+1)-th probability gap is below
-    ``MOE_TIE_GAP``. ``cpu``: :func:`mixtral_2l_cpu`'s model and CPU
+    ``MOE_TIE_GAP``. ``cpu``: :func:`mixtral_cpu`'s model and CPU
     run."""
     from tpu_bitsandbytes_torch.models import llama as L
     cfg, prompt, fed = cpu["cfg"], cpu["prompt"], cpu["fed"]
@@ -3677,7 +3818,7 @@ def phase_mixtral_2l(dev, counters, plains, K2, cpu):
     ref_pre, ref_steps, cpu_s = cpu["pre"], cpu["steps"], cpu["cpu_s"]
     routes, k2_calls = [], []
     reset(counters, plains)
-    with k4_inputs(feed=cpu_x) as notes, \
+    with a8_inputs(feed=cpu_x) as notes, \
             routing_record(routes, feed=cpu_routes), \
             recorded_calls(L, "flash_decode_attention", k2_calls):
         got_pre, got_steps, _ = run_prefill_decode(
@@ -3778,7 +3919,7 @@ def gemma2_cpu(dev):
             "bf16_hidden": bf16_hidden, "cpu_s": time.perf_counter() - t0}
 
 
-def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3,
+def phase_gemma2(dev, counters, plains, bw, bf16_peak, K2, K3,
                  cpu):
     """11c: Gemma2-9B at full width, 2 layers (layer 0 windowed at 4,096,
     layer 1 global; bf16, unquantized weights drawn on the card from a
@@ -3900,7 +4041,7 @@ def phase_gemma2(dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3,
             "plain_ms": time_ms([lambda: K2.flash_decode_plain(
                 q, kq, ks, vq, vs, off, *st, **kw)], iters=2),
             "bound_ms": k2_bound_ms(kept, q.shape[0], q.shape[1],
-                                    kq.shape[1], q.shape[2], bw, int8_peak),
+                                    kq.shape[1], q.shape[2], bw),
             "bound_by": "bytes", "library_ms": None})
     reset(counters, plains)     # the comparisons' launches are not the path's
     emit({"phase": "families", "part": "11c", "model": "gemma2_9b",
@@ -4248,7 +4389,7 @@ def mesh_rank_13b(mesh, dev, job):
     rec = {}
     t0 = time.perf_counter()
     with recorded_kernel_calls(rec), \
-            k4_inputs(feed=job["feeds"][ctx.tp_rank]) as notes:
+            a8_inputs(feed=job["feeds"][ctx.tp_rank]) as notes:
         pre, steps, launches = prefill_then_steps(
             local, cfg, dev, job["prompts"], job["forced"], 1024, tp=ctx)
     run_s = time.perf_counter() - t0
@@ -4394,13 +4535,14 @@ class MeshWorld:
                            weights_only=False) for r in range(self.world)]
 
 
-def token_rule(outs, ref_outs, forced):
-    """12a's token rule: request by request, the tp engine's greedy tokens
-    equal phase 4's up to the first position where they differ; there
-    phase 4's top-2 gap (of its teacher-forced logits ``forced``, as a
-    share of the row's max|logit|) must be below ``TP_TIE_GAP``, and the
-    rest of that request is not compared. Returns the positions compared
-    and where requests stopped."""
+def token_rule(outs, ref_outs, forced, what="12a", tie_gap=TP_TIE_GAP):
+    """12a's token rule (and 15c's): request by request, the greedy tokens
+    ``outs`` equal the reference's ``ref_outs`` up to the first position
+    where they differ; there the reference's top-2 gap (of its
+    teacher-forced logits ``forced``, as a share of the row's max|logit|)
+    must be below ``tie_gap``, and the rest of that request is not
+    compared. Returns the positions compared and where requests
+    stopped."""
     compared, stops = 0, []
     for b, (got, ref) in enumerate(zip(outs, ref_outs)):
         for j, (a, r) in enumerate(zip(got, ref)):
@@ -4410,10 +4552,11 @@ def token_rule(outs, ref_outs, forced):
             if a == r:
                 compared += 1
                 continue
-            if gap >= TP_TIE_GAP:
+            if gap >= tie_gap:
                 raise AssertionError(
-                    f"12a: request {b} token {j}: {a} != phase 4's {r} at a "
-                    f"top-2 gap of {gap:.4f} of max|logit| (>= {TP_TIE_GAP})")
+                    f"{what}: request {b} token {j}: {a} != the reference's "
+                    f"{r} at a top-2 gap of {gap:.4f} of max|logit| (>= "
+                    f"{tie_gap})")
             stops.append({"request": b, "token": j, "gap": gap})
             break
     return compared, stops
@@ -5131,6 +5274,472 @@ def phase_host_packer(dev, smi):
                              "from quantize_4bit's on the card")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the compact-window stage, and the last full-width serves of the
+# families (Gemma2-9B at full depth, Mistral-7B's ring), K4 at a verify's M
+# ---------------------------------------------------------------------------
+
+# 15a: staged decode steps from the served positions whose logits must be
+# bit-identical between the window and the two-block stage
+WINDOW_CHECK_STEPS = 3
+# 15b: Gemma2-9B at its 42 layers, 8 prompts from 24 to 4,400 tokens (past
+# the local layers' 4,096 window; K3 takes d = 256 up to 5,632), 32 new
+# tokens in 16-step chunks
+GEMMA2_PROMPTS = [24, 60, 100, 200, 700, 1100, 1800, 4400]
+GEMMA2_SERVE_SEQ = 4608
+GEMMA2_NEW = 32
+GEMMA2_CHUNK = 16
+# 15c: Mistral-7B at full width, its first 8 of 32 layers (the script's
+# time), max_seq 8,192; six prompts longer than the ring (4,224 entries:
+# the 4,096 window plus 33 in flight, rounded up to 128), the rest close
+# enough that RING_NEW tokens take every slot past it
+RING_LAYERS = 8
+RING_MAX_SEQ = 8192
+RING_PROMPTS = [5000, 4600, 4400, 4300, 4250, 4230, 4215, 4200]
+RING_NEW = 48
+# the ring's greedy tokens against the reference's: equal up to a first
+# difference where the reference's top-2 gap is below this (fixed before
+# the first chip run, as TP_TIE_GAP: two logit rows within E2E_TOL of
+# max|ref| of each other can swap their top two only below twice that)
+RING_TIE_GAP = 2 * E2E_TOL
+
+
+def graph_per_step(engine):
+    """Each decode-chunk graph's kernel launches per step, by counter, read
+    from the graph's nodes: {key: {counter: launches}}."""
+    n = engine.steps_per_sync
+    return {str(k): {c: v / n for c, v in graph_nodes(
+        engine.graph_kernel_names(k[0], *k[2:])).items()}
+        for k in engine.graph_keys() if k[0] != "verify"}
+
+
+def pass_line(p):
+    """A pass's numbers for a JSON line (its tokens left out)."""
+    return {k: v for k, v in p.items()
+            if k not in ("outs", "extra", "plain_calls_on_cuda")}
+
+
+def phase_window_stage(dev, counters, plains, params, cfg, prompts, sp, kw,
+                       ref_outs, ref_step_ms):
+    """15a: phase 4's model, requests and engine keywords with
+    ``window_stage=True`` (int4 cache, graphed), served twice (the first
+    pass captures the chunk graphs): greedy tokens of both passes
+    identical to phase 4's graphed two-block engine (``ref_outs``), 129 K1
+    + 32 K2 per decode step by the counters and by every chunk graph's
+    nodes; ``footprint()``'s KV equal to the cache plus the window buffers
+    (2 L B H (max_seq + C) (D + 4) bytes, from the shapes); then
+    ``WINDOW_CHECK_STEPS`` staged decode steps from the served positions,
+    fed the same tokens, whose logits must be bit-identical between a
+    window stage and a two-block stage (K2 reads the same bytes at the
+    same positions with the same plan). Step ms of both modes side by side
+    (``ref_step_ms``: phase 4's timed graphed pass). Returns the timed
+    pass's launches."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    t_phase = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    engine = E.DecodeEngine(params, cfg, device=dev, window_stage=True, **kw)
+    if not engine.window_stage:
+        raise AssertionError("15a: the footprint gate turned the window "
+                             "stage off")
+    passes = serve_passes(engine, prompts, sp, counters, plains, 2, "15a")
+    for i, p in enumerate(passes):
+        differ = [j for j, (a, b) in enumerate(zip(p["outs"], ref_outs))
+                  if a != b]
+        if differ or len(p["outs"]) != len(ref_outs):
+            raise AssertionError(f"15a pass {i + 1}: greedy tokens of "
+                                 f"requests {differ} differ from the "
+                                 "two-block stage's")
+    n, b = engine.steps_per_sync, kw["max_batch"]
+    # four fused linears a layer and the head on K1, one K2 a layer
+    want = {"K1_int4_matmul": 4 * cfg.num_layers + 1,
+            "K2_flash_decode": cfg.num_layers, "K3_flash_prefill": 0,
+            "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    per_graph = graph_per_step(engine)
+    last = passes[-1]
+    steps = last["decode_steps"]
+    k1, k2 = want["K1_int4_matmul"], want["K2_flash_decode"]
+    if (any(g != want for g in per_graph.values()) or not per_graph
+            or last["launches"]["K2_flash_decode"] != k2 * steps
+            or last["launches"]["K1_int4_matmul"] < k1 * steps):
+        raise AssertionError(f"15a: launches {last['launches']} for {steps} "
+                             f"decode steps, graphs {per_graph}")
+    c = engine.cache
+    fp = engine.footprint()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (c.k, c.v, c.k_scale, c.v_scale))
+    win_want = (2 * cfg.num_layers * b * cfg.num_kv_heads
+                * (kw["max_seq"] + n) * (cfg.hd + 4))
+    if c.window_bytes() != win_want or fp["kv"] != cache_bytes + win_want:
+        raise AssertionError(f"15a footprint kv {fp['kv']}: the cache "
+                             f"{cache_bytes} + windows {c.window_bytes()}, "
+                             f"{win_want} from the shapes")
+    # staged steps from the served positions, fed the window run's tokens
+    lengths = c.lengths.clone()
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    span = E._span_bucket(int(lengths.max()) + n, kw["max_seq"])
+    fed = [torch.tensor([o[-1] for o in last["outs"]], dtype=torch.int32,
+                        device=dev)]
+    steps_logits = {}
+    for window in (True, False):
+        c.lengths.copy_(lengths)
+        c.begin_stage(n, span=span, window=window)
+        rows = []
+        for i in range(WINDOW_CHECK_STEPS):
+            logits = E.decode_step(engine.params, c, fed[i], active, cfg,
+                                   attn_span=span)[0]
+            rows.append(logits)
+            if window:
+                fed.append(logits.argmax(-1).to(torch.int32))
+        c.stage = None      # the steps' tokens stay out of the cache
+        steps_logits[window] = torch.stack(rows)
+    c.lengths.copy_(lengths)
+    if not torch.equal(steps_logits[True], steps_logits[False]):
+        d = (steps_logits[True] - steps_logits[False]).abs().max().item()
+        raise AssertionError(f"15a: staged-step logits differ by {d} between "
+                             "the window and the two-block stage")
+    emit({"phase": "window_stage", "model": "llama2_7b",
+          "layers": cfg.num_layers, "batch": b, "max_seq": kw["max_seq"],
+          "steps_per_sync": n, "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": sp.max_new_tokens,
+          "greedy_tokens_identical_to_two_block": True,
+          "logits_bit_identical_steps": WINDOW_CHECK_STEPS, "span": span,
+          "decode_step_ms": {"window": last["decode_step_ms"],
+                             "two_block": ref_step_ms},
+          "first_pass_decode_step_ms": passes[0]["decode_step_ms"],
+          "passes": [pass_line(p) for p in passes],
+          "graph_launches_per_step": per_graph,
+          "graphs": engine.graph_stats(),
+          "window_buffers_mib": win_want / 2 ** 20,
+          "footprint_kv": fp["kv"], "allocated_kv": cache_bytes + win_want,
+          "footprint": fp,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+          / 2 ** 30, "t_s": time.perf_counter() - t_phase})
+    del engine, c
+    free_memory()
+    return last["launches"]
+
+
+def gemma2_serve_workload(dev):
+    """15b: (cfg, params, prompts, sampling, engine keywords) for Gemma2-9B
+    at its 42 layers and full width, random packed NF4 weights drawn on
+    the card from a seed (fused qkv and gate/up; the head tied to the bf16
+    embedding), served off the packed bytes at B = 8, ``max_seq`` 4,608,
+    16-step chunks."""
+    from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
+    from tpu_bitsandbytes_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.gemma2_9b()
+    gen = torch.Generator(device=dev).manual_seed(915)
+    params = random_params(
+        cfg,
+        lambda s: torch.randint(0, 256, s, generator=gen, device=dev,
+                                dtype=torch.uint8),
+        lambda s: torch.rand(s, generator=gen, device=dev),
+        lambda s: torch.randn(s, generator=gen, device=dev), dev)
+    rng = np.random.default_rng(916)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in GEMMA2_PROMPTS]
+    kw = dict(max_batch=8, max_seq=GEMMA2_SERVE_SEQ,
+              steps_per_sync=GEMMA2_CHUNK, runtime_cache=None)
+    return cfg, params, prompts, SamplingParams(max_new_tokens=GEMMA2_NEW), kw
+
+
+def decode_per_step(p):
+    """A pass's launches per decode step: its launches less its prefill
+    groups' (``timed_prefills``), over its decode steps."""
+    pre = {}
+    for g in p["extra"]:
+        for k, v in g["launches"].items():
+            pre[k] = pre.get(k, 0) + v
+    return {k: (v - pre.get(k, 0)) / p["decode_steps"]
+            for k, v in p["launches"].items()}
+
+
+def phase_gemma2_serve(dev, counters, plains, K2):
+    """15b: Gemma2-9B at full width and all 42 layers (every other layer
+    windowed at 4,096; softcaps 50 and 30; d = 256) served off the packed
+    bytes, graphed (twice, the first pass captures) and eager, the step
+    loop: K4 for decode and the 32/64 buckets, K5 for 128/256, K3 at d =
+    256 with the window and softcap for the 1024, 2048 and 4,608 buckets,
+    K2 at d = 256 for every decode step. The launches per decode step,
+    derived from the config before the run (4 fused linears a layer on K4,
+    no K4 for the head, which is the tied bf16 embedding; one K2 a layer),
+    by the counters and by the chunk graph's nodes; K3 42 a prefill group
+    of 1,024 tokens or more; tokens identical between the modes; the
+    eager pass's first K2 call at the served shape against its plain
+    version. No CPU reference at this depth (11c holds 2 layers against
+    the CPU). Returns the eager pass's launches."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.models import llama as L
+    from tpu_bitsandbytes_torch.models.layers import jax_takes_its_kernel
+    t_phase = time.perf_counter()
+    cfg, params, prompts, sp, kw = gemma2_serve_workload(dev)
+    k4_step = 4 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
+            "K3_flash_prefill": 0, "K4_w4a8_matmul": k4_step,
+            "K5_matmul4bit": 0}
+    k3_groups = sum(1 for b in {E._bucket(n, kw["max_seq"])
+                                for n in GEMMA2_PROMPTS}
+                    if b >= 1024 and jax_takes_its_kernel(b, cfg.hd))
+    results, k2_calls = {}, {}
+    for mode in MODES:
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        engine = E.DecodeEngine(params, cfg, device=dev,
+                                cuda_graphs=mode == "graphed", **kw)
+        rec = (first_calls(L, "flash_decode_attention", k2_calls)
+               if mode == "eager" else contextlib.nullcontext())
+        with rec:
+            passes = serve_passes(engine, prompts, sp, counters, plains,
+                                  2 if mode == "graphed" else 1, "15b",
+                                  lambda: timed_prefills(counters))
+        last = passes[-1]
+        per_step = decode_per_step(last)
+        graphs = graph_per_step(engine) if mode == "graphed" else {}
+        k3 = last["launches"]["K3_flash_prefill"]
+        if (per_step != want or any(g != want for g in graphs.values())
+                or k3 != k3_groups * cfg.num_layers
+                or not all(len(o) == GEMMA2_NEW for o in last["outs"])):
+            raise AssertionError(f"15b {mode}: per decode step {per_step}, "
+                                 f"graphs {graphs}, expected {want}; K3 {k3}"
+                                 f", expected {k3_groups} x {cfg.num_layers}")
+        if mode == "eager":
+            k2_err = [k2_against_plain(K2, a, kw2, "15b")
+                      for a, kw2 in k2_calls.values()]
+            k2_shapes = [[list(x) for x in key if isinstance(x, tuple)]
+                         for key in k2_calls]
+        results[mode] = {"passes": passes, "per_step": per_step,
+                         "graphs": graphs, "graph_stats": engine.graph_stats(),
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2 ** 30}
+        del engine
+    for mode in MODES:
+        r = results[mode]
+        emit({"phase": "serve", "model": "gemma2_9b", "mode": mode,
+              "layers": cfg.num_layers, "batch": 8,
+              "max_seq": kw["max_seq"], "steps_per_sync": GEMMA2_CHUNK,
+              "prompt_lens": GEMMA2_PROMPTS, "new_tokens": GEMMA2_NEW,
+              "decode_step_ms": r["passes"][-1]["decode_step_ms"],
+              "decode_tokens_per_s":
+                  r["passes"][-1]["decode_tokens_per_s"],
+              "passes": [pass_line(p) for p in r["passes"]],
+              "prefill_groups": r["passes"][-1]["extra"],
+              "launches_per_decode_step": r["per_step"],
+              "graph_launches_per_step": r["graphs"],
+              "graphs": r["graph_stats"],
+              "max_memory_allocated_gib": r["peak_gib"]})
+    e, g = results["eager"]["passes"][-1], results["graphed"]["passes"]
+    for i, p in enumerate(g):
+        if p["outs"] != e["outs"]:
+            raise AssertionError(f"15b: graphed pass {i + 1}'s greedy "
+                                 "tokens differ from the eager pass's")
+    emit({"phase": "gemma2_serve_compare", "model": "gemma2_9b",
+          "greedy_tokens_identical": True,
+          "derived_per_step": want, "k3_groups": k3_groups,
+          "k2_against_plain": {"shapes": k2_shapes, "rel_err": k2_err,
+                               "tol": K2_TOL},
+          "decode_step_ms": {m: results[m]["passes"][-1]["decode_step_ms"]
+                             for m in MODES},
+          "param_bytes": tensor_bytes(params),
+          "t_s": time.perf_counter() - t_phase})
+    del params
+    free_memory()
+    return e["launches"]
+
+
+def phase_mistral_ring(dev, counters, plains):
+    """15c: Mistral-7B at full width (every layer windowed at 4,096), its
+    first ``RING_LAYERS`` layers, NF4-quantized normal weights drawn on the
+    card, the bf16 runtime cache, B = 8, ``max_seq`` 8,192, 32-step
+    chunks: ``ring_kv=True`` (a 4,224-entry ring: decode attention in torch
+    under the ring mask, no K2) and the plain int8 cache (K2), both
+    graphed (twice, the first pass captures), on ``RING_PROMPTS`` with
+    ``RING_NEW`` greedy tokens, so that every slot's ring rolls. The ring
+    against the plain cache, both teacher-forced on the ring's tokens: its
+    logits within E2E_TOL of the plain cache's, and its greedy tokens equal
+    to the plain cache's greedy choice on the same prefix up to a first
+    difference at a top-2 gap below ``RING_TIE_GAP``. The bf16 cache keeps
+    K4's per-row A8 codes out of the matmuls, where a sum-order difference
+    in one activation can move a whole row's codes (off the packed bytes
+    the two reads differed by 7.7e-2 at 8 layers on the chip). K2 at 4-5K
+    keys: each layer's first call of the plain cache's teacher-forced run
+    against the chain it computes (``layers.gqa_attention_kv_quant``,
+    K2_CHAIN_TOL). K2 launches: one a layer and step on the plain cache,
+    none on the ring. Returns {path: launches} of the timed passes."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.engine.kvcache import KVCache
+    from tpu_bitsandbytes_torch.engine.sampler import SamplingParams
+    from tpu_bitsandbytes_torch.models import llama as L
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(L.LlamaConfig.mistral_7b(),
+                              num_layers=RING_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(715)
+    params = L.build_runtime_cache(normal_nf4_params(
+        cfg, lambda s: torch.randn(s, generator=gen, device=dev), dev),
+        "bf16", drop_packed=True)
+    rng = np.random.default_rng(716)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in RING_PROMPTS]
+    sp = SamplingParams(max_new_tokens=RING_NEW)
+    kw = dict(max_batch=8, max_seq=RING_MAX_SEQ, steps_per_sync=32)
+    res, kv_bytes, ring_size = {}, {}, None
+    for name, ring in (("ring", True), ("plain", False)):
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        engine = E.DecodeEngine(params, cfg, device=dev, ring_kv=ring, **kw)
+        c = engine.cache
+        kv_bytes[name] = sum(t.numel() * t.element_size()
+                             for t in (c.k, c.v, c.k_scale, c.v_scale))
+        if ring:
+            ring_size = engine.ring_size
+            if not (c.ring and c.max_seq == ring_size
+                    and all(n + RING_NEW - 1 > ring_size
+                            for n in RING_PROMPTS)
+                    and sum(n > ring_size for n in RING_PROMPTS) >= 2):
+                raise AssertionError(f"15c: a ring of {c.max_seq} "
+                                     f"({ring_size}) for prompts "
+                                     f"{RING_PROMPTS} + {RING_NEW}")
+        del c
+        passes = serve_passes(engine, prompts, sp, counters, plains, 2,
+                              f"15c {name}")
+        last = passes[-1]
+        steps = last["decode_steps"]
+        k2 = last["launches"]["K2_flash_decode"]
+        if k2 != (0 if ring else cfg.num_layers * steps):
+            raise AssertionError(f"15c {name}: {k2} K2 launches for {steps} "
+                                 "decode steps")
+        if passes[0]["outs"] != last["outs"]:
+            raise AssertionError(f"15c {name}: the passes' tokens differ")
+        res[name] = {"passes": passes, "graphs": engine.graph_stats(),
+                     "graph_keys": [str(k) for k in engine.graph_keys()],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del engine
+        free_memory()
+    ring_outs = res["ring"]["passes"][-1]["outs"]
+    forced, k2_calls = {}, []
+    for name, ring, ctx in (
+            ("ring", ring_size, contextlib.nullcontext()),
+            ("plain", None, recorded_calls(L, "flash_decode_attention",
+                                           k2_calls))):
+        cache = KVCache.create(cfg.num_layers, 8, RING_MAX_SEQ,
+                               cfg.num_kv_heads, cfg.hd, device=dev,
+                               ring_size=ring)
+        with ctx:
+            forced[name] = teacher_forced(params, cfg, dev, prompts,
+                                          ring_outs, RING_MAX_SEQ, cache)
+        if k2_calls:
+            # the first decode step's calls, one a layer: their cache
+            # entries up to each slot's position are as they were then
+            k2_check = k2_against_chain(k2_calls[:cfg.num_layers], "15c")
+        del cache, k2_calls[:]
+        free_memory()
+    ref = forced["plain"]
+    forced_err = err(forced["ring"], ref)[1]
+    ref_outs = ref.argmax(-1).T.tolist()        # its greedy choice per row
+    compared, stops = token_rule(ring_outs, ref_outs, ref, "15c",
+                                 RING_TIE_GAP)
+    if not forced_err <= E2E_TOL:
+        raise AssertionError(f"15c: the ring's teacher-forced logits "
+                             f"{forced_err} of max|ref| off the plain "
+                             f"cache's (E2E_TOL {E2E_TOL})")
+    plain_outs = res["plain"]["passes"][-1]["outs"]
+    same = sum(a == b for o, u in zip(plain_outs, ring_outs)
+               for a, b in zip(o, u)) / sum(map(len, ring_outs))
+    emit({"phase": "ring_serve", "model": "mistral_7b",
+          "layers": cfg.num_layers, "batch": 8, "max_seq": RING_MAX_SEQ,
+          "runtime_cache": "bf16", "window": cfg.sliding_window,
+          "ring_size": ring_size, "prompt_lens": RING_PROMPTS,
+          "new_tokens": RING_NEW, "kv_bytes": kv_bytes,
+          "decode_step_ms": {n: r["passes"][-1]["decode_step_ms"]
+                             for n, r in res.items()},
+          "passes": {n: [pass_line(p) for p in r["passes"]]
+                     for n, r in res.items()},
+          "graphs": {n: r["graphs"] for n, r in res.items()},
+          "graph_keys": {n: r["graph_keys"] for n, r in res.items()},
+          "max_memory_allocated_gib": {n: r["peak_gib"]
+                                       for n, r in res.items()},
+          "teacher_forced_rel_err": forced_err, "tol": E2E_TOL,
+          "tokens_compared": compared, "tie_stops": stops,
+          "tie_gap": RING_TIE_GAP,
+          "k2_at_4_5k_keys": k2_check,
+          "plain_tokens_equal_to_ring_share": same,
+          "t_s": time.perf_counter() - t_phase})
+    del params
+    free_memory()
+    return {f"mistral_7b_{RING_LAYERS}l_{n}": r["passes"][-1]["launches"]
+            for n, r in res.items()}
+
+
+def phase_verify_k4(dev, counters, plains, workload):
+    """15d: phase 6's model (Llama-2-13B, its first 10 layers, off the
+    packed bytes) and phase 5's prompts and sampling, served graphed with
+    ``speculative="ngram"``, gamma 4, B = 8: the verify step sends its
+    matmuls to K4 at M = B x (gamma + 1) = 40 (phase 2 times K4 at those
+    shapes). The first K4 call at each M = 40 shape (five: qkv, o,
+    gate/up, down, lm_head) against its plain version (K4_TOL); at least
+    ``SPEC_SAME_FLOOR`` of the greedy tokens equal to the plain graphed
+    engine's on the same model; the verify steps' ms. Returns (the
+    speculative pass's launches, the M = 40 check for the kernels
+    line)."""
+    from tpu_bitsandbytes_torch.engine import engine as E
+    from tpu_bitsandbytes_torch.ops import w4a8 as K4
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    t_phase = time.perf_counter()
+    cfg, params, prompts, sp, kw = workload
+    free_memory()
+    plain = E.DecodeEngine(params, cfg, device=dev, **kw)
+    plain_outs = plain.generate(prompts, sp, pipeline_depth=1)
+    del plain
+    free_memory()
+    eng = E.DecodeEngine(params, cfg, device=dev, speculative="ngram",
+                         spec_gamma=SPEC_GAMMA, **kw)
+    eng.metrics = MetricsLogger()
+    calls = {}
+    reset(counters, plains)
+    with first_calls(K4, "w4a8_mm", calls):
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, sp)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    launches = counts(counters)
+    no_plain_calls(plains, "15d")
+    stats = dict(eng.spec_stats)
+    verify_ms = [m.wall_s * 1e3 for m in eng.metrics.history]
+    m40 = {key: c for key, c in calls.items() if key[0][0] == VERIFY_M}
+    rows = []
+    for key, (a, kw2) in m40.items():
+        got, ref = K4.w4a8_mm(*a, **kw2), K4.w4a8_mm_plain(*a, **kw2)
+        torch.cuda.synchronize()
+        r = err(got, ref)
+        if not (r[1] <= K4_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"15d K4 {key}: rel err {r[1]}")
+        rows.append({"shape": [list(x) for x in key if isinstance(x, tuple)],
+                     "max_abs_err": r[0], "rel_err": r[1]})
+    same = sum(a == b for o, u in zip(outs, plain_outs)
+               for a, b in zip(o, u))
+    same_share = same / sum(len(u) for u in plain_outs)
+    if (len(m40) != 5 or not stats["verify_steps"]
+            or not same_share >= SPEC_SAME_FLOOR):
+        raise AssertionError(f"15d: {len(m40)} K4 shapes at M = "
+                             f"{VERIFY_M}, {stats}, greedy share "
+                             f"{same_share} (floor {SPEC_SAME_FLOOR})")
+    del eng, calls, m40
+    free_memory()
+    emit({"phase": "verify_k4", "model": "llama2_13b",
+          "layers": cfg.num_layers, "batch": 8, "spec_gamma": SPEC_GAMMA,
+          "m": VERIFY_M, "prompt_lens": PACKED_PROMPTS,
+          "new_tokens": sp.max_new_tokens, "generate_s": gen_s,
+          "spec_stats": stats, "verify_ms_mean": sum(verify_ms)
+          / len(verify_ms), "verify_ms_min": min(verify_ms),
+          "greedy_tokens_equal_to_plain_share": same_share,
+          "greedy_share_floor": SPEC_SAME_FLOOR, "k4_against_plain": rows,
+          "k4_tol": K4_TOL, "launches": launches,
+          "t_s": time.perf_counter() - t_phase})
+    return launches, {"served_shapes": rows,
+                      "max_abs_err": max(r["max_abs_err"] for r in rows),
+                      "max_rel_err": max(r["rel_err"] for r in rows)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5180,7 +5789,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [phase_kernels_k1(K1, gen, dev, bw, int8_peak),
-               phase_kernels_k2(K2, gen, dev, bw, int8_peak),
+               phase_kernels_k2(K2, gen, dev, bw),
                phase_kernels_k3(K3, gen, dev, bw, bf16_peak),
                phase_kernels_k4(K4, gen, dev, bw, int8_peak),
                phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak)]
@@ -5194,15 +5803,22 @@ def main() -> int:
     phase_end("2")
     # 4. Llama-2-7B through the int4 cache
     by_path = {}
-    by_path["llama2_7b_int4"], outs_7b, forced_7b = phase_serve(
+    by_path["llama2_7b_int4"], outs_7b, forced_7b, work_7b = phase_serve(
         dev, counters, plains)
     torch.cuda.empty_cache()
 
     phase_end("4")
+    # 15a. the compact-window stage on phase 4's model and requests
+    *work_7b, step_ms_7b = work_7b
+    by_path["llama2_7b_window_stage"] = phase_window_stage(
+        dev, counters, plains, *work_7b, outs_7b, step_ms_7b)
+    del work_7b
+    free_memory()
+    phase_end("15a")
     # 5. Llama-2-13B off the packed bytes
     workload = packed_workload(dev)
     by_path["llama2_13b_packed"], k2_bound_13b = phase_serve_packed(
-        dev, counters, plains, bw, int8_peak, workload)
+        dev, counters, plains, bw, workload)
     torch.cuda.empty_cache()
 
     phase_end("5")
@@ -5216,10 +5832,17 @@ def main() -> int:
     # first 10 layers
     by_path["llama2_13b_auto_int8"] = phase_auto(
         dev, counters, plains, cut_depth(workload, REQUESTS_LAYERS))
-    del workload
     free_memory()
 
     phase_end("8")
+    # 15d. the speculative verify on the same model off the packed bytes:
+    # K4 at M = 40
+    by_path["llama2_13b_10l_verify"], m40 = phase_verify_k4(
+        dev, counters, plains, cut_depth(workload, REQUESTS_LAYERS))
+    kernels[3]["verify_m40"].update(m40)
+    del workload
+    free_memory()
+    phase_end("15d")
     # 7. the engine's lifecycle on phase 4's model
     by_path["llama2_7b_lifecycle"], verify_k1 = phase_lifecycle(
         dev, counters, plains, outs_7b)
@@ -5257,12 +5880,12 @@ def main() -> int:
     phase_chunked_prefill(dev, counters)
     torch.cuda.empty_cache()
     phase_end("3")
-    moe_cpu, g2_cpu = mixtral_2l_cpu(dev), gemma2_cpu(dev)
+    moe_cpu, g2_cpu = mixtral_cpu(dev), gemma2_cpu(dev)
     res_7b = phase_mesh_7b(world_7b, outs_7b, forced_7b, smi)
-    by_path["mixtral_2l"] = phase_mixtral_2l(dev, counters, plains, K2,
+    by_path["mixtral_1l"] = phase_mixtral_cpu(dev, counters, plains, K2,
                                              moe_cpu)
     by_path["gemma2_9b_2l"], g2_rows = phase_gemma2(
-        dev, counters, plains, bw, bf16_peak, int8_peak, K2, K3, g2_cpu)
+        dev, counters, plains, bw, bf16_peak, K2, K3, g2_cpu)
     del moe_cpu, g2_cpu
     kernels[1]["gemma2_9b_decode_layers"] = g2_rows["K2"]
     kernels[2]["gemma2_9b_prefill_layers"] = g2_rows["K3"]
@@ -5290,12 +5913,19 @@ def main() -> int:
     # 14. the perplexity gate on the card, and the host packer
     by_path["proxy_gate"] = phase_proxy(dev, counters, plains, smi)
     phase_host_packer(dev, smi)
+    phase_end("14")
+    # 15b. Gemma2-9B at its 42 layers off the packed bytes; 15c. Mistral-7B's
+    # ring KV cache at full width against the plain cache
+    free_memory()
+    by_path["gemma2_9b_42l_packed"] = phase_gemma2_serve(dev, counters,
+                                                         plains, K2)
+    by_path.update(phase_mistral_ring(dev, counters, plains))
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on a path")
-    phase_end("14")
+    phase_end("15")
     emit({"phase": "script_wall", "seconds": time.perf_counter() - t_script,
           "seconds_at_end_of_phase": ends})
     emit({"kernels": kernels})

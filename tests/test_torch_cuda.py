@@ -10,8 +10,8 @@ use.) Inputs come from numpy seeds; the same tensors run the plain version
 on the CPU and the kernel on the card.
 
 Tolerances, as shares of max|ref|: K1 and K4 1e-5 (the int32 block dots
-are exact, only the f32 sum order differs); K2 1e-3 (an exp that rounds
-differently on the card can flip one p code); K5 1e-5 in f32 (exact
+are exact, only the f32 sum order differs); K2 1e-3 (f32 sums in
+another order, a probability whose bf16 rounding flips); K5 1e-5 in f32 (exact
 products, f32 sums in another order) and 1e-4 in bf16 (the same bf16
 operands, each weight rounded once, f32 sums in another order: a weight
 rounded twice or to f16 would miss it);
@@ -374,6 +374,28 @@ def test_flash_decode_all_masked_slot_beside_live_ones(cuda):
     assert rel_err(got, ref) <= 1e-3
 
 
+@pytest.mark.parametrize("t", [4200, 8192])
+def test_flash_decode_matches_chain_at_long_span(cuda, t):
+    """K2 computes the staged chain ``gqa_attention_kv_quant`` (the JAX
+    package's default decode attention): at 4,200 and 8,192 keys, rep 4,
+    with q sharp enough that most probabilities are far below the row's
+    max (where int8 probability codes lose their mass), K2's f32 output
+    rounded to bf16 is within one bf16 ulp of the largest output of the
+    chain's bf16 output on the card (2^-7 of max|ref|)."""
+    from tpu_bitsandbytes_torch.models import layers
+    q, cache, stage, rng = _k2_inputs(t + 1, 2, 16, 4, 128, t, 16)
+    q = (q.float() * 12.0).to(torch.bfloat16).to(cuda)
+    kv = [x.to(cuda) for x in cache]
+    st = (*(x.to(cuda) for x in stage), 5)
+    off = torch.tensor([t - 11, t // 2 + 5], dtype=torch.int32, device=cuda)
+    got = K2.flash_decode_attention(q, *kv, off, staged=st)
+    ref = layers.gqa_attention_kv_quant(q[:, None], *kv,
+                                        causal_offset=off[:, None],
+                                        staged=st)[:, 0]
+    torch.cuda.synchronize()
+    assert rel_err(got.to(torch.bfloat16), ref) <= 2.0 ** -7
+
+
 def test_flash_decode_cluster_plan(cuda):
     """The CTAs per cluster come from the shape and the card: a 128-key
     span takes one, the 7B and 13B decode steps (B=8, span 384 / 1920)
@@ -459,7 +481,7 @@ def _prefill_decode(params, cfg, dev, prompts, fed=None, max_seq=64):
         logits.append(lg)
     toks = torch.stack(logits).argmax(-1).to(torch.int32).cpu()
     active = torch.ones((len(prompts),), dtype=torch.bool, device=dev)
-    cache.begin_stage(4)
+    cache.begin_stage(4, window=False)
     fed_out, launches = [], []
     for i in range(4):
         t_in = toks if fed is None else fed[i]
@@ -1070,7 +1092,7 @@ def test_packed_path_card_matches_cpu(cuda):
             logits.append(lg)
         toks = torch.stack(logits).argmax(-1).to(torch.int32).cpu()
         active = torch.ones((3,), dtype=torch.bool, device=dev)
-        cache.begin_stage(4)
+        cache.begin_stage(4, window=False)
         fed_out, launches = [], []
         for i in range(4):
             t_in = toks if fed is None else fed[i]
@@ -1983,3 +2005,102 @@ def test_host_packer_matches_quantize_4bit_on_the_card(cuda):
         np.testing.assert_array_equal(packed.reshape(-1), tp.cpu().numpy())
         np.testing.assert_array_equal(absmax.reshape(-1),
                                       ts.absmax.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the compact-window stage
+# ---------------------------------------------------------------------------
+
+def test_flash_decode_over_the_window_is_the_two_block_call(cuda):
+    """K2 fed a compact window's head (its main block, at the span's
+    positions) and tail (its staged block) computes bit for bit what it
+    computes over the cache's span view and the two-block stage: the same
+    bytes at the same positions, the same T and C, so the same cluster
+    plan. Llama-2-7B's heads, a span of 512 from position 128."""
+    b, h, h_kv, d, s, c, span, start = 4, 32, 32, 128, 1024, 8, 640, 128
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    caches = []
+    for window in (True, False):
+        cache = KVCache.create(1, b, s, h_kv, d, device=cuda)
+        gen.manual_seed(15)
+        cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=gen,
+                                    device=cuda, dtype=torch.int8))
+        cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=gen,
+                                    device=cuda, dtype=torch.int8))
+        cache.k_scale.uniform_(0.5, 3.0, generator=gen)
+        cache.v_scale.uniform_(0.5, 3.0, generator=gen)
+        cache.lengths.copy_(torch.tensor([300, 511, 200, 620],
+                                         dtype=torch.int32))
+        cache.begin_stage(c, span=span, start=start, window=window)
+        for _ in range(3):
+            k, v = (torch.randn((b, 1, h_kv, d), generator=gen, device=cuda)
+                    for _ in range(2))
+            cache.write_decode(0, k, v, cache.lengths)
+            cache.lengths += 1
+            cache.advance_stage()
+        caches.append(cache)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    outs = []
+    for cache in caches:
+        st = cache.stage
+        if st.cut:
+            kq, ks, vq, vs = (x[:, :, :st.cut] for x in cache.read_window(0))
+        else:
+            kq, ks, vq, vs = cache.read_raw(0, span, start)
+        before = K2.flash_decode_attention.launches
+        outs.append(K2.flash_decode_attention(
+            q, kq, ks, vq, vs, cache.lengths, staged=cache.read_stage(0),
+            kpos_start=start, window=256, softcap=50.0))
+        assert K2.flash_decode_attention.launches == before + 1
+    assert caches[0].stage.cut == span - start
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_graphed_window_chunk_reads_nothing_back(cuda):
+    """``DecodeEngine(window_stage=True)``: the span copy into the window
+    is device work inside the chunk's graph, which replays under the
+    synchronizing-operation check set to raise; its greedy tokens are the
+    two-block engine's (K2 reads the same bytes either way)."""
+    cfg, params = _graph_model(False)
+    prompts = _prompts([30, 9, 50], cfg.vocab_size)
+    toks = np.array([5, 6, 7, 0], np.int32)
+    active = np.array([True, True, True, False])
+    outs = {}
+    for window in (True, False):
+        eng = E.DecodeEngine(llama.to_device(params, cuda), cfg, max_batch=4,
+                             steps_per_sync=8, device=cuda,
+                             window_stage=window)
+        assert eng.window_stage is window
+        outs[window] = eng.generate(prompts, SamplingParams(max_new_tokens=12))
+        if not window:
+            continue
+        eng.run_chunk(toks, active, all_greedy=True, attn_span=128)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng.run_chunk(toks, active, all_greedy=True, attn_span=128)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert out[0].shape == (8, 4)
+        assert eng.cache.window_bytes() > 0
+    assert outs[True] == outs[False]
+
+
+def test_graphed_gemma_chunk_matches_eager(cuda):
+    """A Gemma-family decode chunk (scaled embeddings, post norms,
+    softcaps, windows) captures as a CUDA graph: nothing in it copies from
+    the host, and its greedy tokens are the eager chunk's."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny_gemma2(),
+                              max_seq_len=256)
+    gen = torch.Generator().manual_seed(9)
+    params = llama.to_device(llama.quantize_params(
+        llama.init_params(cfg, generator=gen, device="cpu"),
+        fuse_projections=True), cuda)
+    prompts = _prompts([30, 9, 50], cfg.vocab_size)
+    outs = []
+    for graphs in (True, False):
+        eng = E.DecodeEngine(params, cfg, max_batch=4, steps_per_sync=8,
+                             device=cuda, cuda_graphs=graphs)
+        outs.append(eng.generate(prompts, SamplingParams(max_new_tokens=12)))
+        assert eng.graph_stats()["graphs"] == (1 if graphs else 0)
+    assert outs[0] == outs[1]

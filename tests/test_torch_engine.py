@@ -88,7 +88,7 @@ def test_bf16_decode_logits_match_jax_flash_branch(monkeypatch):
             np.asarray(jl)).max()
         toks.append(int(np.argmax(np.asarray(jl))))
     jc = jc.begin_stage(4, window=False)
-    tc = tc.begin_stage(4)
+    tc = tc.begin_stage(4, window=False)
     # decode_step's own jit donates the cache, whose stage shares the
     # lengths buffer (len0); the same step, jitted without donation
     j_step = jax.jit(JE._decode_step_impl,

@@ -49,7 +49,7 @@ def test_stage_and_flush_match():
     rng = np.random.default_rng(0)
     j, t = _prefilled(rng, [5, 20, 29])
     j = j.begin_stage(C, window=False)
-    t = t.begin_stage(C)
+    t = t.begin_stage(C, window=False)
     for step in range(C):
         active = np.array([step < 3, True, step < 2])
         for li in range(L):
@@ -76,7 +76,7 @@ def _chunk(j, t, rng, c, active_at):
     """One staged chunk of ``c`` decode steps through both caches, slot b
     active at step i where ``active_at(i)[b]``; returns both, unflushed."""
     j = j.begin_stage(c, window=False)
-    t = t.begin_stage(c)
+    t = t.begin_stage(c, window=False)
     for step in range(c):
         active = np.asarray(active_at(step))
         for li in range(L):
@@ -135,19 +135,19 @@ def test_begin_stage_reuses_its_buffers():
     same buffers, its step reset to 0 and ``len0`` copied in place."""
     rng = np.random.default_rng(3)
     _, t = _prefilled(rng, [4, 9, 1])
-    t.begin_stage(C)
+    t.begin_stage(C, window=False)
     ptrs = [x.data_ptr() for x in (t.stage.k, t.stage.v, t.stage.k_scale,
                                    t.stage.v_scale, t.stage.len0)]
     for _ in range(2):
         t.advance_stage()
     t.lengths += 2
     t.flush_stage()
-    t.begin_stage(C)
+    t.begin_stage(C, window=False)
     assert t.stage.step == 0
     assert [x.data_ptr() for x in (t.stage.k, t.stage.v, t.stage.k_scale,
                                    t.stage.v_scale, t.stage.len0)] == ptrs
     assert t.stage.len0.tolist() == [6, 11, 3]
-    assert t.begin_stage(1).stage is not t.stages[C]
+    assert t.begin_stage(1, window=False).stage is not t.stages[C]
     assert set(t.stages) == {C, 1}
 
 
@@ -176,5 +176,6 @@ def test_write_decode_scatter_and_read_raw():
 def test_stage_longer_than_cache_is_a_no_op():
     t = TKV.create(L, B, S, H, D, device="cpu")
     assert t.begin_stage(S + 1).stage is None
+    assert t.begin_stage(S + 1, window=False).stage is None
     assert JKV.create(L, B, S, H, D).begin_stage(S + 1,
                                                 window=False).stage is None

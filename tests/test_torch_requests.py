@@ -330,7 +330,7 @@ def test_unquantized_cache_matches_jax(dtype):
         j = j.write_prefill(li, 1, jnp.asarray(k), jnp.asarray(v))
         t = t.write_prefill(li, 1, torch.from_numpy(k), torch.from_numpy(v))
     j = j.begin_stage(4, window=False)
-    t = t.begin_stage(4)
+    t = t.begin_stage(4, window=False)
     assert j.stage is None and t.stage is None
     lens = np.array([3, 20, 9], np.int32)
     for li in range(L_):

@@ -197,6 +197,47 @@ def row_linear(mesh, c):
                              lw.blocksize, lw.quant_type)}
 
 
+@case
+def window_chunk(mesh, c):
+    """Each of c["prompts"] prefilled into its slot of an int8 KV cache
+    through make_tp_prefill_step, then greedy decode chunks of
+    make_tp_decode_chunk over [c["start"], c["span"]), staged in a compact
+    window (``window_stage=True``) and in two blocks, each from that
+    state: each mode's tokens [steps, B] and flushed lengths."""
+    import torch
+    from tpu_bitsandbytes_torch import parallel as TP
+    from tpu_bitsandbytes_torch.engine.kvcache import KVCache
+    from tpu_bitsandbytes_torch.engine.sampler import SamplingArrays
+    params, cfg = _model(c)
+    local = TP.shard_params(params, mesh)
+    tp = TP.mesh.axis_size(mesh, "tp")
+    prompts = c["prompts"]
+    b = len(prompts)
+    out = {}
+    for window in (True, False):
+        cache = KVCache.create(cfg.num_layers, b, c["max_seq"],
+                               cfg.num_kv_heads // tp, cfg.hd,
+                               dtype=cfg.dtype, device="cpu")
+        pre = TP.make_tp_prefill_step(mesh, local, cfg, cache)
+        first = []
+        for slot, pr in enumerate(prompts):
+            toks = torch.zeros((1, c["pad"]), dtype=torch.int32)
+            toks[0, :len(pr)] = torch.tensor(pr, dtype=torch.int32)
+            logits, cache = pre(local, cache, toks, slot, len(pr))
+            first.append(logits.argmax())
+        dec = TP.make_tp_decode_chunk(mesh, local, cfg, cache,
+                                      n_steps=c["steps"])
+        toks_seq, _, cache, *_ = dec(
+            local, cache, torch.stack(first).to(torch.int32),
+            torch.ones((b,), dtype=torch.bool), None,
+            SamplingArrays.build({}, b, device="cpu"), None,
+            all_greedy=True, attn_span=c["span"], attn_start=c["start"],
+            window_stage=window)
+        out[window] = {"tokens": toks_seq.numpy(),
+                       "lengths": cache.lengths.numpy()}
+    return out
+
+
 def builder_run(params, cfg, c, mesh=None):
     """One request prefilled into slot 0, a 3-step greedy decode chunk, a
     verify step, and a second request's chunked prefill into slot 1 with

@@ -1,50 +1,55 @@
 // K2: single-token GQA attention over the int8 KV cache, for Hopper (sm_90a).
 //
-// Replaces tpu_bitsandbytes/ops/flash_decode.py:_kernel (pallas_call at
-// :188) and computes exactly what it does, for one (slot b, kv head) serving
-// its REP query heads:
-//   * q rows are quantized to int8: q_s = max|q| + 1e-9,
-//     q_i8 = round(q * (127 / q_s));
-//   * logit = dot_i32(q_i8, k) * (q_s * scale / 127^2) * k_scale, optional
+// Takes the place of tpu_bitsandbytes/ops/flash_decode.py:_kernel
+// (pallas_call at :188), one launch per layer, and computes what the JAX
+// package's default decode attention computes
+// (models/layers.py:gqa_attention_kv_quant, staged=), for one (slot b, kv
+// head) serving its REP query heads:
+//   * logit = dot_f32(q, k) * (k_scale * scale / 127): q as given (an int8
+//     code is exact in every float type), products exact, f32 sums; optional
 //     softcap; the main block keeps kpos <= off - step - 1 (and the window),
 //     the staged block keeps j <= step; masked logits are -1e30, so a row
 //     with every entry masked gives uniform p, never NaN;
-//   * one max and one denominator over both blocks; pv = p * v_scale is
-//     quantized per block to [0, 127] with s_p = max(pv) + 1e-30;
-//   * out = (dot_i32(pv_i8, v) * s_p + dot_i32(pvs_i8, st_v) * s_ps)
-//           / (l * 127^2).
-// Rounding is rintf (half to even, like jnp.round); exp is expf.
+//   * one max m and one denominator l over both blocks, p = exp(logit - m);
+//   * pv = p * (v_scale / 127), rounded to q's dtype when q is bf16 or f16
+//     (the default chain's PV operand), kept in f32 for f32 q;
+//   * out = dot_f32(pv, v) / l over both blocks. An unstaged call (step =
+//     -1, a fully masked staged block) divides p by l before pv is rounded
+//     and not after, as the chain's unstaged branch (a softmax) does.
+// The JAX package's Pallas kernel quantizes p to int8 against its row max
+// instead; at a few thousand keys the many small probabilities round to
+// codes 0-2 and their mass leaves the PV sum, so this kernel keeps p in
+// float as the default chain does.
 //
 // Bound on the H100: the bytes of the keys the masks keep, 2*H_kv*(D+4) per
 // kept key (codes plus f32 scales of K and V; chip_smoke.k2_bound_ms), against
-// ~4*H*D int8 operations per key: bandwidth-bound. The engine passes the span
-// of its longest slot, so a short slot's span is mostly masked keys.
+// ~4*H*D float operations per key on the CUDA cores: bandwidth-bound. The
+// engine passes the span of its longest slot, so a short slot's span is
+// mostly masked keys.
 //
 // Design. Each block derives from off[b], step, window and kpos_start the
 // interval of main keys the masks keep and reads K, V and scales only there,
 // plus the C staged keys: a masked key's p is exp(-1e30 - m) = 0, which adds
-// nothing to l, to the pv maxima or to the PV sums. The one exception is a
-// slot whose every key is masked (main and staged): there m = -1e30 and p = 1
-// over all T + C keys, so the interval is the whole span. The slot's kept keys
-// and its staged block, in that order, are split evenly over a cluster of S
-// CTAs (S <= 8, chosen on the host from the shape and the card by
-// tbnb_flash_decode_plan, never from off, so one CUDA graph serves every
-// step). The three quantities that join the
-// shares are exchanged through distributed shared memory between
-// cluster.sync()s: the max m (exact in any order), then l and the two pv
-// maxima s_p, s_ps (maxima exact; l an f32 sum in another order than the TPU
-// kernel's). Each CTA quantizes its own p codes and forms int32 PV sums; the
-// outputs are spread over the ranks, each adding the S int32 partials in
-// rank order (exact) before the f32 epilogue. One launch per layer, no
-// global scratch, no allocation, no synchronization with the host.
-// A CTA's time is a chain of dependent steps (load, reduce, cluster.sync),
-// so each loop keeps U = 4 key rows per thread in flight. QK: D/16 lanes per
-// key row, 16-byte loads, __dp4a partials reduced with shuffles. Softmax
-// passes: all eight warps, 8/REP per head, partials combined in warp order.
-// PV: a thread owns 16 contiguous columns of one V row (16-byte loads) and
-// keeps REP x 16 int32 sums, reduced with shuffles and shared-memory integer
-// adds (exact, so their order does not matter). Shared memory per CTA holds
-// the logits of its share only: REP x ceil((T + C) / S) floats.
+// nothing to l or to the PV sums. The one exception is a slot whose every key
+// is masked (main and staged): there m = -1e30 and p = 1 over all T + C keys,
+// so the interval is the whole span. The slot's kept keys and its staged
+// block, in that order, are split evenly over a cluster of S CTAs (S <= 8,
+// chosen on the host from the shape and the card by tbnb_flash_decode_plan,
+// never from off, so one CUDA graph serves every step). The max m and the
+// denominator l are exchanged through distributed shared memory between
+// cluster.sync()s. Every sum runs in a fixed order (shuffle trees, warps in
+// order, ranks in order), so the same inputs give the same bits on every
+// launch. A CTA's time is a chain of dependent steps (load, reduce,
+// cluster.sync), so each loop keeps U = 4 key rows per thread in flight.
+// QK: D/16 lanes per key row, 16-byte loads of codes, q rows in shared memory
+// as f32, partials reduced with shuffles. Softmax passes: all eight warps,
+// 8/REP per head, partials combined in warp order. PV: a thread owns 16
+// contiguous columns of one V row (16-byte loads) and keeps REP x 16 f32
+// sums, reduced with shuffles, then over the warps in order, then over the
+// ranks in order. An int8 code becomes a float by its bits (0x4B0000xx is
+// 2^23 + xx), two full-rate instructions. Shared memory per CTA holds the
+// logits of its share, REP x ceil((T + C) / S) floats, and the warps' PV
+// partials, 8 x REP x D floats.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -65,8 +70,7 @@ constexpr int U = 4;            // key rows a thread has in flight in the QK and
 constexpr int RED = NWARPS;     // softmax partials per quantity: [REP][WPH], REP * WPH <= 8
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory one CTA may use
-constexpr int NSTAT = 6;        // per head: q scale, local max, l main, l staged, pv maxima
-constexpr int NGLOB = 5;        // per head: l, s_p, s_ps, 127/s_p, 127/s_ps
+constexpr int NSTAT = 2;        // per head, read by the cluster: local max, local l
 
 struct Strides {
   long long b, h, t;
@@ -83,7 +87,7 @@ struct Params {
   int Hkv, T, C, D, S, per;  // per: logits one CTA holds per head
   Strides kv, sc, skv, ssc;
   int step, kpos_start, window;
-  float softcap, lg_c;
+  float softcap, lg_c;  // lg_c = scale / 127
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -98,11 +102,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ int dot16(const int4 a, const int4 b) {
-  int d = __dp4a(a.x, b.x, 0);
-  d = __dp4a(a.y, b.y, d);
-  d = __dp4a(a.z, b.z, d);
-  return __dp4a(a.w, b.w, d);
+// the 16 int8 codes of v as floats, exactly: (w ^ 0x80808080) holds code + 128
+// per byte; 0x4B0000xx is the float 2^23 + xx
+__device__ __forceinline__ void codes16(const int4 v, float (&f)[16]) {
+  const unsigned w[4] = {(unsigned)v.x ^ 0x80808080u, (unsigned)v.y ^ 0x80808080u,
+                         (unsigned)v.z ^ 0x80808080u, (unsigned)v.w ^ 0x80808080u};
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    f[k] = __int_as_float((int)__byte_perm(w[k >> 2], 0x4B000000u, 0x7440u | (k & 3))) -
+           8388736.0f;
 }
 
 __device__ __forceinline__ float load_q(const Params& p, long long i) {
@@ -113,34 +121,27 @@ __device__ __forceinline__ float load_q(const Params& p, long long i) {
   }
 }
 
-__host__ __device__ constexpr size_t pad16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-// acc[r][c16*16 ..] += the REP x 16 sums of every thread that owns column
-// group c16: shuffles inside the warp, then shared-memory integer adds.
-template <int REP>
-__device__ __forceinline__ void flush_pv(int (&a)[REP][16], int* acc, int D, int c16, int cpr) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      int v = a[r][k];
-      for (int o = cpr; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane < cpr) atomicAdd(&acc[r * D + c16 * 16 + k], v);
-      a[r][k] = 0;
-    }
+// pv as the default chain feeds its PV product: in q's dtype
+__device__ __forceinline__ float round_pv(float x, int q_dtype) {
+  switch (q_dtype) {
+    case 1: return __bfloat162float(__float2bfloat16_rn(x));
+    case 2: return __half2float(__float2half_rn(x));
+    default: return x;
+  }
 }
 
+__host__ __device__ constexpr size_t pad16(size_t n) { return (n + 15) & ~(size_t)15; }
+
 template <int REP>
-__device__ __forceinline__ void add_pv(int (&a)[REP][16], const int4 v, const int* code, int per,
-                                       int li) {
-  const int w[4] = {v.x, v.y, v.z, v.w};
+__device__ __forceinline__ void add_pv(float (&a)[REP][16], const int4 v, const float* pv,
+                                       int per, int li) {
+  float f[16];
+  codes16(v, f);
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
-    const int c = code[r * per + li];
+    const float c = pv[r * per + li];
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      a[r][k] += c * static_cast<int>(static_cast<int8_t>(w[k >> 2] >> (8 * (k & 3))));
+    for (int k = 0; k < 16; ++k) a[r][k] = fmaf(c, f[k], a[r][k]);
   }
 }
 
@@ -158,15 +159,14 @@ __global__ void __launch_bounds__(THREADS, REP <= 2 ? 5 : 1) flash_decode_kernel
   const int H = p.Hkv * REP;
 
   float* lg = reinterpret_cast<float*>(smem);  // [REP][PER]: logits, then pv
-  int* code = reinterpret_cast<int*>(smem);    // the same buffer: p codes
   size_t o = pad16((size_t)REP * PER * 4);
-  int8_t* qi8 = reinterpret_cast<int8_t*>(smem + o);  // [REP][D]
-  o += pad16((size_t)REP * D);
-  int* acc = reinterpret_cast<int*>(smem + o);  // [2][REP][D]: main, staged
-  o += (size_t)2 * REP * D * 4;
+  float* qf = reinterpret_cast<float*>(smem + o);  // [REP][D]
+  o += (size_t)REP * D * 4;
+  float* part = reinterpret_cast<float*>(smem + o);  // [NWARPS][REP][D]; [0] read by the cluster
+  o += (size_t)NWARPS * REP * D * 4;
   float* st = reinterpret_cast<float*>(smem + o);  // [REP][NSTAT], read by the cluster
-  float* gs = st + REP * NSTAT;                    // [REP][NGLOB]
-  float* red = gs + REP * NGLOB;                   // [4][RED]: softmax partials
+  float* gl = st + REP * NSTAT;                    // [REP]: the cluster's l
+  float* red = gl + REP;                           // [2][RED]: softmax partials
   constexpr int WPH = REP >= NWARPS ? 1 : NWARPS / REP;  // warps per head
 
   // the main keys the masks keep: t in [t_lo, t_hi); the staged ones j in [j_lo, j_hi)
@@ -197,19 +197,10 @@ __global__ void __launch_bounds__(THREADS, REP <= 2 ? 5 : 1) flash_decode_kernel
   const float* sksb = p.stks + b * p.ssc.b + hk * p.ssc.h;
   const float* svsb = p.stvs + b * p.ssc.b + hk * p.ssc.h;
 
-  // 1. quantize the REP query rows (one warp per row); zero the PV sums
-  for (int i = tid; i < 2 * REP * D; i += THREADS) acc[i] = 0;
-  if (warp < REP) {
-    const long long qrow = b * p.q_sb + (hk * REP + warp) * p.q_sh;
-    float mx = 0.f;
-    for (int d = lane; d < D; d += 32) mx = fmaxf(mx, fabsf(load_q(p, qrow + d)));
-    mx = warp_max(mx);
-    const float q_s = mx + 1e-9f;
-    const float inv = 127.0f / q_s;
-    for (int d = lane; d < D; d += 32)
-      qi8[warp * D + d] =
-          (int8_t)fminf(fmaxf(rintf(load_q(p, qrow + d) * inv), -127.f), 127.f);
-    if (lane == 0) st[warp * NSTAT + 0] = q_s * p.lg_c;
+  // 1. the REP query rows as f32
+  for (int i = tid; i < REP * D; i += THREADS) {
+    const int r = i / D, d = i - r * D;
+    qf[i] = load_q(p, b * p.q_sb + (hk * REP + r) * p.q_sh + d);
   }
   __syncthreads();
 
@@ -240,10 +231,21 @@ __global__ void __launch_bounds__(THREADS, REP <= 2 ? 5 : 1) flash_decode_kernel
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int li = base + u * per_pass + tid / lpt;
-        int dots[REP];
+        float kf[16];
+        codes16(k16[u], kf);
+        float dots[REP];
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
-          int d = dot16(k16[u], *reinterpret_cast<const int4*>(qi8 + r * D + sub * 16));
+          const float4* q4 = reinterpret_cast<const float4*>(qf + r * D + sub * 16);
+          float d = 0.f;
+#pragma unroll
+          for (int k4 = 0; k4 < 4; ++k4) {
+            const float4 qv = q4[k4];
+            d = fmaf(qv.x, kf[4 * k4], d);
+            d = fmaf(qv.y, kf[4 * k4 + 1], d);
+            d = fmaf(qv.z, kf[4 * k4 + 2], d);
+            d = fmaf(qv.w, kf[4 * k4 + 3], d);
+          }
           for (int o2 = lpt >> 1; o2 >= 1; o2 >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o2);
           dots[r] = d;
         }
@@ -259,9 +261,10 @@ __global__ void __launch_bounds__(THREADS, REP <= 2 ? 5 : 1) flash_decode_kernel
             keep = j <= p.step;
             if (p.window > 0) keep = keep && j > p.step - p.window;
           }
+          const float kscale = ksc[u] * p.lg_c;
 #pragma unroll
           for (int r = 0; r < REP; ++r) {
-            float x = (float)dots[r] * st[r * NSTAT + 0] * ksc[u];
+            float x = dots[r] * kscale;
             if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
             lg[r * PER + li] = keep ? x : -1e30f;
           }
@@ -286,93 +289,63 @@ __global__ void __launch_bounds__(THREADS, REP <= 2 ? 5 : 1) flash_decode_kernel
   if (tid < REP) {
     float mx = -INFINITY;
     for (int w = 0; w < WPH; ++w) mx = fmaxf(mx, red[tid * WPH + w]);
-    st[tid * NSTAT + 1] = mx;
+    st[tid * NSTAT + 0] = mx;
   }
   cluster.sync();
 
-  // 4. p and pv = p * v_scale of the share; its sums and pv maxima per block
+  // 4. p and its sum over the share
   if (head < REP) {
-    const float m = warp_max(lane < S ? cluster.map_shared_rank(st, lane)[head * NSTAT + 1]
+    const float m = warp_max(lane < S ? cluster.map_shared_rank(st, lane)[head * NSTAT + 0]
                                       : -INFINITY);
-    float lm = 0.f, ls = 0.f, pm = 0.f, ps = 0.f;
+    float l = 0.f;
     for (int li = seg * 32 + lane; li < cnt; li += WPH * 32) {
       const float pr = expf(lg[head * PER + li] - m);
-      float pv;
-      if (li < m_end) {
-        lm += pr;
-        pv = pr * vsb[(long long)(i0 + li) * p.sc.t];
-        pm = fmaxf(pm, pv);
-      } else {
-        ls += pr;
-        pv = pr * svsb[(long long)(i0 + li - nmain) * p.ssc.t];
-        ps = fmaxf(ps, pv);
-      }
-      lg[head * PER + li] = pv;
+      l += pr;
+      lg[head * PER + li] = pr;
     }
-    lm = warp_sum(lm);
-    ls = warp_sum(ls);
-    pm = warp_max(pm);
-    ps = warp_max(ps);
-    if (lane == 0) {
-      float* rr = red + head * WPH + seg;
-      rr[0] = lm;
-      rr[RED] = ls;
-      rr[2 * RED] = pm;
-      rr[3 * RED] = ps;
-    }
+    l = warp_sum(l);
+    if (lane == 0) red[RED + head * WPH + seg] = l;
   }
   __syncthreads();
   if (tid < REP) {
-    float lm = 0.f, ls = 0.f, pm = 0.f, ps = 0.f;
-    for (int w = 0; w < WPH; ++w) {
-      const float* rr = red + tid * WPH + w;
-      lm += rr[0];
-      ls += rr[RED];
-      pm = fmaxf(pm, rr[2 * RED]);
-      ps = fmaxf(ps, rr[3 * RED]);
-    }
-    float* s2 = st + tid * NSTAT;
-    s2[2] = lm;
-    s2[3] = ls;
-    s2[4] = pm;
-    s2[5] = ps;
+    float l = 0.f;
+    for (int w = 0; w < WPH; ++w) l += red[RED + tid * WPH + w];
+    st[tid * NSTAT + 1] = l;
   }
   cluster.sync();
 
-  // 5. the cluster's l, s_p and s_ps; this share's p codes
-  if (warp < REP) {
-    const float* s2 = lane < S ? cluster.map_shared_rank(st, lane) + warp * NSTAT : nullptr;
-    const float lm = warp_sum(s2 ? s2[2] : 0.f), ls = warp_sum(s2 ? s2[3] : 0.f);
-    const float pm = warp_max(s2 ? s2[4] : 0.f), ps = warp_max(s2 ? s2[5] : 0.f);
-    if (lane == 0) {
-      float* g = gs + warp * NGLOB;
-      const float s_p = pm + 1e-30f, s_ps = ps + 1e-30f;
-      g[0] = lm + ls;
-      g[1] = s_p;
-      g[2] = s_ps;
-      g[3] = 127.0f / s_p;
-      g[4] = 127.0f / s_ps;
-    }
+  // 5. the cluster's l, the ranks' sums in rank order; pv = p * v_scale /
+  //    127 rounded to q's dtype, p divided by l first in an unstaged call
+  //    (step < 0), as the chain's unstaged softmax normalizes before its
+  //    PV operand is rounded
+  const bool norm = p.step < 0;
+  if (tid < REP) {
+    float l = 0.f;
+    for (int q = 0; q < S; ++q) l += cluster.map_shared_rank(st, q)[tid * NSTAT + 1];
+    gl[tid] = l;
   }
   __syncthreads();
   for (int idx = tid; idx < REP * cnt; idx += THREADS) {
     const int r = idx / cnt, li = idx - r * cnt;
-    const float c = rintf(lg[r * PER + li] * gs[r * NGLOB + (li < m_end ? 3 : 4)]);
-    code[r * PER + li] = (int)fminf(fmaxf(c, 0.f), 127.f);
+    const float vsc = li < m_end ? vsb[(long long)(i0 + li) * p.sc.t]
+                                 : svsb[(long long)(i0 + li - nmain) * p.ssc.t];
+    const float pr = norm ? lg[r * PER + li] / gl[r] : lg[r * PER + li];
+    lg[r * PER + li] = round_pv(pr * __fdiv_rn(vsc, 127.0f), p.q_dtype);
   }
   __syncthreads();
 
   // 6. PV: a thread owns 16 columns of one V row, U rows in flight; main
-  //    keys, then staged
+  //    keys, then staged; its sums reduced over the warp's rows by shuffles,
+  //    then over the warps in order
   {
     const int cpr = D >> 4;  // threads per row
     const int c16 = tid % cpr;
     const int rows = THREADS / cpr;
-    int a[REP][16];
+    float a[REP][16];
 #pragma unroll
     for (int r = 0; r < REP; ++r)
 #pragma unroll
-      for (int k = 0; k < 16; ++k) a[r][k] = 0;
+      for (int k = 0; k < 16; ++k) a[r][k] = 0.f;
     for (int li = tid / cpr; li < m_end; li += U * rows) {
       int4 v[U];
 #pragma unroll
@@ -383,39 +356,45 @@ __global__ void __launch_bounds__(THREADS, REP <= 2 ? 5 : 1) flash_decode_kernel
                    : make_int4(0, 0, 0, 0);
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (li + u * rows < m_end) add_pv<REP>(a, v[u], code, PER, li + u * rows);
+        if (li + u * rows < m_end) add_pv<REP>(a, v[u], lg, PER, li + u * rows);
     }
-    flush_pv<REP>(a, acc, D, c16, cpr);
     for (int li = m_end + tid / cpr; li < cnt; li += rows)
       add_pv<REP>(a,
                   *reinterpret_cast<const int4*>(svbase + (long long)(i0 + li - nmain) * p.skv.t +
                                                  c16 * 16),
-                  code, PER, li);
-    flush_pv<REP>(a, acc + REP * D, D, c16, cpr);
+                  lg, PER, li);
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        float v = a[r][k];
+        for (int o2 = cpr; o2 < 32; o2 <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o2);
+        if (lane < cpr) part[(warp * REP + r) * D + c16 * 16 + k] = v;
+      }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < REP * D; idx += THREADS) {
+    float s = part[idx];
+    for (int w = 1; w < NWARPS; ++w) s += part[w * REP * D + idx];
+    part[idx] = s;
   }
   cluster.sync();
 
-  // 7. epilogue, spread over the ranks: the S int32 partials in rank order,
-  //    then /127 for the p codes and /127 for the v codes
+  // 7. epilogue, spread over the ranks: the S partial sums in rank order,
+  //    then / l where p was not normalized
   for (int idx = rank * THREADS + tid; idx < REP * D; idx += S * THREADS) {
     const int r = idx / D, d = idx - r * D;
-    int am = 0, as = 0;
-    for (int q = 0; q < S; ++q) {
-      const int* ra = cluster.map_shared_rank(acc, q);
-      am += ra[r * D + d];
-      as += ra[(REP + r) * D + d];
-    }
-    const float* g = gs + r * NGLOB;
-    const float o2 = (float)am * g[1] + (float)as * g[2];
-    p.out[((size_t)b * H + hk * REP + r) * D + d] = o2 / (g[0] * 16129.0f);
+    float s = 0.f;
+    for (int q = 0; q < S; ++q) s += cluster.map_shared_rank(part, q)[idx];
+    p.out[((size_t)b * H + hk * REP + r) * D + d] = norm ? s : s / gl[r];
   }
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
 size_t smem_bytes(int rep, int T, int C, int D, int S) {
   const size_t per = ((size_t)T + C + S - 1) / S;
-  return pad16((size_t)rep * per * 4) + pad16((size_t)rep * D) + (size_t)2 * rep * D * 4 +
-         (size_t)rep * (NSTAT + NGLOB) * 4 + (size_t)4 * RED * 4;
+  return pad16((size_t)rep * per * 4) + (size_t)rep * D * 4 + (size_t)NWARPS * rep * D * 4 +
+         (size_t)rep * (NSTAT + 1) * 4 + (size_t)2 * RED * 4;
 }
 
 template <int REP>

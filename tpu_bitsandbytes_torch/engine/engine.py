@@ -93,14 +93,19 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
                  attn_span: Optional[int] = None,
                  seen_mask: Optional[torch.Tensor] = None,
                  want_logprobs: bool = False, attn_start: int = 0,
-                 tp=None):
+                 tp=None, window_stage: bool = True):
     """Advance every slot up to ``n_steps`` tokens without reading anything
     back to the host; a slot that emits its EOS, or reaches ``max_seq - 1``,
     goes inactive on the device and its later emissions carry
-    ``active=False``. Staged like the JAX package's
-    ``decode_chunk(window_stage=False)``. The whole chunk (stage reset,
-    steps, sampling, flush) can be captured in one CUDA graph; the Python
-    loop unrolls into it as JAX's scan runs its body ``n_steps`` times.
+    ``active=False``. The whole chunk (stage reset, steps, sampling, flush)
+    can be captured in one CUDA graph; the Python loop unrolls into it as
+    JAX's scan runs its body ``n_steps`` times.
+
+    ``window_stage`` (the JAX package's default, True): an int8 cache
+    stages the chunk in a compact window, a copy of the span
+    ``[attn_start, attn_span)`` followed by the staged tokens
+    (``KVCache.begin_stage(window=True)``); False stages the tokens alone,
+    attended beside the span as a second block.
 
     ``seen_mask`` bool [B, V]: each slot's seen tokens, which turns on the
     repetition penalty (``samp.rep_pen``; greedy rows too); it is updated in
@@ -114,7 +119,8 @@ def decode_chunk(params, cache: KVCache, tokens: torch.Tensor,
     """
     max_seq = cache.max_positions or cache.max_seq   # the absolute bound
     rows = torch.arange(tokens.shape[0], device=tokens.device)
-    cache.begin_stage(n_steps)
+    cache.begin_stage(n_steps, span=attn_span, start=attn_start,
+                      window=window_stage)
     toks_seq, act_seq, lp_seq = [], [], []
     for _ in range(n_steps):
         logits, cache = decode_step(params, cache, tokens, active, config,
@@ -405,7 +411,8 @@ class DecodeEngine:
                  speculative: Optional[str] = None, spec_gamma: int = 4,
                  prefill_chunk: Optional[int] = None,
                  ring_kv: bool = False, drop_packed="auto",
-                 device="cuda", cuda_graphs: bool = True, mesh=None):
+                 device="cuda", cuda_graphs: bool = True, mesh=None,
+                 window_stage: bool = False):
         """``params`` must live on ``device``. ``quantized_kv``: an int8 KV
         cache (staged within a decode chunk); False keeps K/V in the
         config's dtype (the JAX package's exact-attention mode).
@@ -462,7 +469,15 @@ class DecodeEngine:
         :func:`~..parallel.sharding.interleave_fused`).
         ``max_batch`` must divide by dp and the head counts by tp. CUDA
         graphs under a mesh need NCCL groups (the graph holds the
-        collectives): ``cuda_graphs=True`` on a gloo mesh raises."""
+        collectives): ``cuda_graphs=True`` on a gloo mesh raises.
+
+        ``window_stage``: stage each decode chunk in a compact window
+        (:func:`decode_chunk`'s ``window_stage``; the JAX engine's
+        ``TBNB_WINDOW_STAGE=1``). It holds only for an int8 cache that is
+        not a ring, and where the footprint plus the window buffers (the
+        KV cache's bytes times ``(max_seq + steps_per_sync) / max_seq``)
+        fits 0.92 of the device's memory; elsewhere the mode is off.
+        ``self.window_stage`` says which was taken."""
         if prefill_chunk is not None and prefill_chunk < 16:
             raise ValueError("prefill_chunk must be >= 16")
         if speculative not in (None, "ngram"):
@@ -580,6 +595,15 @@ class DecodeEngine:
         self._out_ring: List[tuple] = []
         self._graphs = (ChunkGraphs(self.device)
                         if cuda_graphs and pin else None)
+        # the JAX engine's gate: the window buffers must fit beside the
+        # rest of the footprint
+        self.window_stage = (bool(window_stage) and quantized_kv
+                             and not self.cache.ring)
+        if self.window_stage:
+            est = self.footprint()
+            win = est["kv"] * (self.max_seq + self.steps_per_sync
+                               ) / self.max_seq
+            self.window_stage = est["total"] + win <= 0.92 * est["budget"]
         self._uid = 0
         self.waiting: List[Request] = []
         self.active: Dict[int, Request] = {}   # slot -> request
@@ -680,11 +704,13 @@ class DecodeEngine:
         (``budget``: a card's total memory, the host's RAM for a CPU
         engine) and ``fits`` (total within 0.92 of it). Under a mesh,
         what this rank's device holds: its weight shards and its KV cache.
-        Render it with
+        ``kv`` counts the compact-window stage's buffers once a chunk has
+        allocated them (``window_stage``). Render it with
         :func:`~tpu_bitsandbytes_torch.utils.metrics.format_footprint`."""
         c = self.cache
-        kv = sum(t.numel() * t.element_size()
-                 for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)
+        kv = c.window_bytes() + sum(
+            t.numel() * t.element_size()
+            for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)
         return self._footprint_from(param_footprint(self.params),
                                     c.quantized, kv_bytes_actual=kv)
 
@@ -1051,7 +1077,7 @@ class DecodeEngine:
                 all_greedy=all_greedy, attn_span=attn_span,
                 seen_mask=self._seen if penalty else None,
                 want_logprobs=want_logprobs, attn_start=attn_start,
-                tp=self._tp)
+                tp=self._tp, window_stage=self.window_stage)
             self._tokens.copy_(last)
             self._active.copy_(live)
             if self._tp is not None:        # every dp group's slots

@@ -10,13 +10,18 @@ cache's tensors in place and returns the cache itself, so
 ``cache = cache.write_decode(...)`` reads the same in both.
 
 Within a decode chunk, new tokens go to a per-chunk stage at one uniform
-index per step (:meth:`KVCache.begin_stage`), and attention reads the stage
-as a second key block; :meth:`KVCache.flush_stage` moves the chunk's valid
-tokens into the main cache at the end of the chunk. The stage is allocated
-once per chunk length and reset in place, and the flush runs on the
-device without reading anything back, so a whole chunk can be captured in
-a CUDA graph. An unquantized cache has no stage (as in the JAX package):
-decode writes scatter into it.
+index per step (:meth:`KVCache.begin_stage`); :meth:`KVCache.flush_stage`
+moves the chunk's valid tokens into the main cache at the end of the chunk.
+The two-block stage (``window=False``) holds the staged tokens alone, and
+attention reads it as a second key block beside the cache's span. The
+compact-window stage (``window=True``, the JAX package's default) holds a
+copy of the span ``[start, span)`` followed by the staged tokens, and
+attention reads that window as one block (:meth:`KVCache.read_window`).
+The stage buffers are allocated once per chunk length (a window's at the
+widest window, ``max_seq + C`` entries, viewed per span) and reset in place,
+and the span copy and the flush run on the device without reading anything
+back, so a whole chunk can be captured in a CUDA graph. An unquantized
+cache has no stage (as in the JAX package): decode writes scatter into it.
 
 A ring cache (``create(ring_size=)``, for models whose every layer has a
 sliding window) keeps only the last ``ring`` positions: absolute position
@@ -35,17 +40,25 @@ import torch
 
 @dataclasses.dataclass
 class KVStage:
-    """Per-chunk staging buffers: entry j of slot b holds the token that
-    slot wrote at chunk step j (absolute position ``len0[b] + j``). Entries
-    past ``step`` hold an earlier chunk's tokens: attention masks them and
-    the flush never writes them."""
+    """Per-chunk staging buffers: tail entry j of slot b (index ``cut + j``)
+    holds the token that slot wrote at chunk step j (absolute position
+    ``len0[b] + j``). Tail entries past ``step`` hold an earlier chunk's
+    tokens: attention masks them and the flush never writes them. In the
+    compact-window mode (``cut > 0``) entries ``[0, cut)`` hold a copy of
+    the main cache's span ``[start, span)``, taken at the chunk's start."""
 
-    k: torch.Tensor          # int8 [L, B, H, C, D]
+    k: torch.Tensor          # int8 [L, B, H, cut + C, D]
     v: torch.Tensor
-    k_scale: torch.Tensor    # f32 [L, B, H, C]
+    k_scale: torch.Tensor    # f32 [L, B, H, cut + C]
     v_scale: torch.Tensor
     step: int                # next write index in [0, C)
     len0: torch.Tensor       # int32 [B], slot lengths at chunk start
+    cut: int = 0             # the window's span copy (0: two-block stage)
+
+    @property
+    def size(self) -> int:
+        """Staged capacity C (chunk steps), the window's copy excluded."""
+        return self.k.shape[3] - self.cut
 
 
 @dataclasses.dataclass
@@ -59,10 +72,17 @@ class KVCache:
     # max_positions is the absolute bound (None in plain mode)
     ring: bool = False
     max_positions: Optional[int] = None
+    # the dtype :meth:`read` dequantizes to (the model's)
+    dtype: torch.dtype = torch.bfloat16
     stage: Optional[KVStage] = None
-    # chunk length -> its stage, allocated at the first begin_stage
+    # chunk length -> its two-block stage, allocated at the first
+    # begin_stage(window=False)
     stages: Dict[int, KVStage] = dataclasses.field(default_factory=dict,
                                                    repr=False)
+    # chunk length -> its window stage's buffers (k, v, k_scale, v_scale)
+    # at the widest window, max_seq + C entries, and its len0
+    windows: Dict[int, tuple] = dataclasses.field(default_factory=dict,
+                                                  repr=False)
 
     @classmethod
     def create(cls, num_layers: int, batch: int, max_seq: int,
@@ -79,7 +99,7 @@ class KVCache:
         shape = (num_layers, batch, num_kv_heads, s_axis, head_dim)
         lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
         mode = dict(lengths=lengths, ring=ring,
-                    max_positions=max_seq if ring else None)
+                    max_positions=max_seq if ring else None, dtype=dtype)
         if not quantized:
             return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device),
@@ -105,34 +125,70 @@ class KVCache:
         return self.k.shape[2]
 
     # -- chunk staging --------------------------------------------------
-    def begin_stage(self, n_steps: int) -> "KVCache":
-        """Open an ``n_steps``-entry stage (the JAX package's
-        ``begin_stage(window=False)``); a no-op when ``n_steps`` exceeds
-        the cache length. The stage of each ``n_steps`` is allocated once
-        and reused: beginning resets its step index to 0 and copies the
+    def begin_stage(self, n_steps: int, span: Optional[int] = None,
+                    start: int = 0, window: bool = True) -> "KVCache":
+        """Open an ``n_steps``-entry stage, as the JAX package's
+        ``begin_stage``: a no-op when ``n_steps`` exceeds the cache length,
+        and for an unquantized or a ring cache.
+
+        ``window=True``: the compact-window stage. Its entries ``[0,
+        cut)``, ``cut = span - start`` (``span`` None: the whole cache),
+        are a copy of the main cache's positions ``[start, span)``, made on
+        the device here, and the ``n_steps`` staged entries follow; decode
+        attention reads the window as one block (:meth:`read_window`).
+        ``window=False``: the two-block stage of the staged entries alone,
+        read beside the cache's span (:meth:`read_stage`).
+
+        Each chunk length's buffers are allocated once and reused (a
+        window's at ``max_seq + n_steps`` entries, viewed at ``cut +
+        n_steps``): beginning resets the step index to 0 and copies the
         lengths into ``len0`` in place, so every chunk works on the same
-        buffers (what a captured chunk needs). A no-op for an unquantized
-        or a ring cache, as in the JAX package."""
-        l, b, h, s, d = self.k.shape
+        addresses (what a captured chunk needs)."""
+        s = self.max_seq
         if n_steps > s or not self.quantized or self.ring:
+            return self
+        if window:
+            hi = s if span is None else span
+            cut = hi - start
+            bufs = self.windows.get(n_steps)
+            if bufs is None:
+                bufs = self.windows[n_steps] = (
+                    *self._stage_buffers(s + n_steps),
+                    torch.empty_like(self.lengths))
+            *full, len0 = bufs
+            w = cut + n_steps
+            views = [x[:, :, :, :w] for x in full]
+            for view, main in zip(views, (self.k, self.v, self.k_scale,
+                                          self.v_scale)):
+                view[:, :, :, :cut].copy_(main[:, :, :, start:hi])
+            len0.copy_(self.lengths)
+            self.stage = KVStage(*views, step=0, len0=len0, cut=cut)
             return self
         st = self.stages.get(n_steps)
         if st is None:
-            dev = self.k.device
             st = self.stages[n_steps] = KVStage(
-                k=torch.zeros((l, b, h, n_steps, d), dtype=torch.int8,
-                              device=dev),
-                v=torch.zeros((l, b, h, n_steps, d), dtype=torch.int8,
-                              device=dev),
-                k_scale=torch.ones((l, b, h, n_steps), dtype=torch.float32,
-                                   device=dev),
-                v_scale=torch.ones((l, b, h, n_steps), dtype=torch.float32,
-                                   device=dev),
-                step=0, len0=torch.empty_like(self.lengths))
+                *self._stage_buffers(n_steps), step=0,
+                len0=torch.empty_like(self.lengths))
         st.step = 0
         st.len0.copy_(self.lengths)
         self.stage = st
         return self
+
+    def _stage_buffers(self, n: int):
+        """(k, v, k_scale, v_scale) stage buffers of ``n`` entries per slot
+        and head: zero codes, unit scales."""
+        l, b, h, _, d = self.k.shape
+        dev = self.k.device
+        codes = lambda: torch.zeros((l, b, h, n, d), dtype=torch.int8,
+                                    device=dev)
+        scales = lambda: torch.ones((l, b, h, n), dtype=torch.float32,
+                                    device=dev)
+        return codes(), codes(), scales(), scales()
+
+    def window_bytes(self) -> int:
+        """Device bytes of the window stages' buffers allocated so far."""
+        return sum(x.numel() * x.element_size()
+                   for bufs in self.windows.values() for x in bufs[:4])
 
     def advance_stage(self) -> "KVCache":
         """Bump the stage's write index (once per decode step)."""
@@ -142,15 +198,24 @@ class KVCache:
 
     def read_stage(self, layer: int):
         """(k [B,H,C,D], k_scale [B,H,C], v, v_scale, step) of a layer's
-        stage: the second key block of staged attention."""
+        staged entries (a window stage's tail, from ``cut`` on): the second
+        key block of two-block staged attention."""
         st = self.stage
-        return (st.k[layer], st.k_scale[layer], st.v[layer],
-                st.v_scale[layer], st.step)
+        c = st.cut
+        return (st.k[layer][:, :, c:], st.k_scale[layer][:, :, c:],
+                st.v[layer][:, :, c:], st.v_scale[layer][:, :, c:], st.step)
+
+    def read_window(self, layer: int):
+        """A window stage's whole window for a layer: (k [B,H,cut+C,D],
+        k_scale [B,H,cut+C], v, v_scale), views
+        (:func:`~..models.layers.gqa_attention_kv_window`)."""
+        st = self.stage
+        return st.k[layer], st.k_scale[layer], st.v[layer], st.v_scale[layer]
 
     def flush_stage(self) -> "KVCache":
         """Write each slot's valid staged tokens (the ``lengths - len0``
-        emitted this chunk) to positions ``len0 + j`` of the main cache and
-        close the stage.
+        emitted this chunk, from the stage's tail) to positions ``len0 +
+        j`` of the main cache and close the stage.
 
         The JAX package's branch-free read-modify-write overlay, on the
         device with no host read: for slot b and staged entry j, position
@@ -165,7 +230,7 @@ class KVCache:
         st = self.stage
         if st is None:
             return self
-        s, c = self.max_seq, st.k.shape[3]
+        s, c = self.max_seq, st.size
         dev = self.k.device
         j = torch.arange(c, device=dev)
         pos = torch.clamp(st.len0[:, None] + j, max=s - 1).long()   # [B, C]
@@ -174,9 +239,10 @@ class KVCache:
         for buf, staged in ((self.k, st.k), (self.v, st.v),
                             (self.k_scale, st.k_scale),
                             (self.v_scale, st.v_scale)):
-            # [L, B, H, C(, D)] -> [B, C, L, H(, D)], the layout of the
-            # gather below (its two index axes first)
-            new = staged.permute(1, 3, 0, 2, *range(4, staged.dim()))
+            # the tail, [L, B, H, C(, D)] -> [B, C, L, H(, D)], the layout
+            # of the gather below (its two index axes first)
+            new = staged[:, :, :, st.cut:].permute(
+                1, 3, 0, 2, *range(4, staged.dim()))
             cur = buf[:, rows, :, pos]
             mask = keep.reshape(keep.shape + (1,) * (cur.dim() - 2))
             buf[:, rows, :, pos] = torch.where(mask, new, cur)
@@ -246,9 +312,9 @@ class KVCache:
         """Write k_new/v_new [B, S, H, D] at ``positions`` ([B] with S == 1,
         or [B, S]) in place. Inside a decode chunk (``slots`` None, S == 1)
         an int8 cache takes the tokens into the stage at its uniform step
-        index. ``slots`` (int32 [R], or one slot as an int) sends row r to
-        cache slot ``slots[r]`` (batched and chunked prefill); duplicate
-        slots must carry identical rows. Positions at or past ``max_seq``
+        index (after a window's span copy). ``slots`` (int32 [R], or one
+        slot as an int) sends row r to cache slot ``slots[r]`` (batched and
+        chunked prefill); duplicate slots must carry identical rows. Positions at or past ``max_seq``
         are dropped (a final prefill chunk's padding, a verify step's
         drafts past the end)."""
         k_hm, v_hm = k_new.transpose(1, 2), v_new.transpose(1, 2)  # [B,H,S,D]
@@ -256,10 +322,11 @@ class KVCache:
         if st is not None and slots is None and k_new.shape[1] == 1:
             kq, ks = self._quant(k_hm)
             vq, vs = self._quant(v_hm)
-            st.k[layer, :, :, st.step] = kq[:, :, 0]
-            st.v[layer, :, :, st.step] = vq[:, :, 0]
-            st.k_scale[layer, :, :, st.step] = ks[:, :, 0]
-            st.v_scale[layer, :, :, st.step] = vs[:, :, 0]
+            at = st.cut + st.step
+            st.k[layer, :, :, at] = kq[:, :, 0]
+            st.v[layer, :, :, at] = vq[:, :, 0]
+            st.k_scale[layer, :, :, at] = ks[:, :, 0]
+            st.v_scale[layer, :, :, at] = vs[:, :, 0]
             return self
         if positions.dim() == 1:
             positions = positions[:, None]
@@ -321,6 +388,27 @@ class KVCache:
 
         return (view(self.k), view(self.k_scale), view(self.v),
                 view(self.v_scale))
+
+    def read(self, layer: int, span: Optional[int] = None, start: int = 0):
+        """Dequantized K and V of a layer's positions [start, span):
+        [B, span - start, H, D] each in the cache's dtype, token-major (the
+        :func:`~..models.layers.gqa_attention` operand layout); an
+        unquantized cache's values as they are. The JAX package's
+        compatibility read: the decode path reads :meth:`read_raw`."""
+        k, ks, v, vs = self._read(layer, slice(None), span, start)
+        if self.quantized:
+            k = (k.to(torch.float32) * (ks[..., None] / 127.0)).to(self.dtype)
+            v = (v.to(torch.float32) * (vs[..., None] / 127.0)).to(self.dtype)
+        return k.transpose(1, 2), v.transpose(1, 2)
+
+    def reset_slot(self, slot: int) -> "KVCache":
+        """Set ``slot``'s length to 0 (in place)."""
+        return self.set_length(slot, 0)
+
+    def set_length(self, slot: int, length: int) -> "KVCache":
+        """Set ``slot``'s length (in place)."""
+        self.lengths[slot] = length
+        return self
 
     def bytes_per_token(self) -> int:
         l, _, h, _, d = self.k.shape

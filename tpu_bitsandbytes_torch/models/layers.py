@@ -493,3 +493,53 @@ def gqa_attention_kv_quant(q, k_q, k_scale, v_q, v_scale, *,
     pv = rounded(probs * (v_scale / 127.0)[:, :, None, None, :])
     out = torch.einsum("bhrst,bhtd->bshrd", pv, v_q.to(f32))
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def gqa_attention_kv_window(q, k_q, k_scale, v_q, v_scale, *, cut: int,
+                            attn_start: int, len0: torch.Tensor, step: int,
+                            causal_offset: torch.Tensor, scale=None,
+                            window=None, softcap=None) -> torch.Tensor:
+    """Single-token attention over a decode chunk's compact window, one
+    block and one softmax (the JAX package's ``gqa_attention_kv_window``).
+
+    The window (``KVCache.read_window``) holds the main cache's positions
+    ``[attn_start, attn_start + cut)`` in front of the chunk's staged
+    tokens: q [B, 1, H, D]; k_q/v_q int8 [B, H_kv, cut + C, D]; k_scale/
+    v_scale f32 [B, H_kv, cut + C]; ``len0`` int32 [B], the slots' lengths
+    at the chunk's start; ``step`` the chunk step; ``causal_offset`` [B, 1]
+    the queries' positions. Key ``idx < cut`` sits at position ``attn_start
+    + idx`` and counts up to ``len0 - 1`` (the chunk's tokens are in the
+    tail, not yet in the cache); tail key ``idx >= cut`` sits at ``len0 +
+    idx - cut``; both up to the query's position and inside the layer's
+    ``window``. The same keys as :func:`gqa_attention_kv_quant`'s
+    ``staged=``, and its dtype policy: with half-precision q the
+    scale-folded probabilities are rounded to q's dtype before the PV
+    product (the JAX package's TPU path), f32 computes in f32.
+    """
+    b, s, h, d = q.shape
+    if s != 1:
+        raise ValueError("compact-window attention is decode-only (S == 1)")
+    h_kv, w = k_q.shape[1], k_q.shape[2]
+    rep = h // h_kv
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    f32 = torch.float32
+    cd = q.dtype if _half(q.dtype) else f32
+    qg = q.reshape(b, 1, h_kv, rep, d).to(f32)
+    lg = torch.einsum("bshrd,bhtd->bhrst", qg, k_q.to(f32))
+    lg = _softcap(lg * (k_scale * (scale / 127.0))[:, :, None, None, :],
+                  softcap)
+    idx = torch.arange(w, device=q.device)[None, :]
+    in_tail = idx >= cut
+    l0 = len0[:, None].to(torch.int64)
+    kpos = torch.where(in_tail, l0 + (idx - cut), attn_start + idx)  # [B, W]
+    off = causal_offset[:, :1].to(torch.int64)
+    keep = (kpos <= off) & (in_tail | (kpos <= l0 - 1))
+    if window is not None:
+        keep = keep & (kpos > off - window)
+    lg = torch.where(keep[:, None, None, None, :], lg,
+                     torch.full((), -1e30, dtype=f32, device=q.device))
+    p = torch.softmax(lg, dim=-1)
+    pv = (p * (v_scale / 127.0)[:, :, None, None, :]).to(cd).to(f32)
+    out = torch.einsum("bhrst,bhtd->bshrd", pv, v_q.to(f32))
+    return out.reshape(b, s, h, d).to(q.dtype)

@@ -22,8 +22,8 @@ import torch.utils.checkpoint
 
 from ..ops.flash_decode import flash_decode_attention
 from .layers import (QLinear4, apply_rope, gqa_attention, gqa_attention_hm,
-                     gqa_attention_kv_quant, layer_norm, linear_apply,
-                     rms_norm, rope_table)
+                     gqa_attention_kv_quant, gqa_attention_kv_window,
+                     layer_norm, linear_apply, rms_norm, rope_table)
 
 Params = Dict[str, Any]
 
@@ -301,9 +301,12 @@ def _moe_mlp(moe, x, config: LlamaConfig, wrap=_no_wrap,
 
 def _embed_tokens(params, tokens, config: LlamaConfig):
     x = params["embed"][tokens].to(config.dtype)
-    if config.scale_embeddings:         # Gemma: sqrt(H) rounded to the dtype
-        x = x * torch.tensor(config.hidden_size ** 0.5, dtype=config.dtype,
-                             device=x.device)
+    if config.scale_embeddings:
+        # Gemma: sqrt(H) rounded to the dtype, as a host scalar (a tensor
+        # copied to the device cannot be captured in a chunk's graph); the
+        # product of two values of the dtype is exact in f32, rounded once
+        x = x * float(torch.tensor(config.hidden_size ** 0.5,
+                                   dtype=config.dtype))
     return x
 
 
@@ -693,9 +696,14 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     ``max_seq`` are dropped. Routes as the JAX package routes: one token
     per slot over an int8 cache in a half-precision config attends through
     kernel K2
-    (:func:`~tpu_bitsandbytes_torch.ops.flash_decode.flash_decode_attention`);
-    an f32 config through :func:`gqa_attention_kv_quant` (``staged=``
-    inside a decode chunk), or over the dequantized cache outside one;
+    (:func:`~tpu_bitsandbytes_torch.ops.flash_decode.flash_decode_attention`,
+    one launch computing the staged chain :func:`gqa_attention_kv_quant`,
+    the JAX package's default there);
+    inside a compact-window chunk (``cache.stage.cut > 0``) K2 reads the
+    window's head as its main block and the tail as its staged block. An
+    f32 config attends through :func:`gqa_attention_kv_window` inside a
+    compact-window chunk, :func:`gqa_attention_kv_quant` (``staged=``)
+    inside a two-block one, or over the dequantized cache outside one;
     several queries per slot (a verify step, a slot's chunk) through
     :func:`gqa_attention_kv_quant` in half precision; an unquantized cache
     through :func:`gqa_attention_hm`. ``attn_span`` and ``attn_start``
@@ -724,16 +732,29 @@ def decode_layer(layer, x, cos, sin, positions, cache, li: int,
     else:
         cache = cache.write_decode(li, k, v, pos2d, slots=slot)
         kq, ks, vq, vs = cache.read_raw_slot(li, slot, attn_span, attn_start)
-    staged = cache.read_stage(li) if cache.stage is not None else None
+    st = cache.stage
+    staged = cache.read_stage(li) if st is not None else None
     kw = dict(window=_layer_window(config, li), scale=_attn_scale(config),
               softcap=config.attn_logit_softcap, kpos_start=attn_start)
     if not cache.quantized:
         attn = gqa_attention_hm(q, kq, vq, causal_offset=pos2d, ring=ring,
                                 **kw)
     elif half and slot is None and s == 1 and ring is None:
+        if st is not None and st.cut > 0:
+            # the window's head holds the span's bytes at the span's
+            # positions: K2 reads it as its main block, the tail staged
+            wk, wks, wv, wvs = cache.read_window(li)
+            c = st.cut
+            kq, ks, vq, vs = (wk[:, :, :c], wks[:, :, :c], wv[:, :, :c],
+                              wvs[:, :, :c])
         attn = flash_decode_attention(
             q[:, 0], kq, ks, vq, vs, positions, staged=staged,
             **kw)[:, None].to(q.dtype)
+    elif st is not None and st.cut > 0:
+        kw.pop("kpos_start")
+        attn = gqa_attention_kv_window(
+            q, *cache.read_window(li), cut=st.cut, attn_start=attn_start,
+            len0=st.len0, step=st.step, causal_offset=pos2d, **kw)
     elif staged is not None:
         attn = gqa_attention_kv_quant(q, kq, ks, vq, vs, causal_offset=pos2d,
                                       staged=staged, **kw)

@@ -2,11 +2,14 @@
 
 The port's decode attention for half-precision configs: one launch per layer
 in place of the dozen-odd launches of the staged chain
-(:func:`~tpu_bitsandbytes_torch.models.layers.gqa_attention_kv_quant`). It
-computes what the JAX package's Pallas flash-decode kernel computes: q and
-the v-scale-folded probabilities are quantized to int8 per row, both
-contractions are exact int32 dots, and the chunk's staged KV block joins
-the main span under one shared softmax (see ``csrc/flash_decode.cu``).
+(:func:`~tpu_bitsandbytes_torch.models.layers.gqa_attention_kv_quant`),
+computing that chain's arithmetic (the JAX package's default decode
+attention): f32 logits of q against the int8 codes, one softmax over the
+main span and the chunk's staged block, the v-scale-folded probabilities
+rounded to q's dtype for the PV product, f32 sums (see
+``csrc/flash_decode.cu``). It takes the place of the JAX package's Pallas
+flash-decode kernel, whose int8 probability codes lose the softmax's tail
+at long context.
 """
 
 from __future__ import annotations
@@ -23,56 +26,52 @@ __all__ = ["flash_decode_attention", "flash_decode_plain", "cluster_size",
 
 SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use
 _DUMMY_C = 8                 # staged keys the unstaged call masks out
-_MAX_KEYS = (2 ** 31 - 1) // (127 * 127)   # keys an int32 PV sum holds
+_HALF = (torch.bfloat16, torch.float16)
 
 
-def _127_over(t: torch.Tensor) -> torch.Tensor:
-    """127 / t as one f32 division (``127.0 / t`` in PyTorch multiplies
-    by the reciprocal, which can round differently)."""
-    return torch.full_like(t, 127.0) / t
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as one f32 division per element (``t / 127.0`` in PyTorch's
+    CUDA kernels multiplies by the reciprocal, which can round
+    differently)."""
+    return t / torch.full_like(t, 127.0)
 
 
 def flash_decode_plain(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v,
                        st_vs, step: int, *, scale: float,
                        window: Optional[int], kpos_start: int,
                        softcap: Optional[float]) -> torch.Tensor:
-    """Plain PyTorch version of K2, step for step the TPU kernel's
-    arithmetic; returns f32 [B, H, D]. The dots run in float64, where they
-    are exact for any cache length. Counts its calls on CUDA tensors in
+    """Plain PyTorch version of K2: the staged chain's arithmetic in f32,
+    the PV operand rounded to q's dtype when q is half precision; an
+    unstaged call (``step`` -1 over a fully masked staged block) divides p
+    by l before the rounding, as the chain's unstaged softmax does.
+    Returns f32 [B, H, D]. Counts its calls on CUDA tensors in
     ``flash_decode_plain.cuda_calls``."""
     if q.is_cuda:
         flash_decode_plain.cuda_calls += 1
+    f32 = torch.float32
     b, h, d = q.shape
     h_kv, t = k_q.shape[1], k_q.shape[2]
     c = st_k.shape[2]
     rep = h // h_kv
     dev = q.device
-    qf = q.to(torch.float32).reshape(b, h_kv, rep, d)
-    q_s = qf.abs().amax(dim=-1, keepdim=True) + 1e-9
-    q_i8 = torch.clamp(torch.round(qf * _127_over(q_s)), -127, 127)
-    lg_scale = q_s * (scale / (127.0 * 127.0))
+    qf = q.to(f32).reshape(b, h_kv, rep, d)
 
-    def qk(kq):
-        return torch.einsum("bhrd,bhtd->bhrt", q_i8.double(),
-                            kq.double()).to(torch.float32)
+    def logits(kq, ks):
+        lg = torch.einsum("bhrd,bhtd->bhrt", qf, kq.to(f32))
+        lg = lg * (ks * (scale / 127.0))[:, :, None, :]
+        return lg if softcap is None else torch.tanh(lg / softcap) * softcap
 
-    lg = qk(k_q) * lg_scale * k_scale[:, :, None, :]
-    if softcap is not None:
-        lg = torch.tanh(lg / softcap) * softcap
     kpos = kpos_start + torch.arange(t, device=dev)[None, :]
     keep = kpos <= off[:, None] - step - 1                     # [B, T]
     if window is not None:
         keep &= kpos > off[:, None] - window
-    lg = torch.where(keep[:, None, None, :], lg, torch.full_like(lg, -1e30))
-
-    lg_st = qk(st_k) * lg_scale * st_ks[:, :, None, :]
-    if softcap is not None:
-        lg_st = torch.tanh(lg_st / softcap) * softcap
+    neg = torch.full((), -1e30, dtype=f32, device=dev)
+    lg = torch.where(keep[:, None, None, :], logits(k_q, k_scale), neg)
     jst = torch.arange(c, device=dev)
     keep_st = jst <= step
     if window is not None:
         keep_st &= jst > step - window
-    lg_st = torch.where(keep_st, lg_st, torch.full_like(lg_st, -1e30))
+    lg_st = torch.where(keep_st, logits(st_k, st_ks), neg)
 
     m = torch.maximum(lg.amax(dim=-1, keepdim=True),
                       lg_st.amax(dim=-1, keepdim=True))
@@ -80,22 +79,16 @@ def flash_decode_plain(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v,
     p_st = torch.exp(lg_st - m)
     l = p.sum(dim=-1, keepdim=True) + p_st.sum(dim=-1, keepdim=True)
 
-    def pv_codes(pp, vs):
-        pv = pp * vs[:, :, None, :]
-        s_p = pv.amax(dim=-1, keepdim=True) + 1e-30
-        return torch.clamp(torch.round(pv * _127_over(s_p)), 0, 127), s_p
+    norm = step < 0
 
-    pv_i8, s_p = pv_codes(p, v_scale)
-    pvs_i8, s_ps = pv_codes(p_st, st_vs)
+    def pv(pp, vs, vq):
+        x = (pp / l if norm else pp) * _div127(vs)[:, :, None, :]
+        if q.dtype in _HALF:
+            x = x.to(q.dtype).to(f32)
+        return torch.einsum("bhrt,bhtd->bhrd", x, vq.to(f32))
 
-    def pv_dot(codes, vq):
-        return torch.einsum("bhrt,bhtd->bhrd", codes.double(),
-                            vq.double()).to(torch.float32)
-
-    out = pv_dot(pv_i8, v_q) * s_p
-    out = out + pv_dot(pvs_i8, st_v) * s_ps
-    out = out / (l * (127.0 * 127.0))
-    return out.reshape(b, h, d)
+    out = pv(p, v_scale, v_q) + pv(p_st, st_vs, st_v)
+    return (out if norm else out / l).reshape(b, h, d)
 
 
 _build.counter(flash_decode_plain, "cuda_calls")
@@ -167,10 +160,6 @@ def _kernel(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,
     if d < 16 or d > 512 or d & (d - 1):
         raise NotImplementedError(f"flash_decode: head_dim {d} (powers of "
                                   "two in [16, 512] supported)")
-    if max(t, c) > _MAX_KEYS:
-        raise NotImplementedError(f"flash_decode: {max(t, c)} keys in a "
-                                  f"block overflow its int32 PV sums (at "
-                                  f"most {_MAX_KEYS})")
     dev = q.device
     tensors = (k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs)
     if not all(x.is_cuda and x.device == dev for x in tensors):
@@ -205,7 +194,7 @@ def _kernel(q, k_q, k_scale, v_q, v_scale, off, st_k, st_ks, st_v, st_vs,
              *st_ks.stride(), int(step), int(kpos_start),
              0 if window is None else int(window),
              0.0 if softcap is None else float(softcap),
-             scale / (127.0 * 127.0),
+             scale / 127.0,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_decode")
     flash_decode_attention.launches += 1

@@ -223,23 +223,26 @@ def make_tp_decode_step(mesh, params, config: llama.LlamaConfig,
 def make_tp_decode_chunk(mesh, params, config: llama.LlamaConfig,
                          cache: KVCache, n_steps: int = 8):
     """``fn(params, cache, tokens, active, generator, samp, seen_mask,
-    all_greedy=False, attn_span=None, attn_start=0, want_logprobs=False)``:
-    :func:`~..engine.engine.decode_chunk` of ``n_steps`` on this rank's
-    shards, sampling on the device; inputs and outputs are the dp group's
-    slots (the engine gathers them over dp). The tp ranks of a dp group
-    hold identical logits after the lm_head's gather, so with generators
-    in one state they draw the same tokens."""
+    all_greedy=False, attn_span=None, attn_start=0, want_logprobs=False,
+    window_stage=True)``: :func:`~..engine.engine.decode_chunk` of
+    ``n_steps`` on this rank's shards (its KV heads staged in a compact
+    window by default, as the JAX package's chunk), sampling on the
+    device; inputs and outputs are the dp group's slots (the engine
+    gathers them over dp). The tp ranks of a dp group hold identical
+    logits after the lm_head's gather, so with generators in one state
+    they draw the same tokens."""
     ctx = TPContext(mesh, config)
 
     def chunk(params, cache, tokens, active, generator, samp, seen_mask,
               all_greedy=False, attn_span=None, attn_start=0,
-              want_logprobs=False):
+              want_logprobs=False, window_stage=True):
         return E.decode_chunk(params, cache, tokens, active, generator,
                               samp, config, n_steps=n_steps,
                               all_greedy=all_greedy, attn_span=attn_span,
                               seen_mask=seen_mask,
                               want_logprobs=want_logprobs,
-                              attn_start=attn_start, tp=ctx)
+                              attn_start=attn_start, tp=ctx,
+                              window_stage=window_stage)
 
     return chunk
 
