@@ -1600,6 +1600,34 @@ def kernel_launches(fn):
 MODES = ("graphed", "eager")
 
 
+def traced_chunks(engine) -> dict:
+    """The decode chunks (or verify steps) ``engine``'s tracer kept since
+    its ``start()``; stops it. ``chunks`` collected, the ``tokens`` they
+    emitted, ``s`` the host seconds of the serving loop outside its
+    admissions (each chunk's dispatch through its collection, the drains),
+    and ``per_chunk``, the step loop's (beside: a prefill chunk ran in its
+    step's admission, captured: it captured a graph, host s from its
+    dispatch through its collection)."""
+    tr = engine.tracer
+    tr.stop()
+    spans = tr.spans
+    collects = [x for x in spans if x.name == "engine.collect"]
+    top = [i for i, x in enumerate(spans) if x.parent < 0]
+    beside = {x.parent for x in spans if x.name == "engine.prefill_chunk"}
+    per_chunk = []
+    for a, d, c in zip(top, top[1:], top[2:]):
+        if (spans[a].name, spans[d].name, spans[c].name) == (
+                "engine.admission", "engine.dispatch", "engine.collect"):
+            per_chunk.append((a in beside,
+                              spans[d].attrs.get("graph") == "capture",
+                              (spans[c].end_ns - spans[d].start_ns) / 1e9))
+    return {"chunks": len(collects),
+            "tokens": sum(x.attrs.get("tokens", 0) for x in collects),
+            "s": sum(spans[i].end_ns - spans[i].start_ns for i in top
+                     if spans[i].name != "engine.admission") / 1e9,
+            "per_chunk": per_chunk}
+
+
 def serve_passes(engine, prompts, sp, counters, plains, passes, what,
                  pass_ctx=contextlib.nullcontext):
     """Serve ``prompts`` ``passes`` times on ``engine`` through the step
@@ -1607,12 +1635,11 @@ def serve_passes(engine, prompts, sp, counters, plains, passes, what,
     pipelined default), each pass inside ``pass_ctx()``: per pass the
     greedy tokens, seconds, launches by the counters (a graph replay adds
     its capture's), decode steps, ms per decode step and tokens/s by the
-    engine's per-chunk wall clock. A plain-version call on a CUDA tensor
-    fails ``what``."""
-    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    engine's per-chunk wall clock (:func:`traced_chunks`). A plain-version
+    call on a CUDA tensor fails ``what``."""
     out = []
     for _ in range(passes):
-        engine.metrics = MetricsLogger()
+        engine.tracer.start()
         reset(counters, plains)
         with pass_ctx() as extra:
             t0 = time.perf_counter()
@@ -1620,14 +1647,14 @@ def serve_passes(engine, prompts, sp, counters, plains, passes, what,
             torch.cuda.synchronize()
             gen_s = time.perf_counter() - t0
         no_plain_calls(plains, what)
-        hist = engine.metrics.history
-        steps = len(hist) * engine.steps_per_sync
+        ch = traced_chunks(engine)
+        steps = ch["chunks"] * engine.steps_per_sync
         out.append({
             "outs": outs, "generate_s": gen_s, "launches": counts(counters),
             "wgmma_launches": counters["K5_matmul4bit"].wgmma_launches,
             "plain_calls_on_cuda": 0, "decode_steps": steps,
-            "decode_step_ms": sum(m.wall_s for m in hist) / steps * 1e3,
-            "decode_tokens_per_s": engine.metrics.summary()["tokens_per_s"],
+            "decode_step_ms": ch["s"] / steps * 1e3,
+            "decode_tokens_per_s": ch["tokens"] / ch["s"],
             "extra": extra})
     return out
 
@@ -2149,24 +2176,7 @@ def serve_stream(engine, mode, prompts, sps, counters, plains, cancel=None,
     eager (a graph's are counted at capture and added per replay)."""
     cfg = engine.config
     reset(counters, plains)
-    # each decode chunk: (a prefill chunk ran before it in its step, it
-    # captured a graph, wall s)
-    state = {"beside": False, "graphs": engine.graph_stats()["graphs"]}
-    decode = []
-    advance, record = engine._advance_prefill, engine.metrics.record
-
-    def advance_logged():
-        state["beside"] = advance()
-        return state["beside"]
-
-    def record_logged(emitted, wall_s):
-        graphs = engine.graph_stats()["graphs"]
-        decode.append((state["beside"], graphs > state["graphs"], wall_s))
-        state["graphs"] = graphs
-        record(emitted, wall_s)
-
-    engine._advance_prefill, engine.metrics.record = (advance_logged,
-                                                      record_logged)
+    engine.tracer.start()
     events = []
     first_uid = engine._uid + 1
     t0 = time.perf_counter()
@@ -2183,7 +2193,9 @@ def serve_stream(engine, mode, prompts, sps, counters, plains, cancel=None,
                 engine.cancel(ev[0])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    engine._advance_prefill, engine.metrics.record = advance, record
+    # each decode chunk: (a prefill chunk ran before it in its step, it
+    # captured a graph, wall s)
+    decode = traced_chunks(engine)["per_chunk"]
     reqs = {r.uid: r for r in engine.finished if r.uid in uids}
     if (uids != list(range(first_uid, first_uid + len(prompts)))
             or sorted(reqs) != uids):
@@ -2786,8 +2798,7 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.engine import speculative as S
     from tpu_bitsandbytes_torch.models.layers import QLinear4
-    from tpu_bitsandbytes_torch.utils.metrics import (MetricsLogger,
-                                                      format_footprint)
+    from tpu_bitsandbytes_torch.utils.metrics import format_footprint
     t_phase = time.perf_counter()
     cfg, params, prompts, sp, kw = llama7b_workload(dev)
     lens = [len(p) for p in prompts]
@@ -2833,10 +2844,12 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
     if eng_a.cache.lengths.any():
         raise AssertionError("warm-up left lengths behind")
     warm = eng_a.graph_stats()
+    eng_a.tracer.start()
     t0 = time.perf_counter()
     outs = eng_a.generate(prompts, sp, pipeline_depth=1)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    served = traced_chunks(eng_a)
     if outs != unwarmed_outs:
         differ = [i for i, (a, b) in enumerate(zip(outs, unwarmed_outs))
                   if a != b]
@@ -2850,7 +2863,7 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
           "capture_s": warm["capture_s"],
           "graph_pool_mib": warm["pool_bytes"] / 2 ** 20,
           "served_generate_s": serve_s,
-          "served_decode_step_ms": eng_a.metrics.summary()["mean_step_ms"]
+          "served_decode_step_ms": served["s"] / served["chunks"] * 1e3
           / 32,
           "keys_serving_captured": eng_a.graph_keys()[len(keys):],
           "greedy_tokens_identical_to_unwarmed": True,
@@ -2918,7 +2931,7 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
         for p in prompts:
             eng_a.add_request(p, sp_pipe)
         eng_a._admit()
-        eng_a.metrics = MetricsLogger()
+        eng_a.tracer.start()
 
     def step_loop():
         while eng_a.step():
@@ -2932,8 +2945,9 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
         if len(outs[depth]) != len(prompts) or any(
                 len(o) != PIPELINED_NEW for o in outs[depth]):
             raise AssertionError(f"depth {depth}: token counts")
-        bd["chunks_collected"] = len(eng_a.metrics.history)
-        bd["decode_step_ms"] = eng_a.metrics.summary()["mean_step_ms"] / 32
+        ch = traced_chunks(eng_a)
+        bd["chunks_collected"] = ch["chunks"]
+        bd["decode_step_ms"] = ch["s"] / ch["chunks"] * 1e3 / 32
         emit({"phase": "lifecycle", "step": "pipelined", **common,
               "pipeline_depth": depth, "new_tokens": PIPELINED_NEW,
               "steps_per_request": steps,
@@ -2952,12 +2966,13 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
     # (5) speculative decoding, gamma 4, graphed
     eng_s = E.DecodeEngine(shared, cfg, device=dev, speculative="ngram",
                            spec_gamma=SPEC_GAMMA, **kw)
+    eng_s.tracer.start()
     t0 = time.perf_counter()
     spec_outs = eng_s.generate(prompts, sp)
     torch.cuda.synchronize()
     spec_s = time.perf_counter() - t0
     stats = dict(eng_s.spec_stats)
-    hist = eng_s.metrics.history
+    verified = traced_chunks(eng_s)
     same = sum(a == b for o, u in zip(spec_outs, unwarmed_outs)
                for a, b in zip(o, u))
     same_share = same / sum(len(u) for u in unwarmed_outs)
@@ -2977,11 +2992,11 @@ def phase_lifecycle(dev, counters, plains, unwarmed_outs):
     if not same_share >= SPEC_SAME_FLOOR:
         raise AssertionError(f"speculative greedy tokens: {same_share} of "
                              f"plain greedy's, floor {SPEC_SAME_FLOOR}")
-    verify_ms = [m.wall_s * 1e3 for m in hist]
+    verify_ms = [w * 1e3 for _, _, w in verified["per_chunk"]]
     emit({"phase": "lifecycle", "step": "speculative", **common,
           "spec_gamma": SPEC_GAMMA, "generate_s": spec_s,
           "spec_stats": stats,
-          "tokens_per_verify_step": sum(m.tokens for m in hist)
+          "tokens_per_verify_step": verified["tokens"]
           / max(1, stats["verify_steps"]),
           # drafts are gamma per active slot and verify step
           "tokens_per_slot_per_verify_step":
@@ -4295,7 +4310,6 @@ def mesh_rank_7b(mesh, dev, job):
     from tpu_bitsandbytes_torch.ops import int4cache as K1
     from tpu_bitsandbytes_torch.ops.w4a8 import quantize_a8
     from tpu_bitsandbytes_torch.parallel.sharding import interleave_fused
-    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
     counters, plains = kernel_counters(), kernel_plains()
     t0 = time.perf_counter()
     cfg, params, prompts, sp, kw = llama7b_workload(dev)
@@ -4339,17 +4353,18 @@ def mesh_rank_7b(mesh, dev, job):
                                                            q_full[:, sl]))}
     # phase 4's requests: the step loop, as phase 4 serves them
     reset(counters, plains)
-    engine.metrics = MetricsLogger()
+    engine.tracer.start()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = engine.generate(prompts, sp, pipeline_depth=1)
     torch.cuda.synchronize()
-    hist = engine.metrics.history
-    steps = len(hist) * engine.steps_per_sync
-    out.update(outs=outs, generate_s=time.perf_counter() - t0,
+    gen_s = time.perf_counter() - t0
+    ch = traced_chunks(engine)
+    steps = ch["chunks"] * engine.steps_per_sync
+    out.update(outs=outs, generate_s=gen_s,
                launches=counts(counters), decode_steps=steps,
-               decode_step_ms=sum(m.wall_s for m in hist) / steps * 1e3,
-               decode_tokens_per_s=engine.metrics.summary()["tokens_per_s"],
+               decode_step_ms=ch["s"] / steps * 1e3,
+               decode_tokens_per_s=ch["tokens"] / ch["s"],
                plain_calls_on_cuda=sum(f.cuda_calls for f in plains),
                max_memory_allocated_gib=torch.cuda.max_memory_allocated()
                / 2 ** 30)
@@ -4728,23 +4743,23 @@ def phase_nccl_tp1(dev, counters, plains, smi):
     import torch.distributed as dist
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.parallel import make_mesh
-    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
     cfg, params, prompts, sp, kw = cut_depth(llama7b_workload(dev),
                                              NCCL_LAYERS)
 
     def serve(engine):
         res = []
         for _ in range(2):      # the first pass captures, the second replays
-            engine.metrics = MetricsLogger()
+            engine.tracer.start()
             reset(counters, plains)
             t0 = time.perf_counter()
             outs = engine.generate(prompts, sp, pipeline_depth=1)
             torch.cuda.synchronize()
-            hist = engine.metrics.history
-            steps = len(hist) * engine.steps_per_sync
-            res.append({"outs": outs, "generate_s": time.perf_counter() - t0,
-                        "decode_step_ms": sum(m.wall_s for m in hist)
-                        / steps * 1e3, "launches": counts(counters)})
+            gen_s = time.perf_counter() - t0
+            ch = traced_chunks(engine)
+            steps = ch["chunks"] * engine.steps_per_sync
+            res.append({"outs": outs, "generate_s": gen_s,
+                        "decode_step_ms": ch["s"] / steps * 1e3,
+                        "launches": counts(counters)})
         key = engine.graph_keys()[-1]
         census = {"kernels": dict(engine._graphs.kernel_names(key)),
                   "nodes": dict(engine._graphs.node_types(key)),
@@ -5683,7 +5698,6 @@ def phase_verify_k4(dev, counters, plains, workload):
     line)."""
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.ops import w4a8 as K4
-    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
     t_phase = time.perf_counter()
     cfg, params, prompts, sp, kw = workload
     free_memory()
@@ -5693,7 +5707,7 @@ def phase_verify_k4(dev, counters, plains, workload):
     free_memory()
     eng = E.DecodeEngine(params, cfg, device=dev, speculative="ngram",
                          spec_gamma=SPEC_GAMMA, **kw)
-    eng.metrics = MetricsLogger()
+    eng.tracer.start()
     calls = {}
     reset(counters, plains)
     with first_calls(K4, "w4a8_mm", calls):
@@ -5704,7 +5718,7 @@ def phase_verify_k4(dev, counters, plains, workload):
     launches = counts(counters)
     no_plain_calls(plains, "15d")
     stats = dict(eng.spec_stats)
-    verify_ms = [m.wall_s * 1e3 for m in eng.metrics.history]
+    verify_ms = [w * 1e3 for _, _, w in traced_chunks(eng)["per_chunk"]]
     m40 = {key: c for key, c in calls.items() if key[0][0] == VERIFY_M}
     rows = []
     for key, (a, kw2) in m40.items():

@@ -61,11 +61,32 @@ def import_tree(root: Path) -> None:
         raise RuntimeError(f"imported {pkg}, not the tree at {root}")
 
 
+def start_step_record(engine):
+    """Record the step loop's decode chunks from here on; returns the
+    reader of their host ms per decode step, from dispatch through
+    collection: the engine tracer's spans (``chip_smoke.traced_chunks``),
+    or on a tree from before the tracer its ``MetricsLogger``."""
+    n = engine.steps_per_sync
+    if hasattr(engine, "tracer"):
+        engine.tracer.start()
+
+        def read(eng):
+            ch = C.traced_chunks(eng)
+            return ch["s"] * 1e3 / (ch["chunks"] * n)
+        return read
+    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
+    engine.metrics = MetricsLogger()
+
+    def read_logger(eng):
+        hist = eng.metrics.history
+        return sum(m.wall_s for m in hist) * 1e3 / (len(hist) * n)
+    return read_logger
+
+
 def prefill_worker(root: Path) -> dict:
     import_tree(root)
     from tpu_bitsandbytes_torch.engine import engine as E
     from tpu_bitsandbytes_torch.ops import _build
-    from tpu_bitsandbytes_torch.utils.metrics import MetricsLogger
     _build.load_all()
     dev = torch.device("cuda", 0)
     cfg, params, prompts, sp, kw = C.packed_workload(dev)
@@ -80,17 +101,14 @@ def prefill_worker(root: Path) -> dict:
     for mode, extra in modes.items():
         engine = E.DecodeEngine(params, cfg, device=dev, **kw, **extra)
         for _ in range(2):
-            engine.metrics = MetricsLogger()
+            record = start_step_record(engine)
             with C.timed_prefills({}) as groups:
                 engine.generate(prompts, sp, **gen_kw)
                 torch.cuda.synchronize()
         for g in sorted(groups, key=lambda g: g["bucket"]):
             rows[f"{mode}: prefill, bucket {g['bucket']}, {g['rows']} "
                  "rows"] = {"ms": g["ms"]}
-        hist = engine.metrics.history
-        rows[f"{mode}: decode step"] = {
-            "ms": sum(m.wall_s for m in hist) * 1e3
-            / (len(hist) * engine.steps_per_sync)}
+        rows[f"{mode}: decode step"] = {"ms": record(engine)}
         del engine
         C.free_memory()
     return {"tree": str(root), "rows": rows}

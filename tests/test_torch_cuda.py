@@ -2104,3 +2104,45 @@ def test_graphed_gemma_chunk_matches_eager(cuda):
         outs.append(eng.generate(prompts, SamplingParams(max_new_tokens=12)))
         assert eng.graph_stats()["graphs"] == (1 if graphs else 0)
     assert outs[0] == outs[1]
+
+
+def test_tracer_times_graphed_dispatches_on_the_profilers_clock(cuda):
+    """The engine tracer on a graphed engine: each dispatch span holds one
+    graph replay or capture and its device time (CUDA events on the
+    caller's stream), each prefill span its device time, the tokens are
+    the untraced engine's; and the tracer's clock is the profiler's: a
+    kernel launched on an idle card starts after the tracer's reading
+    before the launch, within 200 us of it."""
+    from torch.autograd import DeviceType
+    cfg, params = _graph_model(False)
+    prompts = _prompts([100, 20, 60, 9, 33], cfg.vocab_size)
+    sp = SamplingParams(max_new_tokens=24)
+    want = _engine(cfg, params, cuda, True).generate(prompts, sp)
+    eng = _engine(cfg, params, cuda, True)
+    tr = eng.tracer
+    tr.start()
+    assert eng.generate(prompts, sp) == want
+    tr.stop()
+    disp = [i for i, s in enumerate(tr.spans) if s.name == "engine.dispatch"]
+    assert len(disp) == tr.counts["engine.chunks"]
+    for i in disp:
+        kids = [s.name for s in tr.spans if s.parent == i
+                and s.name.startswith("graph.")]
+        assert len(kids) == 1 and tr.spans[i].device_ms > 0
+        assert kids[0] == f"graph.{tr.spans[i].attrs['graph']}"
+    pre = [s for s in tr.spans if s.name.startswith("engine.prefill")]
+    assert pre and all(s.device_ms > 0 for s in pre)
+    x = torch.zeros(1 << 20, device=cuda)
+    launched = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            torch.cuda.synchronize()
+            launched.append(tr.now())
+            x.add_(1.0)
+            torch.cuda.synchronize()
+    starts = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    delays = [s - t for s, t in zip(starts, launched)]
+    assert len(starts) == 5 and min(delays) >= 0, delays
+    assert min(delays) <= 200_000, delays

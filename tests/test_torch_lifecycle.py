@@ -388,7 +388,7 @@ def test_pipelined_matches_step_loop_and_jax(tiny):
     """``generate``'s default, two chunks in flight, gives the tokens of
     the step loop, with slot turnover (5 prompts, 2 slots), and the JAX
     engine's pipelined ``generate``'s, on an int8 and an unquantized
-    cache; each chunk collected is one metrics record."""
+    cache; the decode chunks' emissions are counted (``stats["tokens"]``)."""
     prompts = _prompts([3, 4, 5, 6, 7], tiny[0].vocab_size, seed=7)
     for quantized in (True, False):
         kw = dict(max_batch=2, max_seq=64, steps_per_sync=2,

@@ -41,9 +41,9 @@ from ..models import llama
 from ..ops import _build
 from ..utils import graph_census
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from ..utils.metrics import (MetricsLogger, device_memory_bytes,
-                             kv_cache_bytes, param_footprint,
-                             per_device_footprint, serving_act_bytes)
+from ..utils.metrics import (Tracer, device_memory_bytes, kv_cache_bytes,
+                             param_footprint, per_device_footprint,
+                             serving_act_bytes)
 from . import speculative as spec
 from .kvcache import KVCache
 from .sampler import SamplingArrays, SamplingParams, sample, sample_batched
@@ -263,6 +263,11 @@ class Request:
     logprobs: List[float] = dataclasses.field(default_factory=list)
     # the first token's logprob: a device scalar until _host_inputs reads it
     pending_first_lp: Optional[Any] = None
+    # on the engine tracer's clock (ns): queued, given a slot, first token
+    # collected
+    t_submit: Optional[int] = None
+    t_admit: Optional[int] = None
+    t_first: Optional[int] = None
 
 
 def _dp_seed(seed: int, dp_rank: int) -> int:
@@ -322,11 +327,14 @@ class ChunkGraphs:
     graph is once, at capture: the capture's ticks are undone, and each
     replay adds them, so they count what runs on the device. Each graph
     is kept beside its instantiation, so :meth:`kernel_names` can read
-    the kernels a replay launches from the graph itself.
+    the kernels a replay launches from the graph itself. ``tracer``: the
+    engine's :class:`~..utils.metrics.Tracer`, which records each replay
+    (``graph.replay``) and each key's first use (``graph.capture``).
     """
 
-    def __init__(self, device):
+    def __init__(self, device, tracer: Optional[Tracer] = None):
         self.device = torch.device(device)
+        self.tracer = tracer or Tracer(device)
         self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
         self.capture_s = 0.0
@@ -340,6 +348,9 @@ class ChunkGraphs:
         """The keys captured so far, in capture order."""
         return list(self._graphs)
 
+    def __contains__(self, key) -> bool:
+        return key in self._graphs
+
     def run(self, key, fn: Callable[[], Any],
             generator: Optional[torch.Generator] = None):
         """``fn()`` as the graph of ``key``: replayed, or at the key's first
@@ -348,16 +359,25 @@ class ChunkGraphs:
         numbers from its current state. Returns ``fn``'s outputs (a graph's
         are overwritten by its next replay)."""
         entry = self._graphs.get(key)
+        if entry is not None:
+            with self.tracer.span("graph.replay"):
+                current = torch.cuda.current_stream(self.device)
+                self.stream.wait_stream(current)
+                graph, out, ticks = entry
+                with torch.cuda.stream(self.stream):
+                    graph.replay()
+                current.wait_stream(self.stream)
+                for (f, a), n in ticks:
+                    setattr(f, a, getattr(f, a) + n)
+            return out
+        with self.tracer.span("graph.capture", key=key):
+            return self._capture(key, fn, generator)
+
+    def _capture(self, key, fn: Callable[[], Any],
+                 generator: Optional[torch.Generator]):
+        """A key's first use: ``fn()`` run eagerly, then captured."""
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
-        if entry is not None:
-            graph, out, ticks = entry
-            with torch.cuda.stream(self.stream):
-                graph.replay()
-            current.wait_stream(self.stream)
-            for (f, a), n in ticks:
-                setattr(f, a, getattr(f, a) + n)
-            return out
         with torch.cuda.stream(self.stream):
             out = fn()
         t0 = time.perf_counter()
@@ -593,7 +613,9 @@ class DecodeEngine:
                                     device=self.device)
         # pinned host copies of the chunks in flight (run_pipelined)
         self._out_ring: List[tuple] = []
-        self._graphs = (ChunkGraphs(self.device)
+        # spans (off until tracer.start()) and counters (always on)
+        self.tracer = Tracer(self.device)
+        self._graphs = (ChunkGraphs(self.device, self.tracer)
                         if cuda_graphs and pin else None)
         # the JAX engine's gate: the window buffers must fit beside the
         # rest of the footprint
@@ -608,7 +630,6 @@ class DecodeEngine:
         self.waiting: List[Request] = []
         self.active: Dict[int, Request] = {}   # slot -> request
         self.finished: List[Request] = []
-        self.metrics = MetricsLogger()
 
     def _check_mesh(self, mesh, max_batch: int, cuda_graphs: bool):
         from ..parallel.mesh import axis_size
@@ -725,7 +746,8 @@ class DecodeEngine:
         self._uid += 1
         self.waiting.append(Request(self._uid, [int(t) for t in prompt_tokens],
                                     sampling or SamplingParams(),
-                                    on_token=on_token))
+                                    on_token=on_token,
+                                    t_submit=self.tracer.now()))
         return self._uid
 
     def cancel(self, uid: int) -> bool:
@@ -805,13 +827,23 @@ class DecodeEngine:
         ring would wrap); the rest group by length bucket into one forward
         each. Under a mesh with dp > 1 every request admits alone, as in
         the JAX package (its dp group writes the KV); with dp = 1 every
-        rank holds every slot and admits as one device does."""
+        rank holds every slot and admits as one device does.
+
+        Notes the waiting count, the free slots and the admitted uids on
+        the serving loop's ``engine.admission`` span."""
         free = self._free_slots()
+        tr = self.tracer
+        if tr.on:
+            tr.note("engine.admission", waiting=len(self.waiting),
+                    free=len(free))
         groups: Dict[int, list] = {}
+        uids = []
         while free and self.waiting:
             slot = free.pop(0)
             req = self.waiting.pop(0)
             req.slot = slot
+            req.t_admit = tr.now()
+            uids.append(req.uid)
             if len(req.prompt) >= self.max_seq:
                 # keep the latest context that still leaves room to decode
                 req.prompt = req.prompt[-(self.max_seq - 1):]
@@ -830,6 +862,7 @@ class DecodeEngine:
                 self._admit_one(*grp[0])
             else:
                 self._admit_group(s_pad, grp)
+        tr.note("engine.admission", uids=uids)
 
     def _admit_one(self, slot: int, req: Request):
         s = len(req.prompt)
@@ -839,10 +872,15 @@ class DecodeEngine:
             req.prefill_pos = 0
             self.active[slot] = req
             return
-        toks = torch.zeros((1, _bucket(s, self.max_seq)), dtype=torch.int32)
-        toks[0, :s] = torch.tensor(req.prompt, dtype=torch.int32)
-        last_logits = self._prefill(toks.to(self.device), slot, s)
-        req.pending_first = self._sample_first(last_logits, req)
+        s_pad = _bucket(s, self.max_seq)
+        with self.tracer.span("engine.prefill_one", device=True, tokens=s,
+                              s_pad=s_pad, uid=req.uid):
+            toks = torch.zeros((1, s_pad), dtype=torch.int32)
+            toks[0, :s] = torch.tensor(req.prompt, dtype=torch.int32)
+            last_logits = self._prefill(toks.to(self.device), slot, s)
+            req.pending_first = self._sample_first(last_logits, req)
+        self.tracer.count("prefill.tokens", s)
+        self.tracer.count("prefill.padded_tokens", s_pad)
         self.active[slot] = req
 
     def _prefill(self, tokens: torch.Tensor, slot: int, true_len: int):
@@ -879,25 +917,31 @@ class DecodeEngine:
         r_pad = 1
         while r_pad < r:
             r_pad *= 2
-        rows = [grp[i if i < r else 0] for i in range(r_pad)]
-        toks = np.zeros((r_pad, s_pad), np.int32)
-        for i, (_, req) in enumerate(rows):
-            toks[i, :len(req.prompt)] = req.prompt
-        dev = self.device
-        slots = torch.tensor([slot for slot, _ in rows], dtype=torch.int32,
-                             device=dev)
-        lens = torch.tensor([len(req.prompt) for _, req in rows],
-                            dtype=torch.int32, device=dev)
-        samp = self._samp({i: req.params for i, (_, req) in enumerate(rows)},
-                          r_pad)
-        mask = None
-        if any(req.params.repetition_penalty != 1.0 for _, req in grp):
-            mask = torch.from_numpy(
-                self._history_mask([req for _, req in rows])).to(dev)
-        firsts, self.cache = prefill_batch(
-            self.params, self.cache, torch.from_numpy(toks).to(dev), slots,
-            lens, self._first_gen, samp, self.config, seen_mask=mask,
-            tp=self._tp)
+        true = sum(len(req.prompt) for _, req in grp)
+        with self.tracer.span("engine.prefill_group", device=True, rows=r,
+                              r_pad=r_pad, s_pad=s_pad, tokens=true,
+                              uids=[req.uid for _, req in grp]):
+            rows = [grp[i if i < r else 0] for i in range(r_pad)]
+            toks = np.zeros((r_pad, s_pad), np.int32)
+            for i, (_, req) in enumerate(rows):
+                toks[i, :len(req.prompt)] = req.prompt
+            dev = self.device
+            slots = torch.tensor([slot for slot, _ in rows],
+                                 dtype=torch.int32, device=dev)
+            lens = torch.tensor([len(req.prompt) for _, req in rows],
+                                dtype=torch.int32, device=dev)
+            samp = self._samp({i: req.params
+                               for i, (_, req) in enumerate(rows)}, r_pad)
+            mask = None
+            if any(req.params.repetition_penalty != 1.0 for _, req in grp):
+                mask = torch.from_numpy(
+                    self._history_mask([req for _, req in rows])).to(dev)
+            firsts, self.cache = prefill_batch(
+                self.params, self.cache, torch.from_numpy(toks).to(dev),
+                slots, lens, self._first_gen, samp, self.config,
+                seen_mask=mask, tp=self._tp)
+        self.tracer.count("prefill.tokens", true)
+        self.tracer.count("prefill.padded_tokens", r_pad * s_pad)
         for i, (slot, req) in enumerate(grp):
             req.pending_first = firsts[i]
             self.active[slot] = req
@@ -926,22 +970,26 @@ class DecodeEngine:
         c, n = self.prefill_chunk, len(req.prompt)
         start = req.prefill_pos
         end = min(start + c, n)
-        toks = torch.zeros((1, c), dtype=torch.int32)
-        toks[0, :end - start] = torch.tensor(req.prompt[start:end],
-                                             dtype=torch.int32)
         if self.cache.ring:
             span, a_start = None, 0
         else:
             span = _chunk_span_bucket(start + c, self.max_seq)
             a_start = self._win_start(start)
-        x = self._prefill_chunk(toks.to(self.device), slot, start, end,
-                                span, a_start)
-        req.prefill_pos = end
-        if end >= n:
-            logits = prefill_final_logits(self.params, x, n - 1 - start,
-                                          self.config, tp=self._tp)
-            req.pending_first = self._sample_first(logits, req)
-            req.prefilling = False
+        with self.tracer.span("engine.prefill_chunk", device=True,
+                              start=start, end=end, span=span, uid=req.uid):
+            toks = torch.zeros((1, c), dtype=torch.int32)
+            toks[0, :end - start] = torch.tensor(req.prompt[start:end],
+                                                 dtype=torch.int32)
+            x = self._prefill_chunk(toks.to(self.device), slot, start, end,
+                                    span, a_start)
+            req.prefill_pos = end
+            if end >= n:
+                logits = prefill_final_logits(self.params, x, n - 1 - start,
+                                              self.config, tp=self._tp)
+                req.pending_first = self._sample_first(logits, req)
+                req.prefilling = False
+        self.tracer.count("prefill.tokens", end - start)
+        self.tracer.count("prefill.padded_tokens", c)
         return True
 
     # -- decode -------------------------------------------------------------
@@ -979,25 +1027,30 @@ class DecodeEngine:
     def _host_inputs(self):
         """This chunk's (tokens [B], active [B]) from host bookkeeping,
         consuming the first tokens (and logprobs) that prefill produced.
-        Prefilling slots stay inactive."""
+        Prefilling slots stay inactive. Traced as ``engine.first_tokens``:
+        its first read waits for the prefill."""
         tokens = np.zeros((self.max_batch,), np.int32)
         active = np.zeros((self.max_batch,), bool)
-        for slot, req in list(self.active.items()):
-            if req.prefilling:
-                continue
-            if req.pending_first is not None:
-                first = int(req.pending_first)
-                lp = (None if req.pending_first_lp is None
-                      else float(req.pending_first_lp))
-                req.pending_first = req.pending_first_lp = None
-                self._collect(slot, req, first, lp)
-                if req.done:
+        with self.tracer.span("engine.first_tokens"):
+            for slot, req in list(self.active.items()):
+                if req.prefilling:
                     continue
-            tokens[slot] = req.generated[-1]
-            active[slot] = True
+                if req.pending_first is not None:
+                    first = int(req.pending_first)
+                    lp = (None if req.pending_first_lp is None
+                          else float(req.pending_first_lp))
+                    req.pending_first = req.pending_first_lp = None
+                    self._collect(slot, req, first, lp)
+                    if req.done:
+                        continue
+                tokens[slot] = req.generated[-1]
+                active[slot] = True
         return tokens, active
 
     def _collect_chunk(self, toks_seq, act_seq, lp_seq=None) -> int:
+        """Hand a chunk's emissions to their requests; returns how many
+        (counted in ``engine.decode_tokens`` and noted on the serving
+        loop's ``engine.collect`` span)."""
         toks_seq = toks_seq.cpu().numpy()
         act_seq = act_seq.cpu().numpy()
         if lp_seq is not None:
@@ -1011,10 +1064,14 @@ class DecodeEngine:
                 self._collect(slot, req, int(toks_seq[i, slot]),
                               None if lp_seq is None else lp_seq[i, slot])
                 emitted += 1
+        self.tracer.count("engine.decode_tokens", emitted)
+        self.tracer.note("engine.collect", tokens=emitted)
         return emitted
 
     def _collect(self, slot: int, req: Request, token: int, lp=None):
         req.generated.append(token)
+        if len(req.generated) == 1:
+            req.t_first = self.tracer.now()
         sp = req.params
         if sp.logprobs and lp is not None:
             req.logprobs.append(float(lp))
@@ -1046,16 +1103,18 @@ class DecodeEngine:
         captured at the key's first use. Returns the device (tokens_seq,
         active_seq, logprobs_seq or None) [steps, B]; read them before the
         next chunk, which may overwrite them. Under a mesh the device
-        inputs hold this rank's slots, and the outputs every slot."""
-        lo, hi = self._lo, self._hi
-        self._tokens_host.numpy()[:] = tokens[lo:hi]
-        self._active_host.numpy()[:] = active[lo:hi]
-        self._tokens.copy_(self._tokens_host, non_blocking=True)
-        self._active.copy_(self._active_host, non_blocking=True)
-        if seen is not None:
-            self._seen_host.numpy()[:] = seen[lo:hi]
-            self._seen.copy_(self._seen_host, non_blocking=True)
-        self._samp_arrays()
+        inputs hold this rank's slots, and the outputs every slot. Traced
+        as ``engine.stage`` (the staging), then :meth:`_dispatch`."""
+        with self.tracer.span("engine.stage"):
+            lo, hi = self._lo, self._hi
+            self._tokens_host.numpy()[:] = tokens[lo:hi]
+            self._active_host.numpy()[:] = active[lo:hi]
+            self._tokens.copy_(self._tokens_host, non_blocking=True)
+            self._active.copy_(self._active_host, non_blocking=True)
+            if seen is not None:
+                self._seen_host.numpy()[:] = seen[lo:hi]
+                self._seen.copy_(self._seen_host, non_blocking=True)
+            self._samp_arrays()
         return self._dispatch(all_greedy=all_greedy, attn_span=attn_span,
                               penalty=seen is not None,
                               want_logprobs=want_logprobs,
@@ -1066,9 +1125,13 @@ class DecodeEngine:
         """One decode chunk from the static device inputs as they stand
         (tokens, active, seen mask, sampling arrays). The chunk leaves its
         last tokens and active flags in the static tokens and active, so a
-        pipeline's next chunk continues from them on the device."""
+        pipeline's next chunk continues from them on the device.
+
+        Counted (:meth:`_count_chunk`)."""
         n = self.steps_per_sync
         samp = self._samp_static
+        key = (attn_span, n, all_greedy, penalty, want_logprobs, attn_start)
+        self._count_chunk(key)
 
         def chunk():
             toks_seq, act_seq, _, last, live, lp_seq, _ = decode_chunk(
@@ -1087,9 +1150,19 @@ class DecodeEngine:
 
         if self._graphs is None:
             return chunk()
-        return self._graphs.run(
-            (attn_span, n, all_greedy, penalty, want_logprobs, attn_start),
-            chunk, None if all_greedy else self.generator)
+        return self._graphs.run(key, chunk,
+                                None if all_greedy else self.generator)
+
+    def _count_chunk(self, key) -> None:
+        """Count a decode chunk or verify step in ``engine.chunks``, and
+        note on the serving loop's ``engine.dispatch`` span its graph key
+        and how it runs ("replay", "capture" or "eager")."""
+        tr = self.tracer
+        tr.count("engine.chunks")
+        if tr.on:
+            how = ("eager" if self._graphs is None else
+                   "replay" if key in self._graphs else "capture")
+            tr.note("engine.dispatch", key=key, graph=how)
 
     def run_verify(self, tokens: np.ndarray, active: np.ndarray, *,
                    all_greedy: bool, attn_span: Optional[int]):
@@ -1099,13 +1172,13 @@ class DecodeEngine:
         ``cuda_graphs=False``) it replays the graph of ``("verify",
         attn_span, gamma, all_greedy)``, captured at the key's first use.
         Returns the device (emitted [B, gamma + 1], counts [B]) of
-        :func:`~.speculative.verify_step`; the lengths advance in place."""
-        self._vtokens_host.numpy()[:] = tokens[self._lo:self._hi]
-        self._active_host.numpy()[:] = active[self._lo:self._hi]
-        self._vtokens.copy_(self._vtokens_host, non_blocking=True)
-        self._active.copy_(self._active_host, non_blocking=True)
-        samp = self._samp_arrays()
+        :func:`~.speculative.verify_step`; the lengths advance in place.
+        Staged under ``engine.stage`` and counted as a decode chunk
+        (:meth:`_count_chunk`)."""
+        tr = self.tracer
+        key = ("verify", attn_span, self.spec_gamma, all_greedy)
         gen = None if all_greedy else self.generator
+        samp = self._samp_static
 
         def verify():
             emitted, counts, _ = spec.verify_step(
@@ -1116,10 +1189,16 @@ class DecodeEngine:
                 return self._tp.gather_dp(emitted), self._tp.gather_dp(counts)
             return emitted, counts
 
+        self._count_chunk(key)
+        with tr.span("engine.stage"):
+            self._vtokens_host.numpy()[:] = tokens[self._lo:self._hi]
+            self._active_host.numpy()[:] = active[self._lo:self._hi]
+            self._vtokens.copy_(self._vtokens_host, non_blocking=True)
+            self._active.copy_(self._active_host, non_blocking=True)
+            self._samp_arrays()
         if self._graphs is None:
             return verify()
-        return self._graphs.run(
-            ("verify", attn_span, self.spec_gamma, all_greedy), verify, gen)
+        return self._graphs.run(key, verify, gen)
 
     def graph_stats(self) -> dict:
         """Graphs captured, seconds spent capturing them (their eager
@@ -1157,26 +1236,44 @@ class DecodeEngine:
     def step(self) -> bool:
         """One engine iteration: admit, one chunk of a chunked prefill,
         then one decode chunk (or, speculative, one verify step). Returns
-        False when no work remains."""
-        self._admit()
-        if not self.active:
-            return bool(self.waiting)
-        # one chunk of a chunked prefill runs before each decode chunk
-        self._advance_prefill()
-        tokens, active = self._host_inputs()
-        if not active.any():
-            return bool(self.waiting or self.active)
-        t0 = time.perf_counter()
-        all_greedy = all(r.params.temperature <= 0
-                         for r in self.active.values())
-        want_lp = any(r.params.logprobs for r in self.active.values())
-        reqs = self.active.values()
-        if (self.speculative == "ngram" and not self._needs_seen_mask()
-                and not want_lp and not any(r.prefilling for r in reqs)
-                and max(len(r.prompt) + len(r.generated) for r in reqs)
-                + self.spec_gamma + 1 < self.max_seq - 1):
-            emitted, counts = self._speculative_step(tokens, active,
-                                                     all_greedy)
+        False when no work remains. Traced as ``engine.admission``, then
+        ``engine.dispatch`` (a verify step's takes in its drafts and its
+        read-back) and ``engine.collect``."""
+        tr = self.tracer
+        with tr.span("engine.admission"):
+            self._admit()
+            if not self.active:
+                return bool(self.waiting)
+            # one chunk of a chunked prefill runs before each decode chunk
+            self._advance_prefill()
+            tokens, active = self._host_inputs()
+            if not active.any():
+                return bool(self.waiting or self.active)
+            reqs = self.active.values()
+            all_greedy = all(r.params.temperature <= 0 for r in reqs)
+            want_lp = any(r.params.logprobs for r in reqs)
+            verify = (self.speculative == "ngram"
+                      and not self._needs_seen_mask()
+                      and not want_lp and not any(r.prefilling for r in reqs)
+                      and max(len(r.prompt) + len(r.generated) for r in reqs)
+                      + self.spec_gamma + 1 < self.max_seq - 1)
+        with tr.span("engine.dispatch", device=True) as sp:
+            if verify:
+                emitted, counts = self._speculative_step(tokens, active,
+                                                         all_greedy)
+            else:
+                a_start, span = self._attn_window()
+                seen = self._seen_mask() if self._needs_seen_mask() else None
+                outs = self.run_chunk(
+                    tokens, active, all_greedy=all_greedy, attn_span=span,
+                    seen=seen, want_logprobs=want_lp, attn_start=a_start)
+            if sp is not None:
+                # after the launch, which it would delay
+                sp.attrs.update(self._kv_in_use(0))
+        with tr.span("engine.collect"):
+            if not verify:
+                self._collect_chunk(*outs)
+                return bool(self.waiting or self.active)
             n_emit = 0
             for slot in list(self.active.keys()):
                 if not active[slot]:
@@ -1187,15 +1284,8 @@ class DecodeEngine:
                         break
                     self._collect(slot, req, int(emitted[slot, j]))
                     n_emit += 1
-            self.metrics.record(n_emit, time.perf_counter() - t0)
-            return bool(self.waiting or self.active)
-        a_start, span = self._attn_window()
-        toks_seq, act_seq, lp_seq = self.run_chunk(
-            tokens, active, all_greedy=all_greedy, attn_span=span,
-            seen=self._seen_mask() if self._needs_seen_mask() else None,
-            want_logprobs=want_lp, attn_start=a_start)
-        emitted = self._collect_chunk(toks_seq, act_seq, lp_seq)
-        self.metrics.record(emitted, time.perf_counter() - t0)
+            tr.count("engine.decode_tokens", n_emit)
+            tr.note("engine.collect", tokens=n_emit)
         return bool(self.waiting or self.active)
 
     def _speculative_step(self, tokens: np.ndarray, active: np.ndarray,
@@ -1482,71 +1572,112 @@ class DecodeEngine:
         emissions are dropped and its KV is overwritten by the next prefill
         into the slot. Token-identical to the :meth:`step` loop for greedy
         requests. A speculative engine runs the step loop.
+
+        Traced (:attr:`tracer`) so that its spans cover the loop's body:
+        ``engine.admission`` from the top of the loop to the burst's first
+        dispatch, ``engine.dispatch`` per chunk with the KV in use
+        (:meth:`_kv_in_use`), ``engine.collect`` per chunk collected with
+        its ``engine.collect_wait``, and ``engine.drain`` for the chunks
+        left in flight, with the reason the burst ended
+        (:meth:`_burst_end`).
         """
         if self.speculative:
             while self.step():
                 pass
             return
         n = self.steps_per_sync
+        tr = self.tracer
         while True:
-            self._admit()
-            if not self.active:
-                if not self.waiting:
-                    return
-                continue
-            self._advance_prefill()
-            tokens, active = self._host_inputs()
-            if not active.any():
-                if not (self.waiting or self.active):
-                    return
-                continue
-            reqs = self.active.values()
-            all_greedy = all(r.params.temperature <= 0 for r in reqs)
-            want_lp = any(r.params.logprobs for r in reqs)
-            seen = self._seen_mask() if self._needs_seen_mask() else None
+            with tr.span("engine.admission"):
+                self._admit()
+                if not self.active:
+                    if not self.waiting:
+                        return
+                    continue
+                self._advance_prefill()
+                tokens, active = self._host_inputs()
+                if not active.any():
+                    if not (self.waiting or self.active):
+                        return
+                    continue
+                reqs = self.active.values()
+                all_greedy = all(r.params.temperature <= 0 for r in reqs)
+                want_lp = any(r.params.logprobs for r in reqs)
+                seen = self._seen_mask() if self._needs_seen_mask() else None
             inflight: collections.deque = collections.deque()
             dispatched = 0          # steps in flight, not yet collected
             k = 0                   # chunks dispatched in this burst
-            t0 = time.perf_counter()
-            while True:
-                if dispatched and all(
-                        self._steps_left(r) <= dispatched
-                        for r in self.active.values()):
-                    break       # the chunks in flight end every request
-                a_start, span = self._attn_window(extra_steps=dispatched)
-                if k == 0:
-                    outs = self.run_chunk(tokens, active,
-                                          all_greedy=all_greedy,
-                                          attn_span=span, seen=seen,
-                                          want_logprobs=want_lp,
-                                          attn_start=a_start)
-                else:
-                    outs = self._dispatch(all_greedy=all_greedy,
-                                          attn_span=span,
-                                          penalty=seen is not None,
-                                          want_logprobs=want_lp,
-                                          attn_start=a_start)
-                inflight.append(self._to_host(outs, k % depth))
-                k += 1
-                dispatched += n
-                if len(inflight) < depth:
-                    continue
-                emitted = self._collect_host(*inflight.popleft())
-                dispatched -= n
-                self.metrics.record(emitted, time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                # re-admit when a slot is free (a request can also retire
-                # at _host_inputs, before any chunk finishes it), and
-                # advance a chunked prefill
-                if not self.active or (self.waiting and
-                                       len(self.active) < self.max_batch):
-                    break
-                if any(r.prefilling for r in self.active.values()):
-                    break
-            while inflight:
-                emitted = self._collect_host(*inflight.popleft())
-                self.metrics.record(emitted, time.perf_counter() - t0)
-                t0 = time.perf_counter()
+            why = None              # why the burst ends
+            while why is None:
+                with tr.span("engine.dispatch", device=True) as sp:
+                    a_start, span = self._attn_window(extra_steps=dispatched)
+                    if k == 0:
+                        outs = self.run_chunk(tokens, active,
+                                              all_greedy=all_greedy,
+                                              attn_span=span, seen=seen,
+                                              want_logprobs=want_lp,
+                                              attn_start=a_start)
+                    else:
+                        outs = self._dispatch(all_greedy=all_greedy,
+                                              attn_span=span,
+                                              penalty=seen is not None,
+                                              want_logprobs=want_lp,
+                                              attn_start=a_start)
+                    inflight.append(self._to_host(outs, k % depth))
+                    if sp is not None:
+                        # after the launch, which it would delay
+                        sp.attrs.update(self._kv_in_use(dispatched))
+                    k += 1
+                    dispatched += n
+                    full = len(inflight) == depth
+                    if not full:
+                        why = self._budget_in_flight(dispatched)
+                if full:
+                    with tr.span("engine.collect"):
+                        self._collect_host(*inflight.popleft())
+                        dispatched -= n
+                        why = self._burst_end(dispatched)
+            with tr.span("engine.drain", reason=why):
+                while inflight:
+                    with tr.span("engine.collect"):
+                        self._collect_host(*inflight.popleft())
+
+    def _burst_end(self, dispatched: int) -> Optional[str]:
+        """Why a pipelined burst of decode chunks ends after a collection,
+        or None to dispatch on: no request is active ("idle"); a slot is
+        free while requests wait ("slot_free": a request can also retire
+        at ``_host_inputs``, before any chunk finishes it); a chunked
+        prefill is advancing ("prefill"); or the ``dispatched`` steps in
+        flight reach every request's token budget ("budget")."""
+        if not self.active:
+            return "idle"
+        if self.waiting and len(self.active) < self.max_batch:
+            return "slot_free"
+        if any(r.prefilling for r in self.active.values()):
+            return "prefill"
+        return self._budget_in_flight(dispatched)
+
+    def _budget_in_flight(self, dispatched: int) -> Optional[str]:
+        """"budget" once the chunks in flight end every request (the JAX
+        package's loop dispatches one more, whose tokens are all dropped),
+        else None."""
+        if dispatched and all(self._steps_left(r) <= dispatched
+                              for r in self.active.values()):
+            return "budget"
+        return None
+
+    def _kv_in_use(self, extra_steps: int) -> dict:
+        """KV positions the slots hold at a decode chunk's start, from the
+        host's bookkeeping alone (no device read): each decoding request's
+        prompt and emitted tokens but the last (the chunk's first input)
+        and ``extra_steps`` in flight, each prefilling request's
+        ``prefill_pos``, each at most the cache's S axis (the ring's size
+        in ring mode); against the S axis of every slot."""
+        s = self.cache.max_seq
+        used = sum(min(r.prefill_pos if r.prefilling else
+                       len(r.prompt) + len(r.generated) - 1 + extra_steps, s)
+                   for r in self.active.values())
+        return {"kv_used": used, "kv_reserved": self.max_batch * s}
 
     def _steps_left(self, req: Request) -> int:
         """Decode steps after which ``req`` ends at the latest (its token
@@ -1557,7 +1688,8 @@ class DecodeEngine:
 
     def _collect_host(self, outs, event) -> int:
         if event is not None:
-            event.synchronize()
+            with self.tracer.span("engine.collect_wait"):
+                event.synchronize()
         return self._collect_chunk(*outs)
 
     def _add_all(self, prompts, sampling, on_token=None) -> List[int]:
@@ -1603,10 +1735,13 @@ class DecodeEngine:
 
     @property
     def stats(self) -> dict:
+        """Requests active, waiting and finished, the KV cache's bytes per
+        token, ``tokens`` (the decode chunks' emissions, the tracer's
+        ``engine.decode_tokens``) and, speculative, the verify counts."""
         out = {"active": len(self.active), "waiting": len(self.waiting),
                "finished": len(self.finished),
                "kv_bytes_per_token": self.cache.bytes_per_token(),
-               **self.metrics.summary()}
+               "tokens": self.tracer.counts["engine.decode_tokens"]}
         if self.speculative:
             out["speculative"] = dict(self.spec_stats)
         return out

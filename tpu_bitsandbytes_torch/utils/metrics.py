@@ -1,12 +1,13 @@
-"""Rolling per-step engine metrics, the device-memory footprint of a
-served model (the JAX package's ``utils/metrics.py``, budgeted against the
-device's own memory), the bytes of a 4-bit matmul and its least time at a
-given bandwidth, a wall-clock timer and profiler regions. The JAX
-package's table of TPU datasheet numbers has no counterpart: the caller
-passes the card's bandwidth."""
+"""The serving engine's tracer (spans and counters), the device-memory
+footprint of a served model (the JAX package's ``utils/metrics.py``,
+budgeted against the device's own memory), the bytes of a 4-bit matmul
+and its least time at a given bandwidth, a wall-clock timer and profiler
+regions. The JAX package's table of TPU datasheet numbers has no
+counterpart: the caller passes the card's bandwidth."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -16,42 +17,113 @@ from typing import Any, Dict, List, Optional
 import torch
 
 
+# -- the serving engine's tracer ---------------------------------------------
+
+def now_ns() -> int:
+    """The tracer's clock: nanoseconds since the Unix epoch, the clock on
+    which ``torch.profiler`` reports its records (it converts CUPTI's device
+    times to it), so a span and the kernels it launched line up with no
+    offset to estimate."""
+    return time.time_ns()
+
+
 @dataclasses.dataclass
-class StepMetrics:
-    step: int
-    tokens: int
-    wall_s: float
-    tokens_per_s: float
+class Span:
+    """One interval of the engine's work on the tracer's clock. ``parent``
+    is the index of the enclosing span in :attr:`Tracer.spans` (-1 at the
+    top); ``device_ms`` is the device time of the work launched inside it,
+    for a span opened with ``device=True`` on a CUDA device, resolved by
+    :meth:`Tracer.stop`."""
+
+    name: str
+    start_ns: int
+    parent: int = -1
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    end_ns: int = 0
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
 
-class MetricsLogger:
-    """Tokens and wall time of the last ``window`` engine steps."""
+_OFF = contextlib.nullcontext()
 
-    def __init__(self, window: int = 100):
-        self.window = window
-        self.history: List[StepMetrics] = []
-        self._step = 0
 
-    def record(self, tokens: int, wall_s: float) -> StepMetrics:
-        self._step += 1
-        m = StepMetrics(self._step, tokens, wall_s,
-                        tokens / wall_s if wall_s > 0 else 0.0)
-        self.history.append(m)
-        if len(self.history) > self.window:
-            self.history.pop(0)
-        return m
+class Tracer:
+    """Spans and counters of a serving engine (``DecodeEngine.tracer``).
 
-    def summary(self) -> Dict[str, float]:
-        if not self.history:
-            return {}
-        toks = sum(m.tokens for m in self.history)
-        secs = sum(m.wall_s for m in self.history)
-        return {
-            "steps": len(self.history),
-            "tokens": toks,
-            "tokens_per_s": toks / secs if secs else 0.0,
-            "mean_step_ms": secs / len(self.history) * 1e3,
-        }
+    Counters (:attr:`counts`, by name) are host integers and always on;
+    the engine advances them once per admission, group, chunk or
+    collection, never once per token. Spans are kept in memory between
+    :meth:`start` and :meth:`stop` only; while the tracer is off,
+    :meth:`span` checks one attribute and keeps nothing."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.on = False
+        self.spans: List[Span] = []
+        self.counts: Dict[str, int] = collections.Counter()
+        self._open: List[int] = []         # indices of the open spans
+
+    now = staticmethod(now_ns)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] += n
+
+    def start(self) -> None:
+        """Keep spans from here on (those of an earlier recording go)."""
+        self.spans, self._open, self.on = [], [], True
+
+    def stop(self) -> None:
+        """Stop keeping spans, and resolve the device time of those that
+        recorded CUDA events: one synchronization."""
+        if self.on and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.on = False
+        for sp in self.spans:
+            if sp.events is not None and sp.end_ns:
+                sp.device_ms = sp.events[0].elapsed_time(sp.events[1])
+                sp.events = None
+
+    def span(self, name: str, device: bool = False, **attrs):
+        """A context manager over a block of the engine's work, yielding its
+        :class:`Span` (None while the tracer is off). ``device``: also time
+        the work the block launches, by a pair of CUDA events on the current
+        stream."""
+        if not self.on:
+            return _OFF
+        return self._record(name, device, attrs)
+
+    def note(self, name: str, **attrs) -> None:
+        """Add ``attrs`` to the innermost open span of ``name`` (nothing
+        while the tracer is off, or where no such span is open): how a
+        method tells the span its caller opened what it did."""
+        if not self.on:
+            return
+        for i in reversed(self._open):
+            if self.spans[i].name == name:
+                self.spans[i].attrs.update(attrs)
+                return
+
+    @contextlib.contextmanager
+    def _record(self, name: str, device: bool, attrs: dict):
+        events = None
+        if device and self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        # read after the events are made and recorded, so that the span
+        # starts with its block's work, not the tracer's
+        sp = Span(name, self.now(), self._open[-1] if self._open else -1,
+                  attrs, events=events)
+        self._open.append(len(self.spans))
+        self.spans.append(sp)
+        try:
+            yield sp
+        finally:
+            if events is not None:
+                events[1].record()
+            sp.end_ns = self.now()
+            if self._open and self.spans[self._open[-1]] is sp:
+                self._open.pop()
 
 
 # -- device-memory budget accounting (the JAX package's utils/metrics.py) --
