@@ -21,7 +21,11 @@ Phases (any failure raises: traceback, nonzero exit):
      and at the 32/64 prefill buckets; K2 at the 7B step and at the 13B step
      at phase 5's last positions (``ms_13b_step``); K3 at the 13B path's
      two prefills and at d = 256 (64-key tiles) at one Gemma-7B layer
-     (16 heads of 256, S = 2048), which no served path here runs.
+     (16 heads of 256, S = 2048), which no served path here runs. Not a
+     TPU kernel: the int4 cache's decode to bf16 (the weight of its
+     product above K1's M) at Mistral-7B's five shapes, bit for bit its
+     plain version, against 2.5 bytes per weight at HBM bandwidth; its
+     launches are counted on each path, as K1-K5's are.
   3. (run after phase 11a, in this process while phase 12a's ranks serve
      on the card; its card runs are not timed) full width against the
      CPU: a Llama-2-7B-width model with the int4
@@ -439,6 +443,63 @@ def phase_kernels_k1(K1, gen, dev, bw, int8_peak):
                      f"M={VERIFY_M} (B=8, gamma=4): the same 129 matmuls",
             # phase 7 puts its verify graph's K1 launches here
             "launches_per_step": None, **verify, "bound_by": "bytes"}}
+
+
+# (name, N, K, launches per prefill forward) of Mistral-7B's int4-cache
+# linears, fused projections: the shapes of the cache's decode to bf16
+DEQUANT_MISTRAL = [("qkv", 6144, 4096, 32), ("o", 4096, 4096, 32),
+                   ("gateup", 28672, 4096, 32), ("down", 4096, 14336, 32),
+                   ("lm_head", 32000, 4096, 1)]
+
+
+def phase_kernels_int4_dequant(K1, gen, dev, bw):
+    """The int4 cache's decode to bf16 (``csrc/int4_dequant.cu``; no TPU
+    kernel, XLA fuses it into the dot in the JAX package), the weight of
+    the cache's product above K1's M, at Mistral-7B's five shapes: bit for
+    bit its plain version (``dequant_int4`` on the card), timed from a CUDA
+    graph over copies that exceed L2, beside its bound: 2.5 bytes per
+    weight and the scales at HBM bandwidth. Totals: one prefill forward
+    (129 launches)."""
+    rows = []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, n, k, per_fwd in DEQUANT_MISTRAL:
+        nb = k // 128
+        nbytes = n * k * 2.5 + 4 * n * nb
+        copies = max(2, math.ceil(200e6 / nbytes))
+        ws = [(torch.randint(0, 256, (n, k // 2), generator=gen, device=dev,
+                             dtype=torch.uint8),
+               torch.rand((nb, n), generator=gen, device=dev) * 0.01 + 1e-3)
+              for _ in range(copies)]
+        q, sc = ws[0]
+        if not torch.equal(K1.dequant_int4_bf16(q, sc),
+                           K1.dequant_int4(q, sc, dtype=torch.bfloat16)):
+            raise AssertionError(f"int4 decode {name} N={n} K={k}: not "
+                                 "dequant_int4's bits")
+        kern = time_graph_ms([lambda q=q, sc=sc: K1.dequant_int4_bf16(q, sc)
+                              for q, sc in ws], iters=max(20, 2 * copies))
+        plain = time_ms([lambda: K1.dequant_int4(q, sc,
+                                                 dtype=torch.bfloat16)],
+                        iters=3)
+        bound = nbytes / bw * 1e3
+        rows.append({"shape": f"{name} N={n} K={k}", "kernel_ms": kern,
+                     "plain_ms": plain, "bound_ms": bound,
+                     "gb_per_s": nbytes / kern / 1e6, "per_forward": per_fwd})
+        for key, v in (("ms", kern), ("plain_ms", plain),
+                       ("bound_ms", bound)):
+            total[key] += per_fwd * v
+        del ws, q, sc
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "int4_dequant_bf16", "shapes": rows})
+    return {
+        "name": "int4_dequant_bf16", "route": "cuda",
+        "source": "tpu_bitsandbytes_torch/csrc/int4_dequant.cu",
+        "replaces": None, "not_a_tpu_kernel":
+            "XLA fusion (tpu_bitsandbytes/ops/int4cache.py:244-246)",
+        "shape": "one prefill forward of Mistral-7B: 32 x (qkv 6144x4096, "
+                 "o 4096x4096, gateup 28672x4096, down 4096x14336) + "
+                 "lm_head 32000x4096",
+        "max_abs_err": 0.0, "max_rel_err": 0.0, **total,
+        "kernel_ms": total["ms"], "bound_by": "bytes", "library_ms": None}
 
 
 def k2_inputs(gen, dev, *, layers, b, h, h_kv, d, s, span, c, start=0):
@@ -1479,7 +1540,13 @@ KERNEL_RE = {"K1_int4_matmul": r"tc_kernel<[^,]*\bInt4,",
              "K2_flash_decode": r"flash_decode_kernel<",
              "K3_flash_prefill": r"flash_prefill_kernel",
              "K4_w4a8_matmul": r"tc_kernel<[^,]*\bNf4,|w4a8_dp4a_kernel",
-             "K5_matmul4bit": r"mm4_(bf16|f32|wgmma)_kernel"}
+             "K5_matmul4bit": r"mm4_(bf16|f32|wgmma)_kernel",
+             "int4_dequant_bf16": r"int4_dequant_bf16_kernel"}
+
+
+def launches_want(**nonzero):
+    """Launches by counter: ``nonzero``'s, every other counter's 0."""
+    return {**{k: 0 for k in KERNEL_RE}, **nonzero}
 
 
 def step_breakdown(restore, run_chunk, steps, counters):
@@ -1864,16 +1931,33 @@ def phase_serve(dev, counters, plains):
     graphed engine's greedy tokens (an engine not warmed up), for phase
     12 that engine's teacher-forced logits on them
     (:func:`teacher_forced`), and for 15a the workload and the timed
-    graphed pass's ms per decode step."""
+    graphed pass's ms per decode step. Each admission group's prefill
+    forward launches 129 of one kernel: K1 at M = rows x bucket <= 64,
+    else the int4 cache's decode to bf16 before its tensor-core product."""
+    from tpu_bitsandbytes_torch.ops.int4cache import INT4_BLOCK, takes_kernel
     cfg, params, prompts, sp, kw = llama7b_workload(dev)
-    want = {"K1_int4_matmul": 129, "K2_flash_decode": 32,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    want = launches_want(K1_int4_matmul=129, K2_flash_decode=32)
     results = {}
     for mode in MODES:
         res, engine = serve_mode(dev, params, cfg, kw, mode, prompts, sp,
-                                 counters, plains, want)
+                                 counters, plains, want,
+                                 lambda: timed_prefills(counters))
         launches = res["passes"][-1]["launches"]
         steps = res["passes"][-1]["decode_steps"]
+        for p in res["passes"]:
+            groups = p["extra"]
+            for g in groups:
+                m = g["rows"] * g["bucket"]
+                k = ("K1_int4_matmul" if takes_kernel(
+                    m, cfg.hidden_size, cfg.hidden_size, INT4_BLOCK)
+                    else "int4_dequant_bf16")
+                if g["launches"] != {k: 129}:
+                    raise AssertionError(f"{mode}: prefill group {g}: "
+                                         f"expected 129 {k} launches")
+            if not any(g["launches"].get("int4_dequant_bf16")
+                       for g in groups):
+                raise AssertionError(f"{mode}: no prefill group above K1's "
+                                     f"M: {groups}")
         if launches["K2_flash_decode"] != 32 * steps:
             raise AssertionError(f"{mode}: K2 launches {launches} for "
                                  f"{steps} decode steps")
@@ -1981,9 +2065,8 @@ def phase_serve_packed(dev, counters, plains, bw, workload):
     pass's launches (equal to the graphed pass's) and K2's bound for one
     decode step at the slots' final positions (ms, 40 layers)."""
     cfg, params, prompts, sp, kw = workload
-    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": 4 * cfg.num_layers + 1,
-            "K5_matmul4bit": 0}
+    want = launches_want(K2_flash_decode=cfg.num_layers,
+                         K4_w4a8_matmul=4 * cfg.num_layers + 1)
     results = {}
     want_k5 = 2 * (4 * cfg.num_layers + 1)
     for mode in MODES:
@@ -2524,8 +2607,7 @@ def phase_auto(dev, counters, plains, workload):
     from tpu_bitsandbytes_torch.utils.metrics import format_footprint
     t_phase = time.perf_counter()
     cfg, params, prompts, sp, kw = workload
-    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    want = launches_want(K2_flash_decode=cfg.num_layers)
     no_matmul_kernels = ("K1_int4_matmul", "K4_w4a8_matmul", "K5_matmul4bit")
     kw = dict(kw, runtime_cache="auto")
     results, footprint = {}, None
@@ -3716,9 +3798,8 @@ def phase_mixtral(dev, counters, plains):
     from tpu_bitsandbytes_torch.engine import engine as E
     cfg, params, prompts, sp, kw = mixtral_workload(dev)
     per_step = cfg.num_layers * (2 + 2 * cfg.num_experts) + 1
-    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": per_step,
-            "K5_matmul4bit": 0}
+    want = launches_want(K2_flash_decode=cfg.num_layers,
+                         K4_w4a8_matmul=per_step)
     results, fp = {}, None
     for mode in MODES:
         res, engine = serve_mode(dev, params, cfg, kw, mode, prompts, sp,
@@ -3842,10 +3923,10 @@ def phase_mixtral_cpu(dev, counters, plains, K2, cpu):
     launches = counts(counters)
     no_plain_calls(plains, "mixtral 2 layers")
     per_layer = 2 + 2 * cfg.num_experts
-    want = {"K1_int4_matmul": 0, "K3_flash_prefill": 0,
-            "K2_flash_decode": MOE_STEPS * cfg.num_layers,
-            "K4_w4a8_matmul": MOE_STEPS * (cfg.num_layers * per_layer + 1),
-            "K5_matmul4bit": cfg.num_layers * per_layer + 1}
+    want = launches_want(
+        K2_flash_decode=MOE_STEPS * cfg.num_layers,
+        K4_w4a8_matmul=MOE_STEPS * (cfg.num_layers * per_layer + 1),
+        K5_matmul4bit=cfg.num_layers * per_layer + 1)
     if launches != want or len(notes) != len(cpu_x):
         raise AssertionError(f"mixtral 2 layers: launches {launches}, "
                              f"expected {want}; {len(notes)} K4 calls fed "
@@ -3968,9 +4049,8 @@ def phase_gemma2(dev, counters, plains, bw, bf16_peak, K2, K3,
     torch.cuda.synchronize()
     launches = counts(counters)
     no_plain_calls(plains, "gemma2")
-    want = {"K1_int4_matmul": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0,
-            "K3_flash_prefill": cfg.num_layers,
-            "K2_flash_decode": GEMMA2_STEPS * cfg.num_layers}
+    want = launches_want(K3_flash_prefill=cfg.num_layers,
+                         K2_flash_decode=GEMMA2_STEPS * cfg.num_layers)
     if launches != want:
         raise AssertionError(f"gemma2: launches {launches}, expected {want}")
     del k2_calls[cfg.num_layers:]   # the first step's calls, one a layer
@@ -4286,7 +4366,8 @@ def kernel_counters():
             "K2_flash_decode": K2.flash_decode_attention,
             "K3_flash_prefill": K3.flash_prefill_attention,
             "K4_w4a8_matmul": K4.w4a8_mm,
-            "K5_matmul4bit": K5.matmul4bit_mm}
+            "K5_matmul4bit": K5.matmul4bit_mm,
+            "int4_dequant_bf16": K1.dequant_int4_bf16}
 
 
 def kernel_plains():
@@ -4586,8 +4667,7 @@ def phase_mesh_7b(world, outs_7b, forced_7b, smi):
     # phase 4's: 129 K1 (4 fused linears a layer and the lm_head) and 32
     # K2 at 32 layers; every shard shape takes K1 by JAX's rule
     n_l = r0["layers"]
-    want = {"K1_int4_matmul": 4 * n_l + 1, "K2_flash_decode": n_l,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    want = launches_want(K1_int4_matmul=4 * n_l + 1, K2_flash_decode=n_l)
     for r, out in enumerate(res):
         if out["launches_per_step"] != want:
             raise AssertionError(f"12a rank {r}: launches per decode step "
@@ -5367,9 +5447,8 @@ def phase_window_stage(dev, counters, plains, params, cfg, prompts, sp, kw,
                                  "two-block stage's")
     n, b = engine.steps_per_sync, kw["max_batch"]
     # four fused linears a layer and the head on K1, one K2 a layer
-    want = {"K1_int4_matmul": 4 * cfg.num_layers + 1,
-            "K2_flash_decode": cfg.num_layers, "K3_flash_prefill": 0,
-            "K4_w4a8_matmul": 0, "K5_matmul4bit": 0}
+    want = launches_want(K1_int4_matmul=4 * cfg.num_layers + 1,
+                         K2_flash_decode=cfg.num_layers)
     per_graph = graph_per_step(engine)
     last = passes[-1]
     steps = last["decode_steps"]
@@ -5490,9 +5569,8 @@ def phase_gemma2_serve(dev, counters, plains, K2):
     t_phase = time.perf_counter()
     cfg, params, prompts, sp, kw = gemma2_serve_workload(dev)
     k4_step = 4 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
-    want = {"K1_int4_matmul": 0, "K2_flash_decode": cfg.num_layers,
-            "K3_flash_prefill": 0, "K4_w4a8_matmul": k4_step,
-            "K5_matmul4bit": 0}
+    want = launches_want(K2_flash_decode=cfg.num_layers,
+                         K4_w4a8_matmul=k4_step)
     k3_groups = sum(1 for b in {E._bucket(n, kw["max_seq"])
                                 for n in GEMMA2_PROMPTS}
                     if b >= 1024 and jax_takes_its_kernel(b, cfg.hd))
@@ -5808,6 +5886,9 @@ def main() -> int:
                phase_kernels_k4(K4, gen, dev, bw, int8_peak),
                phase_kernels_k5(K5, TF, gen, dev, bw, bf16_peak)]
     torch.cuda.empty_cache()
+    # not a TPU kernel: the int4 cache's decode to bf16 (its launches are
+    # counted on the paths, below)
+    dequant = phase_kernels_int4_dequant(K1, gen, dev, bw)
     # not a TPU kernel: the int8 and bf16 runtime caches' product
     phase_cache_dots(dev, gen, bw)
     torch.cuda.empty_cache()
@@ -5934,6 +6015,7 @@ def main() -> int:
     by_path["gemma2_9b_42l_packed"] = phase_gemma2_serve(dev, counters,
                                                          plains, K2)
     by_path.update(phase_mistral_ring(dev, counters, plains))
+    kernels.append(dequant)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

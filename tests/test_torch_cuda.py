@@ -10,7 +10,9 @@ use.) Inputs come from numpy seeds; the same tensors run the plain version
 on the CPU and the kernel on the card.
 
 Tolerances, as shares of max|ref|: K1 and K4 1e-5 (the int32 block dots
-are exact, only the f32 sum order differs); K2 1e-3 (f32 sums in
+are exact, only the f32 sum order differs), and the int4 cache's bf16
+product above K1's M too (exact bf16 products, f32 sums in another order;
+its decode to bf16 is bit-identical); K2 1e-3 (f32 sums in
 another order, a probability whose bf16 rounding flips); K5 1e-5 in f32 (exact
 products, f32 sums in another order) and 1e-4 in bf16 (the same bf16
 operands, each weight rounded once, f32 sums in another order: a weight
@@ -92,23 +94,76 @@ def test_int4_mm_matches_plain(cuda, m, n, k):
     assert rel_err(got, ref) <= 1e-5
 
 
-@pytest.mark.parametrize("m", [1, 8, 64, 65])
-def test_int4_matmul_card_matches_cpu(cuda, m):
+@pytest.mark.parametrize("m,dtype", [
+    (1, "float32"), (8, "float32"), (64, "float32"), (65, "float32"),
+    (65, "bfloat16"), (512, "bfloat16"), (2048, "bfloat16")])
+def test_int4_matmul_card_matches_cpu(cuda, m, dtype):
     """The cache build and the wrapper's A8 row quantization give the
-    CPU's codes on the card; M = 65 takes the dequant branch."""
+    CPU's codes on the card; M = 65 takes the dequant branch, in f32 the
+    widened product, in bf16 the decode kernel (once) and a bf16 GEMM with
+    an f32 output, against the CPU's widened product: the same exact
+    products, f32 sums in another order."""
     rng = np.random.default_rng(m)
     w = torch.from_numpy(
         (rng.standard_normal((640, 384)) * 0.05).astype(np.float32))
-    x = torch.from_numpy(rng.standard_normal((m, 384)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((m, 384)).astype(np.float32)
+                         ).to(getattr(torch, dtype))
     q, s = K1.quantize_int4(w)
     q_c, s_c = K1.quantize_int4(w.to(cuda))
     assert torch.equal(q_c.cpu(), q) and torch.equal(s_c.cpu(), s)
     ref = K1.int4_matmul(x, q, s, out_dtype=torch.float32)
-    before = K1.int4_mm.launches
+    before = K1.int4_mm.launches, K1.dequant_int4_bf16.launches
     got = K1.int4_matmul(x.to(cuda), q_c, s_c, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert K1.int4_mm.launches == before + (m <= 64)
+    assert (K1.int4_mm.launches, K1.dequant_int4_bf16.launches) == (
+        before[0] + (m <= 64), before[1] + (dtype == "bfloat16"))
     assert rel_err(got, ref) <= 1e-5
+
+
+# (N, K): Mistral-7B's int4-cache linears (fused q/k/v, o, fused gate/up,
+# down, the head), a padded K (200 -> 256) and an N off every tile
+DEQUANT_SHAPES = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                  (32000, 4096), (512, 200), (200, 384)]
+
+
+@pytest.mark.parametrize("n,k", DEQUANT_SHAPES)
+def test_dequant_int4_bf16_matches_plain(cuda, n, k):
+    """The decode kernel gives ``dequant_int4(..., dtype=bfloat16)``'s bits
+    on every code (all 16 nibbles, -8 included) and a scale per (block,
+    row), one launch a call."""
+    rng = np.random.default_rng(n + k)
+    kp = -(-k // 128) * 128
+    q = torch.from_numpy(rng.integers(0, 256, (n, kp // 2), dtype=np.uint8))
+    s = torch.from_numpy(
+        rng.uniform(1e-4, 1e-1, (kp // 128, n)).astype(np.float32))
+    ref = K1.dequant_int4(q, s, dtype=torch.bfloat16)
+    before = K1.dequant_int4_bf16.launches
+    got = K1.dequant_int4_bf16(q.to(cuda), s.to(cuda))
+    torch.cuda.synchronize()
+    assert K1.dequant_int4_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (n, kp)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_dequant_int4_bf16_rejects_bad_operands(cuda):
+    q = torch.zeros((128, 128), dtype=torch.uint8, device=cuda)
+    s = torch.ones((2, 128), device=cuda)
+    with pytest.raises(TypeError):
+        K1.dequant_int4_bf16(q.to(torch.int8), s)
+    with pytest.raises(TypeError):
+        K1.dequant_int4_bf16(q, s.double())
+    with pytest.raises(ValueError):
+        K1.dequant_int4_bf16(q, s[:, :64])
+    with pytest.raises(ValueError):
+        K1.dequant_int4_bf16(q, torch.ones((3, 128), device=cuda))
+    strided = torch.zeros((128, 256), dtype=torch.uint8, device=cuda)[:, ::2]
+    with pytest.raises(ValueError):
+        K1.dequant_int4_bf16(strided, s)
+    with pytest.raises(ValueError):
+        K1.dequant_int4_bf16(q, s.t().contiguous().t())
+    shifted = torch.zeros((128 * 64 + 1,), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        K1.dequant_int4_bf16(shifted[1:].view(128, 64), s[:1])
 
 
 def test_int4_mm_rejects_bad_operands(cuda):

@@ -178,6 +178,7 @@ def test_every_kernel_counter_is_registered():
                                             matmul4bit, w4a8)
     want = {(int4cache.int4_mm, "launches"),
             (int4cache.int4_mm_plain, "cuda_calls"),
+            (int4cache.dequant_int4_bf16, "launches"),
             (flash_decode.flash_decode_attention, "launches"),
             (flash_decode.flash_decode_plain, "cuda_calls"),
             (flash_prefill.flash_prefill_attention, "launches"),
@@ -194,13 +195,36 @@ def test_every_kernel_counter_is_registered():
      "void flash_decode_kernel<128, 8>(signed char const*, float*)"),
     ("_Z9tc_kernelI4Int4Li8EEvPKaPf",
      "void tc_kernel<Int4, 8>(signed char const*, float*)"),
-    ("w4a8_dp4a_kernel", "w4a8_dp4a_kernel")])
+    ("w4a8_dp4a_kernel", "w4a8_dp4a_kernel"),
+    ("_Z24int4_dequant_bf16_kernelPKjPKfP5uint4xiii",
+     "int4_dequant_bf16_kernel(unsigned int const*, float const*, uint4*, "
+     "long long, int, int, int)")])
 def test_graph_census_names_kernels_as_the_profiler_does(mangled, name):
     """A graph's kernel nodes are counted by demangled name, the form the
     profiler's records and ``chip_smoke.KERNEL_RE`` use; an ``extern "C"``
     name stays as it is."""
     from tpu_bitsandbytes_torch.utils.graph_census import demangle
     assert demangle(mangled) == name
+
+
+def test_chip_smoke_counts_every_kernel_launch():
+    """``chip_smoke.py`` resets and reads every registered launch counter
+    on each of its paths, and finds each counter's kernels in a graph by
+    name: its counters are the registry's launch counters, with one name
+    pattern each, and the decode of the int4 cache to bf16 matches its own
+    pattern alone (not K1's, which the benchmark's K1 roofline reads)."""
+    import chip_smoke
+    from tpu_bitsandbytes_torch.ops import _build
+    from tpu_bitsandbytes_torch.utils.graph_census import demangle
+    counters = chip_smoke.kernel_counters()
+    assert ({id(f) for f, attr in _build.COUNTERS if attr == "launches"}
+            == {id(f) for f in counters.values()})
+    assert chip_smoke.KERNEL_RE.keys() == counters.keys()
+    name = demangle("_Z24int4_dequant_bf16_kernelPKjPKfP5uint4xiii")
+    assert [k for k, rx in chip_smoke.KERNEL_RE.items()
+            if re.search(rx, name)] == ["int4_dequant_bf16"]
+    assert chip_smoke.launches_want(K2_flash_decode=3) == {
+        k: 3 if k == "K2_flash_decode" else 0 for k in counters}
 
 
 def test_forward_logits_match_f32():

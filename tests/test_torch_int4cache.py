@@ -146,6 +146,69 @@ def test_cpu_calls_take_the_plain_version():
     assert (T.int4_mm.launches, T.int4_mm_plain.cuda_calls) == before
 
 
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_large_m_route_follows_its_inputs(dtype, grad):
+    """Above K1's M, only a bf16 x on a card that records no gradient takes
+    the bf16 decode and the tensor-core GEMM. On the CPU, in f32, and for an
+    x that records a gradient, the product is the widened one: x and the
+    cache dequantized to x's dtype, both in f32, one f32 matmul (which
+    differentiates in x); the decode kernel never runs."""
+    n, k, m = 256, 200, 80
+    _, _, tq, ts = _both(_w(n, k, seed=13))
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (m, k)).astype(np.float32)).to(td).requires_grad_(grad)
+    assert not T.takes_kernel(m, n, 256, T.INT4_BLOCK)
+    before = T.dequant_int4_bf16.launches, T.int4_mm.launches
+    got = T.int4_matmul(x, tq, ts, out_dtype=torch.float32)
+    xp = torch.nn.functional.pad(x.detach(), (0, 256 - k)).to(torch.float32)
+    want = xp @ T.dequant_int4(tq, ts, dtype=td).to(torch.float32).t()
+    assert torch.equal(got.detach(), want)
+    assert (T.dequant_int4_bf16.launches, T.int4_mm.launches) == before
+    assert (got.grad_fn is not None) == grad
+    if grad:
+        g = torch.ones_like(got)
+        got.backward(g)
+        d_x = g @ T.dequant_int4(tq, ts, dtype=td).to(torch.float32)
+        assert torch.equal(x.grad, d_x[:, :k].to(td))
+
+
+@pytest.mark.parametrize("n,k,bs", [(200, 200, 128), (96, 512, 32),
+                                    (64, 1024, 256), (24, 100, 8)])
+def test_dequant_kernel_layout_gives_dequant_int4(n, k, bs):
+    """``csrc/int4_dequant.cu`` mirrored in numpy: word w = n * (K_pad/8) + c
+    (four bytes of codes, loaded and stored by one lane) takes the scale of
+    block c // (bs / 8) of row n; each byte
+    gives one 32-bit word of two bf16 values (the low nibble's, sign-fixed
+    as (v ^ 8) - 8, in the low half), f32 products rounded to nearest even,
+    and the four words one 16-byte store at out[n, 8 c:8 c + 8]. Bit for
+    bit the CPU's ``dequant_int4(..., dtype=bfloat16)``, which
+    ``dequant_int4_bf16`` returns on the CPU."""
+    rng = np.random.default_rng(n + k + bs)
+    tq, ts = T.quantize_int4(torch.from_numpy(_w(n, k, seed=bs)), bs)
+    tq = torch.from_numpy(rng.integers(0, 256, tuple(tq.shape),
+                                       dtype=np.uint8))
+    codes, scales = tq.numpy(), ts.numpy()
+    kp = codes.shape[1] * 2
+    per_row = kp // 8
+    w = np.arange(n * per_row)
+    row, c = w // per_row, w % per_row
+    s = scales[c // (bs // 8), row]                         # [words]
+    b = codes.reshape(-1, 4).astype(np.int32)               # [words, 4]
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = (((b >> 4) & 0xF) ^ 8) - 8
+    prod = np.stack([lo, hi], -1).astype(np.float32) * s[:, None, None]
+    bits = torch.from_numpy(prod).to(torch.bfloat16).view(torch.int16)
+    pairs = (bits[..., 0].to(torch.int32) & 0xFFFF) | (
+        bits[..., 1].to(torch.int32) << 16)                 # [words, 4]
+    out = pairs.numpy().astype("<i4")
+    want = T.dequant_int4(tq, ts, dtype=torch.bfloat16)
+    assert np.array_equal(out.reshape(n, kp // 2).view("<u2"),
+                          want.view(torch.int16).numpy().view("<u2"))
+    assert torch.equal(T.dequant_int4_bf16(tq, ts), want)
+
+
 # The tensor-core K1 (csrc/int4_matmul.cu on csrc/a8_tc.cuh), mirrored in
 # numpy. Its decode sign-extends the low and the high nibbles of a packed
 # word apart and interleaves them with two byte permutes, so that it gives

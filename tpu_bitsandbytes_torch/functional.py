@@ -631,7 +631,7 @@ def matmul_fp8_e4m3(input: torch.Tensor, weight: torch.Tensor,
     """``x @ decode(W).T`` with E4M3 weight bits [N, K]: the decoded weight
     in ``dtype``, an f32 product, the f32 row scale on the output, cast to
     ``dtype``, then the bias in ``dtype`` (the JAX package's order)."""
-    from .models.layers import dot_f32   # it imports this module
+    from .ops.dot import dot_f32   # ops imports this module
     x = input[None, :] if input.dim() == 1 else input
     lead = x.shape[:-1]
     w = _decode_fp8(weight, torch.float8_e4m3fn).to(dtype)

@@ -17,6 +17,7 @@ import torch
 from ..functional import (QuantState, _pad_k, dequantize_4bit,
                           dequantize_blockwise, div_exact, matmul_4bit,
                           quantize_4bit, quantize_blockwise)
+from ..ops.dot import dot_f32
 from ..ops.flash_prefill import flash_prefill_attention, tiled_attention
 from ..ops.int4cache import int4_matmul, quantize_int4
 from ..ops.w4a8 import takes_w4a8, w4a8_matmul_4bit
@@ -156,18 +157,6 @@ class QLinear4:
             out = matmul_4bit(x2, self.packed.reshape(-1), self.quant_state(),
                               bias=self.bias, compute_dtype=self.dtype)
         return out.reshape(*lead, n)
-
-
-def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` in f32, the JAX package's ``dot_general(...,
-    preferred_element_type=float32)`` of x with ``w`` cast to x's dtype
-    (``w``'s values must be exact in it: int8 codes, or a tensor of x's
-    dtype): the product is never rounded to a half-precision type. On a
-    card a half-precision x takes one GEMM with an f32 output (``mm``'s
-    ``out_dtype``); elsewhere both operands are widened to f32 (exact)."""
-    if x.is_cuda and x.dtype != torch.float32:
-        return torch.mm(x, w.to(x.dtype).t(), out_dtype=torch.float32)
-    return x.to(torch.float32) @ w.to(torch.float32).t()
 
 
 def cache_matmul(x2: torch.Tensor, w_cache: torch.Tensor,

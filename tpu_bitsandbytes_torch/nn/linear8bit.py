@@ -51,7 +51,7 @@ class Linear8bit(Module):
         self._weight_cache = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        from ..models.layers import dot_f32
+        from ..ops.dot import dot_f32
         if self.use_cache:
             weight = self._get_weight()
             out = x.to(weight.dtype) @ weight.t()

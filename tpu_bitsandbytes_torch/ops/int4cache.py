@@ -8,13 +8,21 @@ Unlike the JAX package's cache it carries no N padding.
 
 :func:`int4_matmul` keeps the JAX package's arithmetic: decode-shaped calls
 quantize the activations to int8 per row (A8) and run kernel K1
-(``csrc/int4_matmul.cu``); every other call dequantizes the weight and runs
-one f32-accumulated product. The two branches give different numbers (the
-second does no A8 quantization), so the port takes the branch the JAX
-package takes for every shape (:func:`takes_kernel`). The kernel branch
-differentiates in x through :class:`Int4MatmulFn`, the JAX package's
+(``csrc/int4_matmul.cu``); every other call dequantizes the weight to x's
+dtype and runs one f32-accumulated product. The two branches give different
+numbers (the second does no A8 quantization), so the port takes the branch
+the JAX package takes for every shape (:func:`takes_kernel`). The kernel
+branch differentiates in x through :class:`Int4MatmulFn`, the JAX package's
 straight-through rule: the A8 quantization stays inside the boundary and
 d_x is the f32 cotangent times the dequantized weight.
+
+In the second branch a bf16 x on a card that records no gradient takes the
+tensor cores: :func:`dequant_int4_bf16` (``csrc/int4_dequant.cu``) decodes
+the cache to bf16 and :func:`~.dot.dot_f32` runs one bf16 GEMM that
+writes f32, the JAX package's bf16 x bf16 dot with f32 accumulation. Every other input
+(CPU tensors, an f32 or f16 x, an x that records a gradient) widens both
+operands to f32, which for a bf16 x computes the same exact products: a
+product of two bf16 values is exact in f32.
 """
 
 from __future__ import annotations
@@ -26,11 +34,12 @@ import torch
 
 from ..functional import div_exact, pack_nibbles, unpack_nibbles
 from . import _build
+from .dot import dot_f32
 from .w4a8 import quantize_a8
 
 __all__ = ["INT4_BLOCK", "Int4MatmulFn", "quantize_int4", "dequant_int4",
-           "unpack_int4", "int4_matmul", "int4_mm", "int4_mm_plain",
-           "takes_kernel"]
+           "dequant_int4_bf16", "unpack_int4", "int4_matmul", "int4_mm",
+           "int4_mm_plain", "takes_kernel"]
 
 INT4_BLOCK = 128
 _MAX_M = 64
@@ -122,7 +131,7 @@ _LIB = {}
 
 
 def _launcher():
-    if not _LIB:
+    if "launch" not in _LIB:
         lib = _build.library("int4_matmul")
         fn, plan = lib.tbnb_int4_matmul, lib.tbnb_int4_plan
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -177,6 +186,52 @@ def int4_mm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 _build.counter(int4_mm, "launches")
 
 
+def dequant_int4_bf16(packed: torch.Tensor, scales: torch.Tensor
+                      ) -> torch.Tensor:
+    """[N, K_pad/2] packed + [nb, N] scales -> bf16 [N, K_pad], bit for bit
+    ``dequant_int4(packed, scales, dtype=torch.bfloat16)``. CUDA tensors
+    launch ``csrc/int4_dequant.cu`` (counted in
+    ``dequant_int4_bf16.launches``; the block K_pad / nb a multiple of 8);
+    CPU tensors take :func:`dequant_int4`."""
+    if not packed.is_cuda:
+        return dequant_int4(packed, scales, dtype=torch.bfloat16)
+    if packed.dtype != torch.uint8 or scales.dtype != torch.float32:
+        raise TypeError("dequant_int4_bf16: expected uint8 codes and f32 "
+                        "scales")
+    if packed.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"dequant_int4_bf16: bad ranks codes "
+                         f"{tuple(packed.shape)} scales {tuple(scales.shape)}")
+    (n, half), nb = packed.shape, scales.shape[0]
+    kp = half * 2
+    if (scales.shape != (nb, n) or nb < 1 or kp % nb or (kp // nb) % 8):
+        raise ValueError(f"dequant_int4_bf16: bad shapes codes "
+                         f"{tuple(packed.shape)} scales {tuple(scales.shape)}")
+    if not (scales.is_cuda and scales.device == packed.device
+            and packed.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("dequant_int4_bf16: codes and scales must be "
+                         "contiguous tensors on one CUDA device")
+    if packed.data_ptr() % 4:
+        raise ValueError("dequant_int4_bf16: the codes must start on a "
+                         "4-byte boundary (the kernel loads 4 bytes at a "
+                         "time)")
+    if "dequant" not in _LIB:
+        fn = _build.library("int4_dequant").tbnb_int4_dequant_bf16
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB["dequant"] = fn
+    out = torch.empty((n, kp), dtype=torch.bfloat16, device=packed.device)
+    err = _LIB["dequant"](packed.data_ptr(), scales.data_ptr(),
+                          out.data_ptr(), n, kp, kp // nb,
+                          torch.cuda.current_stream(packed.device).cuda_stream)
+    _build.check(err, "int4_dequant")
+    dequant_int4_bf16.launches += 1
+    return out
+
+
+_build.counter(dequant_int4_bf16, "launches")
+
+
 def _a8_int4_mm(x, w, scales, group=None):
     """x [M, K_pad] -> f32 [M, N]: A8 (:func:`~.w4a8.quantize_a8`, its row
     scale all-reduced over ``group`` on a row-parallel shard), then K1."""
@@ -214,7 +269,11 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
     Where the JAX package runs its kernel (:func:`takes_kernel`), x is
     quantized per row to int8 (``s_x = rowmax|x| / 127``, round half to
     even, clip to +-127) and K1 computes the product; elsewhere the weight
-    is dequantized to x's dtype and multiplied with f32 accumulation.
+    is dequantized to x's dtype and multiplied with f32 accumulation: for
+    a bf16 x on a card that records no gradient, :func:`dequant_int4_bf16`
+    and one bf16 GEMM with an f32 output on the tensor cores; for every
+    other x (on the CPU, f32 or f16, or recording a gradient), both
+    operands widened to f32.
     ``blocksize`` defaults to what the scales' shape implies; ``n_out``
     keeps the first ``n_out`` output columns. ``xmax_group``: on a
     row-parallel shard, the tensor-parallel group over which the A8 row
@@ -236,6 +295,11 @@ def int4_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, *,
             out = Int4MatmulFn.apply(x, w, scales, blocksize)
         else:
             out = _a8_int4_mm(x, w, scales, xmax_group)
+    elif (x.is_cuda and x.dtype == torch.bfloat16
+          and not _build.records_grad(x)):
+        # bf16 products are exact in f32: the widened product's numbers,
+        # on the tensor cores (dot_f32's GEMM has no derivative)
+        out = dot_f32(x, dequant_int4_bf16(w, scales))
     else:
         wd = dequant_int4(w, scales, blocksize, dtype=x.dtype)
         out = x.to(torch.float32) @ wd.to(torch.float32).t()
